@@ -7,18 +7,26 @@
 It first builds the CUDA kernels from sde_sampler_torch/csrc (timed) and
 prints nvcc's register and spill report. Phases:
   kernels  hold each kernel against its plain PyTorch version on the card,
-           at the shapes of the main path (weights and inputs from a numpy
-           seed), with the stated tolerances;
-  main     drive the main path through the entry point
-           (`sde_sampler_torch.main`): DIS on the funnel (d = 10), two-phase
-           LV loss, batch 2048 x 200 EM steps, width-64 LerpCtrl, 220
-           optimizer steps (past the clip milestone 200), then the
-           final evaluation (100k-sample rollout, both log Z estimators,
-           ESS, Sinkhorn against exact funnel samples). The launch counts
-           are zeroed just before and read just after: every kernel must
-           have run on the path;
-  timing   time an optimizer step, each kernel and its plain version at
-           the main-path shapes, and one full Sinkhorn evaluation.
+           at the shapes of the paths that run it (weights and inputs from a
+           numpy seed), with the stated tolerances: kernel 1 (EM rollout) in
+           its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
+           grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
+           grid, softmin and transport at 100k x 100k;
+  main     drive each path through the entry point (`sde_sampler_torch.main`)
+           on the funnel (d = 10) at full width, each with the launch counts
+           zeroed just before and read just after; every kernel of the path
+           must have run on it:
+             dis        two-phase LV, batch 2048 x 200 EM steps, LerpCtrl,
+                        220 optimizer steps (past the clip milestone 200),
+                        then the final 100k evaluation (both log Z
+                        estimators, ESS, Sinkhorn against exact samples);
+             dds        two-phase LV through kernel 2, batch 2048 x 257
+                        cosine steps, ScoreCtrl, 220 steps, 100k evaluation;
+             dds_euler  EulerDDS (VP) and pis (PIS, scaled BM, Dirac prior):
+             pis        kernel 1's ScoreCtrl form, 20 steps, 10k evaluation;
+  timing   time the DIS and DDS optimizer steps (with a profiler breakdown),
+           each kernel and its plain version at its path's shapes, and one
+           full Sinkhorn evaluation.
 
 It prints the card's name and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
@@ -49,13 +57,21 @@ PEAK_BYTES_PER_S = 3.35e12
 DIM, BATCH, STEPS, WIDTH, HIDDEN = 10, 2048, 200, 64, 2
 EVAL_BATCH = 100_000
 EPS = 1e-3  # Sinkhorn eps (eval/sinkhorn.py default)
+# DDS (conf/solver/dds.yaml, conf/loss/exponential_sde_lv.yaml): the cosine
+# grid on [0, 12.8] at dt 0.05 (257 steps, the last ones of length 0)
+DDS_GRID = dict(start=0.0, end=12.8, dt=0.05, rescale_t="cosine")
+DDS_ALPHA, DDS_SIGMA = 1.0, 1.0
+SHORT_STEPS, SHORT_EVAL = 20, 10_000  # the EulerDDS and PIS paths
 
 # Tolerances of kernel vs plain version, both float32 on the card:
 # - rollout: the two sum the 64-wide products in another order (sequential
 #   fma vs cuBLAS). One step from the same state differs by a few ulp:
 #   |k - p| <= 1e-5 + 1e-5 |p|. Over 200 steps these differences compound
 #   through the funnel score exp(-x0) and the expanding VP drift, so the
-#   whole rollout is held to 1e-3 + 1e-3 |p|;
+#   whole rollout is held to 1e-3 + 1e-3 |p|. Kernel 1's ScoreCtrl form and
+#   kernel 2 (rollout_exp) run the same net and are held to the same
+#   tolerances (the exponential integrator contracts, a < 1, so its errors
+#   compound less than the VP drift's);
 # - softmin: a 100k-term logsumexp at eps = 1e-3 (z up to 1e4, ulp 1e-3)
 #   times eps, summed in another order: atol 1e-4 on values of order 1;
 # - transport: a sum of 1e10 products, per-row in float32 then in float64
@@ -63,15 +79,33 @@ EPS = 1e-3  # Sinkhorn eps (eval/sinkhorn.py default)
 TOL = {"rollout_step": (1e-5, 1e-5), "rollout": (1e-3, 1e-3),
        "softmin": (1e-4, 0.0), "transport": (0.0, 1e-4)}
 
+KERNELS = ("rollout", "rollout_exp", "softmin", "transport")
 REPLACES = {
     "rollout": "sde_sampler_tpu/ops/rollout_pallas.py:68",
+    "rollout_exp": "sde_sampler_tpu/ops/rollout_pallas.py:229",
     "softmin": "sde_sampler_tpu/ops/sinkhorn_pallas.py:212",
     "transport": "sde_sampler_tpu/ops/sinkhorn_pallas.py:221",
 }
 SOURCES = {
     "rollout": "sde_sampler_torch/csrc/rollout.cu",
+    "rollout_exp": "sde_sampler_torch/csrc/rollout.cu",
     "softmin": "sde_sampler_torch/csrc/sinkhorn.cu",
     "transport": "sde_sampler_torch/csrc/sinkhorn.cu",
+}
+# The paths of the main phase, the kernels (by "<kernel>.<form>" for the
+# rollouts) each must launch, and their depth. After 20 steps the EulerDDS
+# control is barely trained, and about a quarter of its evaluation
+# trajectories reach rnd >= max_rnd (2389 of 10000 at seed 0 on an H100):
+# there a single overflowing trajectory would make the plain LB means
+# infinite, so the short paths are held to their finite means.
+LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb", "eval/log_norm_const_lb_ito"]
+FINITE_LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb_finite",
+                     "eval/log_norm_const_lb_ito_finite"]
+PATHS = {
+    "dis": (("rollout.lerp", "softmin", "transport"), None, None, LOG_Z_KEYS),
+    "dds": (("rollout_exp.score", "softmin", "transport"), None, None, LOG_Z_KEYS),
+    "dds_euler": (("rollout.score",), SHORT_STEPS, SHORT_EVAL, FINITE_LOG_Z_KEYS),
+    "pis": (("rollout.score",), SHORT_STEPS, SHORT_EVAL, FINITE_LOG_Z_KEYS),
 }
 
 
@@ -111,10 +145,12 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rollout_work(B, T, d, C, H):
+def rollout_work(B, T, d, C, H, per_coord=25):
     # multiply-adds of the net (2 flops each), GELU with erf (~10 flops per
-    # activation) and about 25 flops of score and EM update per coordinate
-    ops = T * B * (2 * C * (2 * d + H * C) + 10 * C * (H + 1) + 25 * d)
+    # activation) and `per_coord` flops of score and update per coordinate
+    # (about 25 for the LerpCtrl EM step, 20 for the ScoreCtrl exponential
+    # integrator: funnel score 8, clips and score term 4, update 4, exp 4)
+    ops = T * B * (2 * C * (2 * d + H * C) + 10 * C * (H + 1) + per_coord * d)
     nbytes = 4 * (B * d + T * B * d + T * (6 + C) + 2 * C * d + H * C * (C + 1) + d
                   + T * B * d + B * d)
     return ops, nbytes
@@ -152,6 +188,78 @@ def seeded_ctrl(device):
             b = 1.0 / math.sqrt(p.shape[-1]) if p.ndim == 2 else 0.1
             p.copy_(torch.from_numpy(rng.uniform(-b, b, p.shape).astype(np.float32)))
     return ctrl.to(device), rng
+
+
+def seeded_score_ctrl(device, seed):
+    """The ScoreCtrl of the DDS, EulerDDS and PIS paths (conf/model/score.yaml,
+    clips 10/10), with weights drawn from a numpy seed."""
+    import numpy as np
+    import torch
+
+    from sde_sampler_torch.distr.funnel import Funnel
+    from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+    from sde_sampler_torch.models.reparam import ScoreCtrl
+
+    target = Funnel(dim=DIM, n_reference_samples=1000).to(device)
+    ctrl = ScoreCtrl(
+        base_model=FourierMLP(dim=DIM, num_layers=HIDDEN + 2, channels=WIDTH),
+        score_model=TimeEmbed(dim_out=1, num_layers=4, channels=WIDTH),
+        target_score=target.score, clip_model=10.0, clip_score=10.0, detach_score=False,
+    )
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in ctrl.parameters():
+            b = 1.0 / math.sqrt(p.shape[-1]) if p.ndim == 2 else 0.1
+            p.copy_(torch.from_numpy(rng.uniform(-b, b, p.shape).astype(np.float32)))
+    return ctrl.to(device), rng
+
+
+def dds_inputs(device, rng):
+    """The DDS grid, prior samples and standard-normal noise."""
+    import numpy as np
+    import torch
+
+    from sde_sampler_torch.utils.common import get_timesteps
+
+    ts = get_timesteps(**DDS_GRID, device=device)
+    T = ts.shape[0] - 1
+    x0 = torch.from_numpy(rng.standard_normal((BATCH, DIM)).astype(np.float32)).to(device)
+    noise = torch.from_numpy(rng.standard_normal((T, BATCH, DIM)).astype(np.float32)).to(device)
+    return x0, ts, noise
+
+
+def check_rollout(name, run, plain, x0, ts, noise, report_key, report):
+    """A rollout kernel against its plain twin: one step from the twin's own
+    states (no compounding) at five steps, then the whole rollout."""
+    T = ts.shape[0] - 1
+    xs_k, xT_k = run(x0, ts, noise)
+    xs_p, xT_p = plain(x0, ts, noise)
+    if not bool((xs_k[0] == x0).all()):
+        fail(f"{name}: xs[0] != x0")
+    step_err = 0.0
+    for k in (0, T // 4, T // 2, 3 * T // 4, T - 1):
+        _, x1 = run(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1])
+        want = xT_p if k == T - 1 else xs_p[k + 1]
+        ok, err = within(x1, want, *TOL["rollout_step"])
+        step_err = max(step_err, err)
+        if not ok:
+            fail(f"{name} step {k} disagrees with its plain version: {err:.3e}")
+        if float(ts[k + 1] - ts[k]) == 0.0 and not bool((x1 == xs_p[k]).all()):
+            fail(f"{name}: the dt = 0 step {k} changed the state")
+    atol, rtol = TOL["rollout"]
+    ok1, e1 = within(xs_k, xs_p, atol, rtol)
+    ok2, e2 = within(xT_k, xT_p, atol, rtol)
+    marks = sorted({1, T // 20, T // 4, T // 2, 3 * T // 4, T - 1})
+    growth = {k: "%.1e" % float((xs_k[k] - xs_p[k]).abs().max()) for k in marks}
+    n_zero = int((ts[1:] == ts[:-1]).sum())
+    print(f"kernel {name} (B {x0.shape[0]}, T {T}, d {DIM}, width {WIDTH}"
+          + (f", {n_zero} steps with dt = 0" if n_zero else "") + "): "
+          f"max_abs_err {max(e1, e2):.3e} (atol {atol}, rtol {rtol}); one step "
+          f"{step_err:.3e} (atol, rtol {TOL['rollout_step']}); max error by "
+          f"step {growth}; max |x| {float(xs_p.abs().max()):.3g}", flush=True)
+    if not (ok1 and ok2):
+        fail(f"{name} disagrees with its plain version")
+    report[report_key] = {"max_abs_err": max(e1, e2), "step_err": step_err}
 
 
 def rollout_inputs(device, rng):
@@ -203,36 +311,34 @@ def phase_kernels(device, report):
     from sde_sampler_torch.ops import rollout as ro
     from sde_sampler_torch.ops import sinkhorn as sk
 
+    clips = {"clip_model": 10.0, "clip_score": 10.0}
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
-    clips = {"clip_model": 10.0, "clip_score": 10.0}
-    xs_k, xT_k = ro.fused_rollout(ctrl, x0, ts, dbs, clips)
-    xs_p, xT_p = ro.rollout_plain(ctrl, x0, ts, dbs, clips)
-    if not bool((xs_k[0] == x0).all()):
-        fail("rollout: xs[0] != x0")
-    # one step from the plain version's own states: no compounding, so the
-    # two may differ only by the rounding of one step
-    step_err = 0.0
-    for k in (0, STEPS // 4, STEPS // 2, 3 * STEPS // 4, STEPS - 1):
-        _, x1 = ro.fused_rollout(ctrl, xs_p[k].contiguous(), ts[k : k + 2],
-                                 dbs[k : k + 1], clips)
-        want = xT_p if k == STEPS - 1 else xs_p[k + 1]
-        ok, err = within(x1, want, *TOL["rollout_step"])
-        step_err = max(step_err, err)
-        if not ok:
-            fail(f"rollout kernel step {k} disagrees with its plain version: {err:.3e}")
-    atol, rtol = TOL["rollout"]
-    ok1, e1 = within(xs_k, xs_p, atol, rtol)
-    ok2, e2 = within(xT_k, xT_p, atol, rtol)
-    marks = sorted({1, STEPS // 20, STEPS // 4, STEPS // 2, 3 * STEPS // 4, STEPS - 1})
-    growth = {k: "%.1e" % float((xs_k[k] - xs_p[k]).abs().max()) for k in marks}
-    print(f"kernel rollout (B {BATCH}, T {STEPS}, d {DIM}, width {WIDTH}): "
-          f"max_abs_err {max(e1, e2):.3e} (atol {atol}, rtol {rtol}); one step "
-          f"{step_err:.3e} (atol, rtol {TOL['rollout_step']}); max error by "
-          f"step {growth}; max |x| {float(xs_p.abs().max()):.3g}", flush=True)
-    if not (ok1 and ok2):
-        fail("rollout kernel disagrees with its plain version")
-    report["rollout"] = {"max_abs_err": max(e1, e2), "step_err": step_err}
+    check_rollout(
+        "rollout", lambda x, t, n: ro.fused_rollout(ctrl, x, t, n, clips),
+        lambda x, t, n: ro.rollout_plain(ctrl, x, t, n, clips), x0, ts, dbs,
+        "rollout", report)
+
+    # kernel 1's ScoreCtrl form on the VP grid of EulerDDS
+    score_ctrl, score_rng = seeded_score_ctrl(device, SEED + 1)
+    x0s, _, dbs_s = rollout_inputs(device, score_rng)
+    vp = ctrl.sde
+    check_rollout(
+        "rollout.score", lambda x, t, n: ro.fused_rollout(score_ctrl, x, t, n, clips, sde=vp),
+        lambda x, t, n: ro.rollout_plain(score_ctrl, x, t, n, clips, sde=vp), x0s, ts,
+        dbs_s, "rollout_score", report)
+    r = report["rollout"]
+    r["lerp_max_abs_err"] = r["max_abs_err"]
+    r["score_max_abs_err"] = report.pop("rollout_score")["max_abs_err"]
+    r["max_abs_err"] = max(r["lerp_max_abs_err"], r["score_max_abs_err"])
+
+    # kernel 2 on the DDS cosine grid
+    x0e, ts_e, noise = dds_inputs(device, score_rng)
+    check_rollout(
+        "rollout_exp",
+        lambda x, t, n: ro.fused_rollout_exp(score_ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips),
+        lambda x, t, n: ro.rollout_exp_plain(score_ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips),
+        x0e, ts_e, noise, "rollout_exp", report)
 
     for name in ("softmin", "transport"):
         report[name] = {"max_abs_err": 0.0}
@@ -259,58 +365,76 @@ def phase_kernels(device, report):
         report["transport"]["max_abs_err"] = max(report["transport"]["max_abs_err"], err)
 
 
-def main_overrides(run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
-    return [
-        "target=funnel", "solver=dis", "loss.method=lv",
+def main_overrides(solver: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
+    overrides = [
+        "target=funnel", f"solver={solver}",
         "plot_results=False", "eval_init=False", "store_last_ckpt=False",
         f"train_steps={train_steps}", f"eval_batch_size={eval_batch}",
         "log_interval=50", f"out_dir={run_dir}", f"seed={SEED}",
     ]
+    if solver == "dis":
+        overrides.insert(2, "loss.method=lv")
+    return overrides
 
 
-def phase_main(args, report):
-    """The main path through the entry point, with launch counts."""
+def drive_path(solver: str, train_steps: int, eval_batch: int, report):
+    """One path through the entry point, launch counts zeroed just before
+    and read just after; returns the trained solver."""
     from sde_sampler_torch import main as entry
     from sde_sampler_torch.ops import build
 
-    run_dir = OUT_DIR / "chip_smoke_run"
+    run_dir = OUT_DIR / f"chip_smoke_{solver}"
     if run_dir.exists():
         for f in run_dir.glob("*"):
             if f.is_file():
                 f.unlink()
-    if args.eval_batch != EVAL_BATCH:
-        print(f"eval_batch_size cut to {args.eval_batch} (from {EVAL_BATCH})", flush=True)
     build.reset_launches()
     start = time.perf_counter()
-    solver = entry.main(main_overrides(run_dir, args.train_steps, args.eval_batch))
+    solver_obj = entry.main(main_overrides(solver, run_dir, train_steps, eval_batch))
     seconds = time.perf_counter() - start
-    launches = dict(build.LAUNCHES)
-    print(f"main path: {args.train_steps} steps + final eval in {seconds:.1f} s; "
-          f"launches {launches}", flush=True)
-    for name, count in launches.items():
+    launches = {k: v for k, v in {**build.LAUNCHES, **build.FORM_LAUNCHES}.items() if v}
+    print(f"path {solver}: {train_steps} steps + final eval ({eval_batch} samples) in "
+          f"{seconds:.1f} s; launches {launches}", flush=True)
+    for key in PATHS[solver][0]:
+        count = build.FORM_LAUNCHES[key] if "." in key else build.LAUNCHES[key]
         if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-        report[name]["launches"] = count
+            fail(f"kernel {key} was not launched on the {solver} path")
+    for name in KERNELS:
+        if build.LAUNCHES[name]:
+            by_path = report[name].setdefault("launches_by_path", {})
+            by_path[solver] = build.LAUNCHES[name]
+            report[name]["launches"] = report[name].get("launches", 0) + build.LAUNCHES[name]
 
     lines = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [l["train/loss"] for l in lines if "train/loss" in l]
-    final = solver.last_metrics
-    keys = ["eval/log_norm_const_is", "eval/log_norm_const_lb",
-            "eval/log_norm_const_lb_ito", "eval/effective_sample_size",
-            "error/sinkhorn"]
-    summary = {k: final[k] for k in keys}
-    summary["train/loss_last"] = losses[-1]
-    summary["clip_model"] = solver.scheduled_params["generative_ctrl.clip_model"]
-    print("main path result: " + json.dumps(summary), flush=True)
+    final = solver_obj.last_metrics
+    keys = PATHS[solver][3] + ["eval/effective_sample_size", "error/sinkhorn"]
+    summary = {k: final[k] for k in keys + ["eval/n_nonfinite_rnd", "eval/n_filtered_rnd"]}
+    summary["train/loss_last"] = losses[-1] if losses else None
+    summary["clip_model"] = solver_obj.scheduled_params["generative_ctrl.clip_model"]
+    print(f"path {solver} result: " + json.dumps(summary), flush=True)
     if not losses or not all(math.isfinite(x) for x in losses):
-        fail("non-finite training loss")
+        fail(f"{solver}: non-finite training loss")
     if not all(math.isfinite(final[k]) for k in keys):
-        fail("non-finite log Z, ESS or Sinkhorn value")
-    if summary["clip_model"] == 10.0 and args.train_steps > 200:
-        fail("the clip milestone at step 200 did not fire")
-    report["main"] = {"seconds": seconds, **summary, "train_steps": args.train_steps,
-                      "eval_batch_size": args.eval_batch}
-    return solver
+        fail(f"{solver}: non-finite log Z, ESS or Sinkhorn value")
+    if summary["clip_model"] == 10.0 and train_steps > 200:
+        fail(f"{solver}: the clip milestone at step 200 did not fire")
+    report.setdefault("paths", {})[solver] = {
+        "seconds": seconds, **summary, "train_steps": train_steps,
+        "eval_batch_size": eval_batch, "launches": launches,
+    }
+    return solver_obj
+
+
+def phase_main(args, report):
+    """Every path through the entry point, with launch counts."""
+    if args.eval_batch != EVAL_BATCH:
+        print(f"eval_batch_size cut to {args.eval_batch} (from {EVAL_BATCH})", flush=True)
+    solvers = {}
+    for solver, (_, steps, eval_batch, _) in PATHS.items():
+        solvers[solver] = drive_path(
+            solver, steps or args.train_steps, eval_batch or args.eval_batch, report)
+    return solvers
 
 
 def step_breakdown(solver, step_ms: float, n: int = 5) -> dict:
@@ -340,14 +464,11 @@ def step_breakdown(solver, step_ms: float, n: int = 5) -> dict:
     return {"device_busy_ms": busy_ms, "idle_share": idle, "top_ms": top}
 
 
-def phase_timing(solver, device, report):
+def time_steps(solver, n_em_steps: int, label: str) -> dict:
+    """Median of five 20-step windows of the trained solver's optimizer step,
+    with its profiler breakdown."""
     import torch
 
-    from sde_sampler_torch.eval.sinkhorn import Sinkhorn
-    from sde_sampler_torch.ops import rollout as ro
-    from sde_sampler_torch.ops import sinkhorn as sk
-
-    # optimizer step of the main path (the trained solver, more steps)
     for _ in range(3):
         solver.step()
     torch.cuda.synchronize()
@@ -359,11 +480,25 @@ def phase_timing(solver, device, report):
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - start) / 20 * 1e3)
     step_ms = sorted(windows)[2]
-    rate = STEPS * BATCH / (step_ms / 1e3)
-    print(f"optimizer step: median {step_ms:.3f} ms of 5 windows "
-          f"{[round(w, 3) for w in windows]}; {rate:.4g} EM steps x batch / s", flush=True)
-    report["step"] = {"ms": step_ms, "windows_ms": windows, "em_steps_x_batch_per_s": rate,
-                      "breakdown": step_breakdown(solver, step_ms)}
+    rate = n_em_steps * BATCH / (step_ms / 1e3)
+    print(f"{label} optimizer step: median {step_ms:.3f} ms of 5 windows "
+          f"{[round(w, 3) for w in windows]}; {rate:.4g} steps x batch / s", flush=True)
+    return {"ms": step_ms, "windows_ms": windows, "steps_x_batch_per_s": rate,
+            "breakdown": step_breakdown(solver, step_ms)}
+
+
+def phase_timing(solvers, device, report):
+    import torch
+
+    from sde_sampler_torch.eval.sinkhorn import Sinkhorn
+    from sde_sampler_torch.ops import rollout as ro
+    from sde_sampler_torch.ops import sinkhorn as sk
+
+    # optimizer steps of the DIS and DDS paths (the trained solvers, more steps)
+    solver = solvers["dis"]
+    report["step"] = time_steps(solver, STEPS, "DIS")
+    dds = solvers["dds"]
+    report["dds_step"] = time_steps(dds, dds.train_ts.shape[0] - 1, "DDS")
 
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
@@ -373,6 +508,16 @@ def phase_timing(solver, device, report):
     r["plain_ms"] = cuda_ms(
         lambda: ro.rollout_plain(ctrl, x0, ts, dbs, clips), reps=3, warmup=0)
     r["bound_ms"], r["bound_by"] = bound(*rollout_work(BATCH, STEPS, DIM, WIDTH, HIDDEN))
+
+    score_ctrl, score_rng = seeded_score_ctrl(device, SEED + 1)
+    x0e, ts_e, noise = dds_inputs(device, score_rng)
+    r = report["rollout_exp"]
+    r["ms"] = cuda_ms(lambda: ro.fused_rollout_exp(
+        score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=20)
+    r["plain_ms"] = cuda_ms(lambda: ro.rollout_exp_plain(
+        score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=3, warmup=0)
+    r["bound_ms"], r["bound_by"] = bound(*rollout_work(
+        BATCH, ts_e.shape[0] - 1, DIM, WIDTH, HIDDEN, per_coord=20))
 
     x, y, u, v = pair_inputs(device, rng, EVAL_BATCH, DIM, 0)
     for name, fn, plain, per_pair, n_out in (
@@ -386,7 +531,7 @@ def phase_timing(solver, device, report):
         k["plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
         k["bound_ms"], k["bound_by"] = bound(
             *pair_work(EVAL_BATCH, EVAL_BATCH, DIM, per_pair, n_out))
-    for name in ("rollout", "softmin", "transport"):
+    for name in KERNELS:
         k = report[name]
         print(f"time {name}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
@@ -437,19 +582,20 @@ def main():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
-    report.update({name: {} for name in ("rollout", "softmin", "transport")})
+    report.update({name: {} for name in KERNELS})
     if "kernels" in phases:
         phase_kernels(device, report)
-    solver = phase_main(args, report) if "main" in phases else None
-    if "timing" in phases and solver is not None:
-        phase_timing(solver, device, report)
+    solvers = phase_main(args, report) if "main" in phases else None
+    if "timing" in phases and solvers is not None:
+        phase_timing(solvers, device, report)
 
     kernels = []
-    for name in ("rollout", "softmin", "transport"):
+    for name in KERNELS:
         k = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": k.get("launches"),
+            "launches_by_path": k.get("launches_by_path"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,

@@ -1,21 +1,36 @@
-// Fused Euler-Maruyama rollout of the DIS main path, in one launch.
+// Fused rollouts of a control-net SDE, in one launch: kernel 1 (Euler-
+// Maruyama) and kernel 2 (the DDS exponential integrator).
 //
-// Replaces the TPU kernel `fused_sim_rollout` with `sde_step_fn`
+// Kernel 1 replaces the TPU kernel `fused_sim_rollout` with `sde_step_fn`
 // (sde_sampler_tpu/ops/rollout_pallas.py:68, pallas_call at :202, step at
-// :214), specialised to the main-path step, since CUDA cannot trace a
-// generic step function:
+// :214); kernel 2 replaces the same call with `exp_integrator_step_fn`
+// (step at :229). CUDA cannot trace a generic step function, so both are
+// specialised to the control forms of the funnel paths, one instance each:
 //
-//   u   = clip(FourierMLP(s, x), clip_model) * ctrl_scale[k]
+//   lerp (LerpCtrl, DIS):
+//     u = clip(FourierMLP(s, x), clip_model) * ctrl_scale[k]
 //         + diff[k] * sscore[k] * clip(lerp(prior score, funnel score; w[k]),
 //                                     clip_score)
-//   x' = x + (drift[k] * x + diff[k] * u) * dt[k] + diff[k] * db[k]
+//   score (ScoreCtrl, PIS / EulerDDS / DDS):
+//     u = clip(FourierMLP(s, x), clip_model) + sscore[k] * clip(funnel score,
+//                                                              clip_score)
 //
-// with an IsotropicGauss prior score (loc - x) / scale^2 and the Funnel
-// score inline. Everything that depends only on the step start s = ts[k]
-// is computed before the launch by the wrapper (ops/rollout.py) as tables:
-// the FourierMLP time-embedding row folded with the input_embed bias
-// (T, C), and per step drift coefficient, diffusion, dt, lerp weight,
-// scale_score * clip(score_net(s)) and the hard-constraint factor (T, 6).
+// and the updates
+//
+//   EM  (kernel 1): x' = x + (drift[k] * x + diff[k] * u) * dt[k] + diff[k] * db[k]
+//   exp (kernel 2): x' = (a[k] * x + b2s2[k] * u) + sb[k] * eps[k]
+//
+// where, for the exponential integrator, beta_k = clip(alpha sqrt(dt), 0, 1),
+// a = sqrt(1 - beta^2), b2s2 = beta^2 sigma^2, sb = sigma beta and eps is a
+// standard normal; a step with dt = 0 has a = 1, b2s2 = sb = 0 and passes
+// the state through. The IsotropicGauss prior score (loc - x) / scale^2 and
+// the Funnel score are inline. Everything that depends only on the step
+// start s = ts[k] is computed before the launch by the wrapper
+// (ops/rollout.py) as tables: the FourierMLP time-embedding row folded with
+// the input_embed bias (T, C), and six scalars per step (T, 6): drift
+// coefficient, diffusion, dt, lerp weight, sscore, ctrl scale for EM, or
+// a, b2s2, sb, unused, sscore, unused for the exponential integrator.
+// sscore is scale_score * clip(score_net(s), clip_model).
 //
 // Mapping: one block per tile of ROWS batch rows; threads run over
 // (row, channel) pairs of each layer; the control-net weights (about 38 KB
@@ -35,7 +50,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 16;
-constexpr int kTab = 6;  // drift, diff, dt, lerp weight, sscore, ctrl scale
+constexpr int kTab = 6;  // per-step scalars, see the header
+
+// Control form and update of one instance.
+constexpr int kLerpEm = 0;    // kernel 1, LerpCtrl (DIS)
+constexpr int kScoreEm = 1;   // kernel 1, ScoreCtrl (PIS, EulerDDS)
+constexpr int kScoreExp = 2;  // kernel 2, ScoreCtrl (DDS)
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
@@ -46,6 +66,7 @@ __device__ __forceinline__ float clip(float v, float c) {
   return v < -c ? -c : (v > c ? c : v);
 }
 
+template <int kForm>
 __global__ void __launch_bounds__(kThreads) rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ dbs,
     const float* __restrict__ tab, const float* __restrict__ temb,
@@ -147,10 +168,20 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
           j == 0 ? (-first / funnel_var_first - 0.5f * (float)(D - 1)) +
                        0.5f * s_sq[r] * inv_var_other
                  : -x * inv_var_other;
-      const float prior = (prior_loc - x) / prior_var;
-      const float lerp = clip(prior + (target - prior) * w, clip_score);
-      const float u = clip(s_out[i], clip_model) * cscale + diff * (sscore * lerp);
-      s_x[i] = x + (drift * x + diff * u) * dt + diff * db_k[i];
+      if constexpr (kForm == kLerpEm) {
+        const float prior = (prior_loc - x) / prior_var;
+        const float lerp = clip(prior + (target - prior) * w, clip_score);
+        const float u = clip(s_out[i], clip_model) * cscale + diff * (sscore * lerp);
+        s_x[i] = x + (drift * x + diff * u) * dt + diff * db_k[i];
+      } else {
+        const float u = clip(s_out[i], clip_model) + sscore * clip(target, clip_score);
+        if constexpr (kForm == kScoreEm) {
+          s_x[i] = x + (drift * x + diff * u) * dt + diff * db_k[i];
+        } else {
+          // drift, diff, dt hold a, beta^2 sigma^2, sigma beta (see header)
+          s_x[i] = (x * drift + diff * u) + dt * db_k[i];
+        }
+      }
     }
     __syncthreads();
   }
@@ -158,24 +189,59 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
   for (int i = tid; i < nrows * D; i += kThreads) x_T[tile_off + i] = s_x[i];
 }
 
+template <int kForm>
+int launch(const float* x0, const float* dbs, const float* tab,
+           const float* temb, const float* w_in, const float* w_hid,
+           const float* b_hid, const float* w_out, const float* b_out,
+           float* xs, float* x_T, int B, int D, int C, int H, int T,
+           float clip_model, float clip_score, float prior_loc,
+           float prior_var, float funnel_var_first, void* stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)D * C + (size_t)H * C * C + (size_t)H * C +
+                       (size_t)C * D + D + kRows * (2 * D + 2 * C + 2));
+  cudaError_t err = cudaFuncSetAttribute(
+      rollout_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + kRows - 1) / kRows;
+  rollout_kernel<kForm><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T, B, D, C,
+      H, T, clip_model, clip_score, prior_loc, prior_var, funnel_var_first);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS) instance, form 1
+// the ScoreCtrl one.
 extern "C" int rollout_launch(
     const float* x0, const float* dbs, const float* tab, const float* temb,
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, float* xs, float* x_T, int B,
     int D, int C, int H, int T, float clip_model, float clip_score,
-    float prior_loc, float prior_var, float funnel_var_first,
+    float prior_loc, float prior_var, float funnel_var_first, int form,
     void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)D * C + (size_t)H * C * C + (size_t)H * C +
-                       (size_t)C * D + D + kRows * (2 * D + 2 * C + 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + kRows - 1) / kRows;
-  rollout_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T, B, D, C,
-      H, T, clip_model, clip_score, prior_loc, prior_var, funnel_var_first);
-  return (int)cudaGetLastError();
+  if (form == kLerpEm)
+    return launch<kLerpEm>(x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out,
+                           b_out, xs, x_T, B, D, C, H, T, clip_model,
+                           clip_score, prior_loc, prior_var, funnel_var_first,
+                           stream);
+  if (form == kScoreEm)
+    return launch<kScoreEm>(x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out,
+                            b_out, xs, x_T, B, D, C, H, T, clip_model,
+                            clip_score, prior_loc, prior_var,
+                            funnel_var_first, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel 2, the exponential-integrator rollout of a ScoreCtrl (DDS).
+extern "C" int rollout_exp_launch(
+    const float* x0, const float* noise, const float* tab, const float* temb,
+    const float* w_in, const float* w_hid, const float* b_hid,
+    const float* w_out, const float* b_out, float* xs, float* x_T, int B,
+    int D, int C, int H, int T, float clip_model, float clip_score,
+    float funnel_var_first, void* stream) {
+  return launch<kScoreExp>(x0, noise, tab, temb, w_in, w_hid, b_hid, w_out,
+                           b_out, xs, x_T, B, D, C, H, T, clip_model,
+                           clip_score, 0.0f, 1.0f, funnel_var_first, stream);
 }

@@ -72,6 +72,17 @@ class OU(SDE):
         """Mean and variance of X_t | X_0 = x_init."""
         raise NotImplementedError
 
+    def marginal_distr(self, t, x_init, var_init=None):
+        """The Gaussian law of X_t | X_0 ~ N(x_init, var_init) on x_init's device."""
+        from sde_sampler_torch.distr.gauss import Gauss
+
+        loc, var = self.marginal_params(t, x_init, var_init=var_init)
+        var = torch.as_tensor(var, dtype=loc.dtype, device=loc.device)
+        scale = torch.broadcast_to(torch.sqrt(var), loc.shape)
+        return Gauss(
+            dim=x_init.shape[-1], loc=loc, scale=scale, domain_tol=None
+        ).to(loc.device)
+
 
 class ConstOU(OU):
     """Constant coefficients: dX = ±a·X dt + σ dW."""

@@ -1,21 +1,25 @@
-"""Trajectory losses of the DIS case: the time-reversal RND.
+"""Trajectory losses: time reversal (DIS), reference SDE (PIS, EulerDDS)
+and the exponential integrator (DDS).
 
-Port of `BaseOCLoss` and `TimeReversalLoss` from
-`sde_sampler_tpu/losses/oc.py` for a generative control without an
-inference control. Methods kl / kl_ito / lv / lv_traj; the lv default is
-the two-phase loss (`_two_phase_loss`):
+Port of `BaseOCLoss`, `TimeReversalLoss`, `ReferenceSDELoss` and
+`ExponentialIntegratorSDELoss` from `sde_sampler_tpu/losses/oc.py` for a
+generative control without an inference control. Methods kl / kl_ito / lv
+/ lv_traj; the lv default is the two-phase loss (`_two_phase_loss`):
 
-- phase 1: the value-only EM rollout recording every state, through the
-  fused rollout (`ops/rollout.py`: the CUDA kernel on the card, its plain
-  twin on the CPU);
+- phase 1: the value-only rollout recording every state, through the
+  fused rollouts (`ops/rollout.py`: kernel 1 for the EM losses, kernel 2
+  for the exponential integrator on the card, their plain twins on the
+  CPU);
 - phase 2: one batched control evaluation over all (T, B) states, whose
   running cost and Ito terms autograd differentiates.
 
 `simulate` (evaluation, and kl training) is a plain torch loop that yields
 both log Z estimators from one rollout. Noise enters as an explicit
-(T, B, d) tensor `dbs` where a caller passes one, and is otherwise drawn
-from the given `torch.Generator`. Exploration noise, dropout, inference
-controls and Hutchinson estimators raise NotImplementedError here.
+(T, B, d) tensor `dbs` where a caller passes one (Brownian increments for
+the EM losses, standard normals for the exponential integrator), and is
+otherwise drawn from the given `torch.Generator`. Exploration noise,
+dropout, inference controls and Hutchinson estimators raise
+NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -108,8 +112,10 @@ class BaseOCLoss:
 
     # -- noise ----------------------------------------------------------------
     @staticmethod
-    def draw_noise(ts, x, generator=None) -> torch.Tensor:
-        """Brownian increments dW ~ N(0, dt) for every step, (T, B, d)."""
+    def draw_noise(ts, x, generator=None, scale_sqrt_dt: bool = True) -> torch.Tensor:
+        """Noise of every step, (T, B, d): Brownian increments dW ~ N(0, dt),
+        or standard normals with `scale_sqrt_dt=False` (the exponential
+        integrator scales them itself)."""
         n = ts.shape[0] - 1
         nbytes = n * x.numel() * x.element_size()
         if nbytes > PREGEN_MAX_BYTES:
@@ -121,6 +127,8 @@ class BaseOCLoss:
             (n,) + tuple(x.shape), generator=generator, device=x.device,
             dtype=x.dtype,
         )
+        if not scale_sqrt_dt:
+            return dbs
         return dbs * torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
 
     # -- filtering & loss reduction -----------------------------------------
@@ -194,6 +202,13 @@ class BaseOCLoss:
             x = x[None].repeat(self.traj_per_sample, 1, 1)
             x = x.reshape(-1, x.shape[-1])
         return x
+
+    def _check_sim_backend(self, x):
+        if x.device.type == "cuda" and self.sim_backend == "xla":
+            raise ValueError(
+                "sim_backend=xla names the JAX scan; on the card phase 1 runs "
+                "through the rollout kernel (auto or pallas)"
+            )
 
     def with_ctrls(self, **kwargs) -> "BaseOCLoss":
         """Shallow copy with the control callables bound."""
@@ -271,11 +286,7 @@ class TimeReversalLoss(BaseOCLoss):
 
     def _phase1(self, ts, x, dbs):
         """Value-only rollout recording every pre-step state: (xs, x_T)."""
-        if x.device.type == "cuda" and self.sim_backend == "xla":
-            raise ValueError(
-                "sim_backend=xla names the JAX scan; on the card phase 1 runs "
-                "through the rollout kernel (auto or pallas)"
-            )
+        self._check_sim_backend(x)
         from sde_sampler_torch.ops.rollout import fused_rollout
 
         return fused_rollout(self.ctrl_module, x, ts, dbs, self.ctrl_clips)
@@ -336,3 +347,232 @@ class TimeReversalLoss(BaseOCLoss):
             dbs=dbs,
             generator=generator,
         )
+
+
+class ReferenceSDELoss(BaseOCLoss):
+    """RND against a reference SDE with a known marginal (PIS, EulerDDS).
+
+    With a reference control r (zero without one) the running cost is
+    ½|u − r|²dt (KL) or (u − r)·(ū − ½(u + r))dt (LV), the Ito integral
+    (u − r)·dW, and the terminal term log q(X_T) − log ρ(X_T) for the
+    reference marginal q. On the card, phase 1 runs through kernel 1's
+    ScoreCtrl form; `reference_ctrl` enters only phase 2 and `simulate`.
+    """
+
+    def __init__(self, *args, reference_ctrl: Callable | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.reference_ctrl = reference_ctrl
+
+    def _minus_plus_reference(self, gen, s, x):
+        if self.reference_ctrl is None:
+            return gen, gen
+        reference = self.reference_ctrl(s, x)
+        return gen - reference, gen + reference
+
+    def simulate(
+        self,
+        ts: torch.Tensor,
+        x: torch.Tensor,
+        terminal_unnorm_log_prob: Callable,
+        reference_log_prob: Callable,
+        train: bool = True,
+        change_sde_ctrl: bool = False,
+        return_traj: bool = False,
+        dbs: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> RolloutResult:
+        """One EM rollout accumulating the RND with and without Ito term."""
+        rnd = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
+        ito = torch.zeros_like(rnd)
+        traj = [x] if return_traj else None
+        for k in range(ts.shape[0] - 1):
+            s, t = ts[k], ts[k + 1]
+            dt = t - s
+            if dbs is not None:
+                db = dbs[k]
+            else:
+                db = torch.randn(
+                    x.shape, generator=generator, device=x.device, dtype=x.dtype
+                ) * torch.sqrt(dt)
+            gen = self.generative_ctrl(s, x)
+            sde_ctrl = gen.detach() if change_sde_ctrl else gen
+            sde_diff = self.sde.diff(s, x)
+            minus, plus = self._minus_plus_reference(gen, s, x)
+            if change_sde_ctrl:
+                cost = minus * (sde_ctrl - 0.5 * plus)
+                rnd = rnd + cost.sum(dim=-1, keepdim=True) * dt
+            else:
+                rnd = rnd + 0.5 * (minus**2).sum(dim=-1, keepdim=True) * dt
+            x = x + (self.sde.drift(s, x) + sde_diff * sde_ctrl) * dt + sde_diff * db
+            ito = ito + (minus * db).sum(dim=-1, keepdim=True)
+            if return_traj:
+                traj.append(x)
+        rnd = rnd + reference_log_prob(x) - terminal_unnorm_log_prob(x)
+        xs = torch.stack(traj) if return_traj else None
+        return RolloutResult(x, rnd + ito, rnd, xs)
+
+    def _phase1(self, ts, x, dbs):
+        """Value-only EM rollout recording every pre-step state: (xs, x_T)."""
+        self._check_sim_backend(x)
+        from sde_sampler_torch.ops.rollout import fused_rollout
+
+        return fused_rollout(
+            self.ctrl_module, x, ts, dbs, self.ctrl_clips, sde=self.sde
+        )
+
+    def _two_phase_loss(
+        self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
+        dbs=None, generator=None,
+    ):
+        """lv/lv_traj loss with the trajectory rollout outside autograd."""
+        if dbs is None:
+            dbs = self.draw_noise(ts, x, generator)
+        xs, x_T = self._phase1(ts, x, dbs)
+
+        n = ts.shape[0] - 1
+        s = ts[:-1].reshape(n, 1, 1)
+        dt = (ts[1:] - ts[:-1]).reshape(n, 1, 1)
+        gen = self.generative_ctrl(s, xs)  # (T, B, d), one batched call
+        minus, plus = self._minus_plus_reference(gen, s, xs)
+        cost = (minus * (gen.detach() - 0.5 * plus)).sum(dim=-1, keepdim=True) * dt
+        ito = (minus * dbs).sum(dim=-1, keepdim=True)
+        rnd_no_ito = (
+            cost.sum(0) + reference_log_prob(x_T) - terminal_unnorm_log_prob(x_T)
+        )
+        rnd = rnd_no_ito + ito.sum(0)
+        return self.compute_loss(rnd, samples=x_T)
+
+    def __call__(
+        self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
+        dbs=None, generator=None,
+    ):
+        x = self._repeat_traj(x)
+        if self.two_phase:
+            return self._two_phase_loss(
+                ts, x, terminal_unnorm_log_prob, reference_log_prob,
+                dbs=dbs, generator=generator,
+            )
+        result = self.simulate(
+            ts, x,
+            terminal_unnorm_log_prob=terminal_unnorm_log_prob,
+            reference_log_prob=reference_log_prob,
+            train=True,
+            change_sde_ctrl=self.method in ["lv", "lv_traj"],
+            dbs=dbs,
+            generator=generator,
+        )
+        rnd = result.rnd if self.method != "kl" else result.rnd_no_ito
+        return self.compute_loss(rnd, samples=result.samples)
+
+    def eval(
+        self, ts, x, terminal_unnorm_log_prob, reference_log_prob=None,
+        return_traj: bool = False, dbs=None, generator=None,
+    ) -> RolloutResult:
+        return self.simulate(
+            ts, x,
+            terminal_unnorm_log_prob=terminal_unnorm_log_prob,
+            reference_log_prob=reference_log_prob,
+            train=False,
+            change_sde_ctrl=False,
+            return_traj=return_traj,
+            dbs=dbs,
+            generator=generator,
+        )
+
+
+class ExponentialIntegratorSDELoss(BaseOCLoss):
+    """DDS exponential integrator (Vargas et al.).
+
+    Update: β_k = clip(α√dt, 0, 1), a_k = √(1 − β_k²),
+    x ← a_k·x + β_k²σ²·u + σβ_k·ε with standard normals ε; running cost
+    β_k²σ²·½|u|² (KL) or β_k²σ²·u·(ū − ½u) (LV), Ito increment σβ_k·u·ε,
+    terminal log q(X_T) − log ρ(X_T). On the card, phase 1 runs through
+    kernel 2 (`ops/rollout.py::fused_rollout_exp`). `__call__` and `eval`
+    are those of ReferenceSDELoss.
+    """
+
+    def __init__(self, *args, alpha: float, sigma: float, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.alpha = float(alpha)
+        self.sigma = float(sigma)
+
+    def _beta(self, s, t):
+        return (self.alpha * torch.sqrt(t - s)).clamp(0.0, 1.0)
+
+    def simulate(
+        self,
+        ts: torch.Tensor,
+        x: torch.Tensor,
+        terminal_unnorm_log_prob: Callable,
+        reference_log_prob: Callable,
+        train: bool = True,
+        change_sde_ctrl: bool = False,
+        return_traj: bool = False,
+        dbs: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> RolloutResult:
+        """One exponential-integrator rollout accumulating the RND with and
+        without Ito term; `dbs` holds standard normals here."""
+        sigma = self.sigma
+        rnd = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
+        ito = torch.zeros_like(rnd)
+        traj = [x] if return_traj else None
+        for k in range(ts.shape[0] - 1):
+            if dbs is not None:
+                noise = dbs[k]
+            else:
+                noise = torch.randn(
+                    x.shape, generator=generator, device=x.device, dtype=x.dtype
+                )
+            gen = self.generative_ctrl(ts[k], x)
+            if change_sde_ctrl:
+                sde_ctrl = gen.detach()
+                running = (gen * (sde_ctrl - 0.5 * gen)).sum(dim=-1, keepdim=True)
+            else:
+                sde_ctrl = gen
+                running = 0.5 * (gen**2).sum(dim=-1, keepdim=True)
+            beta = self._beta(ts[k], ts[k + 1])
+            a = torch.sqrt(1.0 - beta**2)
+            rnd = rnd + beta**2 * sigma**2 * running
+            x = x * a + beta**2 * sigma**2 * sde_ctrl + sigma * beta * noise
+            ito = ito + (sigma * gen * noise * beta).sum(dim=-1, keepdim=True)
+            if return_traj:
+                traj.append(x)
+        rnd = rnd + reference_log_prob(x) - terminal_unnorm_log_prob(x)
+        xs = torch.stack(traj) if return_traj else None
+        return RolloutResult(x, rnd + ito, rnd, xs)
+
+    def _phase1(self, ts, x, noise):
+        """Value-only rollout recording every pre-step state: (xs, x_T)."""
+        self._check_sim_backend(x)
+        from sde_sampler_torch.ops.rollout import fused_rollout_exp
+
+        return fused_rollout_exp(
+            self.ctrl_module, x, ts, noise, self.alpha, self.sigma, self.ctrl_clips
+        )
+
+    def _two_phase_loss(
+        self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
+        dbs=None, generator=None,
+    ):
+        """Two-phase lv for the exponential-integrator update rule."""
+        sigma = self.sigma
+        if dbs is None:
+            dbs = self.draw_noise(ts, x, generator, scale_sqrt_dt=False)
+        xs, x_T = self._phase1(ts, x, dbs)
+
+        n = ts.shape[0] - 1
+        s = ts[:-1].reshape(n, 1, 1)
+        beta = self._beta(ts[:-1], ts[1:]).reshape(n, 1, 1)
+        gen = self.generative_ctrl(s, xs)  # (T, B, d), one batched call
+        running = (gen * (gen.detach() - 0.5 * gen)).sum(dim=-1, keepdim=True)
+        cost = beta**2 * sigma**2 * running
+        ito = (sigma * gen * dbs * beta).sum(dim=-1, keepdim=True)
+        rnd_no_ito = (
+            cost.sum(0) + reference_log_prob(x_T) - terminal_unnorm_log_prob(x_T)
+        )
+        rnd = rnd_no_ito + ito.sum(0)
+        return self.compute_loss(rnd, samples=x_T)
+
+    __call__ = ReferenceSDELoss.__call__
+    eval = ReferenceSDELoss.eval

@@ -30,17 +30,26 @@ NVCC_FLAGS = ARCH_FLAGS + [
 ]
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
-# launches its kernel, and nowhere else.
-LAUNCHES: dict[str, int] = {"rollout": 0, "softmin": 0, "transport": 0}
+# launches its kernel, and nowhere else. The rollout kernels also count by
+# control form ("<kernel>.<form>"), so a run shows which instance it took.
+LAUNCHES: dict[str, int] = {
+    "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
+}
+FORM_LAUNCHES: dict[str, int] = {
+    "rollout.lerp": 0, "rollout.score": 0, "rollout_exp.score": 0,
+}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, form: str | None = None) -> None:
     LAUNCHES[name] += 1
+    if form is not None:
+        FORM_LAUNCHES[f"{name}.{form}"] += 1
 
 
 def _nvcc() -> str:
@@ -116,11 +125,13 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rollout_launch.argtypes = (
-        [ptr] * 11 + [i32] * 5 + [f32] * 5 + [ptr]
+        [ptr] * 11 + [i32] * 5 + [f32] * 5 + [i32, ptr]
     )
+    lib.rollout_exp_launch.argtypes = [ptr] * 11 + [i32] * 5 + [f32] * 3 + [ptr]
     lib.softmin_launch.argtypes = [ptr] * 4 + [i32] * 3 + [f32, ptr]
     lib.transport_launch.argtypes = [ptr] * 6 + [i32] * 3 + [f32, ptr]
-    for fn in (lib.rollout_launch, lib.softmin_launch, lib.transport_launch):
+    for fn in (lib.rollout_launch, lib.rollout_exp_launch, lib.softmin_launch,
+               lib.transport_launch):
         fn.restype = ctypes.c_int
     return lib
 

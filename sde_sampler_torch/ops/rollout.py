@@ -1,18 +1,30 @@
-"""Fused Euler-Maruyama rollout of the main-path control (phase 1 of LV).
+"""Fused rollouts of the funnel controls: kernel 1 (EM) and kernel 2 (DDS).
 
-Port of `fused_sim_rollout` with `sde_step_fn`
-(`sde_sampler_tpu/ops/rollout_pallas.py:68,214`). The JAX kernel traces any
-step function; CUDA cannot, so this one is specialised to the main-path
-step: a `LerpCtrl` over a GELU `FourierMLP` with a `TimeEmbed` score net,
-an OU-family SDE (drift c(s)·x, diffusion σ(s)), an `IsotropicGauss` prior
-and the `Funnel` target. The wrapper raises on anything else.
+Port of `fused_sim_rollout` (`sde_sampler_tpu/ops/rollout_pallas.py:68`)
+with its two step functions:
 
-Everything that depends only on the step start s = ts[k] is computed here,
-by plain torch on the tensors' device, as per-step tables; the kernel
-(`csrc/rollout.cu`) or, for a CPU tensor, the plain twin `rollout_plain`
-then runs the whole loop. Both return `xs` (T, B, d), the state before
-every step (xs[0] = x0), and `x_T`, the state after the last one. The
-rollout is value-only: nothing here records a gradient.
+- kernel 1, `fused_rollout`: `sde_step_fn` (`:214`), the Euler-Maruyama
+  step x' = x + (f(s, x) + σ(s)·u)·dt + σ(s)·db of an OU-family SDE
+  (drift c(s)·x, diffusion σ(s)) with Brownian increments db ~ N(0, dt);
+- kernel 2, `fused_rollout_exp`: `exp_integrator_step_fn` (`:229`), the
+  DDS exponential integrator x' = a·x + β²σ²·u + σβ·ε with
+  β = clip(α√dt, 0, 1), a = √(1 − β²) and standard normals ε.
+
+The JAX kernel traces any step function; CUDA cannot, so these are
+specialised to the control forms of the funnel paths, each over a GELU
+`FourierMLP` with an optional `TimeEmbed` score net (one output) and the
+`Funnel` target score:
+
+- "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
+- "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2).
+
+The wrappers raise on anything else. Everything that depends only on the
+step start s = ts[k] is computed here, by plain torch on the tensors'
+device, as per-step tables; the kernel (`csrc/rollout.cu`) or, for a CPU
+tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`) then runs the
+whole loop. All return `xs` (T, B, d), the state before every step
+(xs[0] = x0), and `x_T`, the state after the last one. The rollouts are
+value-only: nothing here records a gradient.
 """
 from __future__ import annotations
 
@@ -25,8 +37,11 @@ from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import IsotropicGauss
 from sde_sampler_torch.eq.sdes import OU
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import LerpCtrl, _pick
+from sde_sampler_torch.models.reparam import LerpCtrl, ScoreCtrl, _pick
 from sde_sampler_torch.ops import build
+
+# instance of csrc/rollout.cu's kernel 1 for each control form
+FORM_CODES = {"lerp": 0, "score": 1}
 
 
 def _owner(method, cls):
@@ -37,61 +52,92 @@ def _owner(method, cls):
     return None
 
 
-def resolve_step(ctrl):
-    """(sde, prior, target) of the specialised step; raises on any other."""
-    if not isinstance(ctrl, LerpCtrl):
+def resolve_step(ctrl, sde=None, update: str = "em"):
+    """(form, sde, prior, target) of the specialised step; raises on any other.
+
+    `sde` is the SDE the EM update integrates (a LerpCtrl's own by default);
+    the exponential integrator (`update="exp"`) takes none.
+    """
+    if type(ctrl) is LerpCtrl:
+        form = "lerp"
+    elif type(ctrl) is ScoreCtrl:
+        form = "score"
+    else:
         raise NotImplementedError(
-            f"the rollout kernel needs a LerpCtrl, got {type(ctrl).__name__}"
+            "the rollout kernels need a LerpCtrl or a ScoreCtrl, got "
+            f"{type(ctrl).__name__}"
         )
+    if form == "lerp" and update != "em":
+        raise NotImplementedError("the exponential integrator needs a ScoreCtrl")
     base = ctrl.base_model
     if not isinstance(base, FourierMLP) or base.activation != "gelu":
-        raise NotImplementedError("the rollout kernel needs a GELU FourierMLP")
-    if ctrl.score_model is not None and not isinstance(ctrl.score_model, TimeEmbed):
-        raise NotImplementedError("the rollout kernel needs a TimeEmbed score net")
-    sde = ctrl.sde
-    if not isinstance(sde, OU) or type(sde).drift is not OU.drift:
-        raise NotImplementedError("the rollout kernel needs an OU-family SDE")
-    prior = _owner(ctrl.prior_score, IsotropicGauss)
-    if prior is None or type(prior) is not IsotropicGauss:
-        raise NotImplementedError("the rollout kernel needs an IsotropicGauss prior")
+        raise NotImplementedError("the rollout kernels need a GELU FourierMLP")
+    score_model = ctrl.score_model
+    if score_model is not None and (
+        not isinstance(score_model, TimeEmbed) or score_model.dim_out != 1
+    ):
+        raise NotImplementedError(
+            "the rollout kernels need a TimeEmbed score net with one output"
+        )
     target = _owner(ctrl.target_score, Funnel)
     if target is None or type(target) is not Funnel:
-        raise NotImplementedError("the rollout kernel needs the Funnel target")
-    return sde, prior, target
+        raise NotImplementedError("the rollout kernels need the Funnel target")
+    prior = None
+    if form == "lerp":
+        if sde is not None and sde is not ctrl.sde:
+            raise NotImplementedError("a LerpCtrl rolls out its own SDE")
+        sde = ctrl.sde
+        prior = _owner(ctrl.prior_score, IsotropicGauss)
+        if prior is None or type(prior) is not IsotropicGauss:
+            raise NotImplementedError("the rollout kernel needs an IsotropicGauss prior")
+    if update == "em" and (not isinstance(sde, OU) or type(sde).drift is not OU.drift):
+        raise NotImplementedError("the rollout kernel needs an OU-family SDE")
+    return form, sde, prior, target
 
 
 @torch.no_grad()
-def step_tables(ctrl: LerpCtrl, sde: OU, ts: torch.Tensor, clips=None):
-    """Per-step tables: the time-embedding rows (T, C) and the scalars
-    (T, 6) in the column order of csrc/rollout.cu: drift coefficient,
-    diffusion, dt, lerp weight, scale_score * clip(score net), and the
-    hard-constraint factor of the net output."""
+def exp_coeffs(ts: torch.Tensor, alpha: float, sigma: float):
+    """Per-step (a, β²σ², σβ) of the exponential integrator, float32, with
+    the JAX package's formula: β = clip(α·sqrt(t − s), 0, 1), a = sqrt(1 − β²)."""
+    beta = (alpha * torch.sqrt(ts[1:] - ts[:-1])).clamp(0.0, 1.0)
+    return torch.sqrt(1.0 - beta**2), beta**2 * sigma**2, sigma * beta
+
+
+@torch.no_grad()
+def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
+    """Per-step tables: the time-embedding rows (T, C) and six scalars per
+    step (T, 6) in the column order of csrc/rollout.cu. EM: drift
+    coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
+    and the hard-constraint factor of the net output. Exponential integrator
+    (`exp=(alpha, sigma)`): a, β²σ², σβ, 0, scale_score * clip(score net), 1."""
     s = ts[:-1]
     base = ctrl.base_model
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
     temb = base.timestep_embed(s) + base.input_embed.bias
     ones = torch.ones_like(s)
-    ctrl_scale = ctrl.constrain(ones, s) if ctrl.hard_constrain else ones
+    hard = getattr(ctrl, "hard_constrain", False)
+    ctrl_scale = ctrl.constrain(ones, s) if hard else ones
     sscore = ctrl.scale_score * ones
     if ctrl.score_model is not None:
         score_net = ctrl.score_model(s)[:, 0]
         if clip_model is not None:
             score_net = score_net.clamp(-clip_model, clip_model)
-        if ctrl.hard_constrain:
+        if hard:
             score_net = ctrl.constrain(score_net, s)
         sscore = sscore * score_net
-    tab = torch.stack(
-        [
+    if exp is not None:
+        columns = [*exp_coeffs(ts, *exp), torch.zeros_like(s), sscore, ones]
+    else:
+        w = s / sde.terminal_t if type(ctrl) is LerpCtrl else torch.zeros_like(s)
+        columns = [
             sde.drift_coeff_t(s) * ones,
             sde.diff_coeff_t(s) * ones,
             ts[1:] - s,
-            s / sde.terminal_t,
+            w,
             sscore,
             ctrl_scale,
-        ],
-        dim=1,
-    )
-    return tab.contiguous(), temb.contiguous()
+        ]
+    return torch.stack(columns, dim=1).contiguous(), temb.contiguous()
 
 
 def _weights(base: FourierMLP):
@@ -113,15 +159,15 @@ def _weights(base: FourierMLP):
     ]
 
 
-def _consts(ctrl: LerpCtrl, prior: IsotropicGauss, target: Funnel, clips):
+def _consts(ctrl, prior: IsotropicGauss | None, target: Funnel, clips):
     inf = math.inf
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
     clip_score = _pick(clips, "clip_score", ctrl.clip_score)
     return dict(
         clip_model=inf if clip_model is None else float(clip_model),
         clip_score=inf if clip_score is None else float(clip_score),
-        prior_loc=prior.loc0,
-        prior_var=prior.scale0**2,
+        prior_loc=0.0 if prior is None else prior.loc0,
+        prior_var=1.0 if prior is None else prior.scale0**2,
         funnel_var_first=target.distr_first.scale0**2,
     )
 
@@ -131,8 +177,8 @@ def _clip(v, c):
 
 
 @torch.no_grad()
-def _plain_loop(x0, dbs, tab, temb, weights, *, clip_model, clip_score,
-                prior_loc, prior_var, funnel_var_first):
+def _plain_loop(x0, dbs, tab, temb, weights, form, update, *, clip_model,
+                clip_score, prior_loc, prior_var, funnel_var_first):
     """The kernel's arithmetic in plain PyTorch: the same step, the same tables."""
     w_in, w_hid, b_hid, w_out, b_out = weights
     T = dbs.shape[0]
@@ -156,63 +202,111 @@ def _plain_loop(x0, dbs, tab, temb, weights, *, clip_model, clip_score,
             ],
             dim=1,
         )
-        prior = (prior_loc - x) / prior_var
-        lerp = _clip(prior + (target - prior) * w, clip_score)
-        u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
-        x = x + (drift * x + diff * u) * dt + diff * dbs[k]
+        if form == "lerp":
+            prior = (prior_loc - x) / prior_var
+            lerp = _clip(prior + (target - prior) * w, clip_score)
+            u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
+        else:
+            u = _clip(out, clip_model) + sscore * _clip(target, clip_score)
+        if update == "em":
+            x = x + (drift * x + diff * u) * dt + diff * dbs[k]
+        else:  # the first three columns hold a, β²σ², σβ
+            x = (x * drift + diff * u) + dt * dbs[k]
     return xs, x
 
 
 @torch.no_grad()
-def _prepare(ctrl, x0, ts, dbs, clips):
+def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
     """Checked inputs, tables, weights and constants of one rollout."""
-    sde, prior, target = resolve_step(ctrl)
+    update = "em" if exp is None else "exp"
+    form, sde, prior, target = resolve_step(ctrl, sde, update)
     T, B, d = dbs.shape
     if x0.shape != (B, d) or ts.shape != (T + 1,):
         raise ValueError(
             f"shape mismatch: x0 {tuple(x0.shape)}, ts {tuple(ts.shape)}, "
-            f"dbs {tuple(dbs.shape)}"
+            f"noise {tuple(dbs.shape)}"
         )
     x0 = x0.detach().contiguous()
     dbs = dbs.detach().contiguous()
-    tab, temb = step_tables(ctrl, sde, ts.detach(), clips)
+    tab, temb = step_tables(ctrl, sde, ts.detach(), clips, exp)
     weights = _weights(ctrl.base_model)
     tensors = [x0, dbs, tab, temb, *weights]
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
         raise TypeError("rollout inputs must be float32 on one device")
-    return tensors, _consts(ctrl, prior, target, clips)
+    return tensors, _consts(ctrl, prior, target, clips), form, update
 
 
-def rollout_plain(ctrl, x0, ts, dbs, clips=None):
-    """Plain PyTorch twin of the kernel on any device; returns (xs, x_T)."""
-    (x0, dbs, tab, temb, *weights), consts = _prepare(ctrl, x0, ts, dbs, clips)
-    return _plain_loop(x0, dbs, tab, temb, weights, **consts)
+def _run_plain(prepared):
+    (x0, dbs, tab, temb, *weights), consts, form, update = prepared
+    return _plain_loop(x0, dbs, tab, temb, weights, form, update, **consts)
+
+
+def _check_device(x0):
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x0.device}")
+
+
+def rollout_plain(ctrl, x0, ts, dbs, clips=None, sde=None):
+    """Plain PyTorch twin of kernel 1 on any device; returns (xs, x_T)."""
+    return _run_plain(_prepare(ctrl, x0, ts, dbs, clips, sde))
+
+
+def rollout_exp_plain(ctrl, x0, ts, noise, alpha, sigma, clips=None):
+    """Plain PyTorch twin of kernel 2 on any device; returns (xs, x_T)."""
+    return _run_plain(_prepare(ctrl, x0, ts, noise, clips, exp=(alpha, sigma)))
+
+
+def _launch(name, launch_fn, prepared, channels, *scalars):
+    """Launch one rollout kernel on the inputs' stream; returns (xs, x_T)."""
+    tensors, consts, form, _ = prepared
+    x0, dbs = tensors[0], tensors[1]
+    T, B, d = dbs.shape
+    xs = torch.empty_like(dbs)
+    x_T = torch.empty_like(x0)
+    code = launch_fn(
+        *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
+        B, d, channels, tensors[5].shape[0], T, *scalars,
+        torch.cuda.current_stream(x0.device).cuda_stream,
+    )
+    build.check(code, name)
+    build.count_launch(name, form)
+    return xs, x_T
 
 
 @torch.no_grad()
-def fused_rollout(ctrl, x0, ts, dbs, clips=None):
-    """Run all T = len(ts) - 1 EM steps of `ctrl`'s SDE; returns (xs, x_T).
+def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
+    """Run all T = len(ts) - 1 EM steps of `sde` under `ctrl`; returns
+    (xs, x_T). `dbs` holds the Brownian increments (T, B, d).
 
-    `ctrl` is the main-path LerpCtrl; its SDE, prior and target are read
-    from the control itself (its `sde` and bound score methods). A CUDA
-    tensor launches the kernel, a CPU tensor runs the plain twin.
+    A LerpCtrl integrates its own SDE (`sde` may be omitted) and reads its
+    prior and target from its bound score methods; a ScoreCtrl needs the
+    `sde`. A CUDA tensor launches kernel 1, a CPU tensor runs the plain twin.
     """
+    _check_device(x0)
+    prepared = _prepare(ctrl, x0, ts, dbs, clips, sde)
     if x0.device.type == "cpu":
-        return rollout_plain(ctrl, x0, ts, dbs, clips)
-    if x0.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0.device}")
-    tensors, consts = _prepare(ctrl, x0, ts, dbs, clips)
-    T, B, d = tensors[1].shape
-    xs = torch.empty_like(tensors[1])
-    x_T = torch.empty_like(tensors[0])
-    lib = build.library()
-    code = lib.rollout_launch(
-        *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, ctrl.base_model.channels, tensors[5].shape[0], T,
-        consts["clip_model"], consts["clip_score"], consts["prior_loc"],
-        consts["prior_var"], consts["funnel_var_first"],
-        torch.cuda.current_stream(x0.device).cuda_stream,
+        return _run_plain(prepared)
+    c, form = prepared[1], prepared[2]
+    return _launch(
+        "rollout", build.library().rollout_launch, prepared, ctrl.base_model.channels,
+        c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"],
+        c["funnel_var_first"], FORM_CODES[form],
     )
-    build.check(code, "rollout")
-    build.count_launch("rollout")
-    return xs, x_T
+
+
+@torch.no_grad()
+def fused_rollout_exp(ctrl, x0, ts, noise, alpha, sigma, clips=None):
+    """Run all T = len(ts) - 1 exponential-integrator steps of the ScoreCtrl
+    `ctrl` with standard-normal `noise` (T, B, d); returns (xs, x_T).
+
+    A CUDA tensor launches kernel 2, a CPU tensor runs the plain twin.
+    """
+    _check_device(x0)
+    prepared = _prepare(ctrl, x0, ts, noise, clips, exp=(alpha, sigma))
+    if x0.device.type == "cpu":
+        return _run_plain(prepared)
+    c = prepared[1]
+    return _launch(
+        "rollout_exp", build.library().rollout_exp_launch, prepared,
+        ctrl.base_model.channels, c["clip_model"], c["clip_score"], c["funnel_var_first"],
+    )

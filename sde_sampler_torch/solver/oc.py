@@ -1,18 +1,22 @@
-"""Diffusion solvers: TrainableDiff and Bridge (DIS).
+"""Diffusion solvers: TrainableDiff, Bridge (DIS), PIS, DDS and EulerDDS.
 
-Port of `TrainableDiff` and `Bridge` from `sde_sampler_tpu/solver/oc.py`
-for the case without an inference control. Evaluation computes both log Z
-estimators (with and without the Ito integral) from one rollout.
+Port of `TrainableDiff`, `Bridge`, `PIS`, `DDS` and `EulerDDS` from
+`sde_sampler_tpu/solver/oc.py`; Bridge without an inference control.
+Evaluation computes both log Z estimators (with and without the Ito
+integral) from one rollout. DDS has no SDE (`sde` is None): its
+exponential integrator takes α and σ from the loss.
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from sde_sampler_torch.distr.base import Distribution
+from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.gauss import Gauss
-from sde_sampler_torch.eq.sdes import OU
+from sde_sampler_torch.eq.sdes import OU, ControlledSDE
 from sde_sampler_torch.losses.oc import BaseOCLoss
 from sde_sampler_torch.solver.base import Trainable
 from sde_sampler_torch.utils.common import Results, clip_norm
@@ -143,3 +147,103 @@ class Bridge(TrainableDiff):
             initial_log_prob=self.prior.log_prob,
             generator=self.generator,
         )
+
+
+class PIS(TrainableDiff):
+    """Path integral sampler: Dirac prior and the analytic reference
+    control of the uncontrolled SDE's marginal."""
+
+    def setup_models(self):
+        super().setup_models()
+        if not isinstance(self.prior, Delta):
+            raise ValueError("Can only be used with dirac delta prior.")
+        self.reference_distr = self.sde.marginal_distr(
+            t=self.sde.terminal_t, x_init=self.prior.loc
+        )
+        self.loss: BaseOCLoss = instantiate(
+            self.cfg["loss"],
+            generative_ctrl=None,
+            sde=self.sde,
+            filter_samples=getattr(self.target, "filter", None),
+        )
+        inference_base = instantiate(self.cfg["sde"], generative=False)
+        self.inference_sde = ControlledSDE(
+            sde=inference_base, ctrl=self.analytic_inference_ctrl
+        )
+
+    def analytic_inference_ctrl(self, t, x):
+        loc, var = self.sde.marginal_params(t, self.prior.loc)
+        score = (loc - x) / var
+        return self.sde.diff(t, x) * score.clamp(max=1e5)
+
+    def _call_loss(self, loss, ts, x, dbs):
+        return loss(
+            ts, x,
+            self.clipped_target_unnorm_log_prob,
+            self.reference_distr.log_prob,
+            dbs=dbs,
+            generator=self.generator,
+        )
+
+    def _call_loss_eval(self, loss, ts, x):
+        return loss.eval(
+            ts, x,
+            self.clipped_target_unnorm_log_prob,
+            self.reference_distr.log_prob,
+            generator=self.generator,
+        )
+
+
+class DDS(TrainableDiff):
+    """Denoising diffusion sampler with the exponential integrator."""
+
+    def setup_models(self):
+        super().setup_models()
+        if not isinstance(self.prior, Gauss):
+            raise ValueError("Can only be used with Gaussian prior.")
+        self.reference_distr = self.prior
+        self.loss: BaseOCLoss = instantiate(
+            self.cfg["loss"],
+            generative_ctrl=None,
+            sde=self.sde,
+            filter_samples=getattr(self.target, "filter", None),
+        )
+
+    _call_loss = PIS._call_loss
+    _call_loss_eval = PIS._call_loss_eval
+
+
+class EulerDDS(TrainableDiff):
+    """DDS objectives with a plain Euler-Maruyama integrator."""
+
+    def setup_models(self):
+        super().setup_models()
+        if not isinstance(self.prior, Gauss):
+            raise ValueError("Can only be used with Gaussian prior.")
+        self.inference_sde = instantiate(self.cfg["sde"], generative=False)
+        self.reference_distr = self.sde.marginal_distr(
+            self.sde.terminal_t,
+            x_init=self.prior.loc,
+            var_init=self.prior.scale**2,
+        )
+        if not (
+            np.allclose(self.reference_distr.loc.cpu(), self.prior.loc.cpu())
+            and np.allclose(self.reference_distr.scale.cpu(), self.prior.scale.cpu())
+        ):
+            raise ValueError(
+                "Make sure that the Gaussian is the invariant distribution "
+                "of the SDE."
+            )
+        self.loss: BaseOCLoss = instantiate(
+            self.cfg["loss"],
+            generative_ctrl=None,
+            sde=self.sde,
+            reference_ctrl=self.reference_ctrl,
+            filter_samples=getattr(self.target, "filter", None),
+        )
+
+    def reference_ctrl(self, t, x):
+        return self.sde.diff(t, x) * self.prior.score(x)
+
+    _call_loss = PIS._call_loss
+    _call_loss_eval = PIS._call_loss_eval

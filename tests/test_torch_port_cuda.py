@@ -6,7 +6,8 @@ none; skip without a card. Run it there without the JAX conftest:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerances (float32 on the card, sums in another order):
-- rollout, 12 steps: 1e-5 absolute and relative;
+- rollouts (kernel 1 in both control forms, kernel 2), 12 steps: 1e-5
+  absolute and relative;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative.
 """
 import math
@@ -17,9 +18,10 @@ import torch
 
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import IsotropicGauss
-from sde_sampler_torch.eq.sdes import VP
+from sde_sampler_torch.eq.sdes import VP, ScaledBM
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import LerpCtrl
+from sde_sampler_torch.models.reparam import LerpCtrl, ScoreCtrl
+from sde_sampler_torch.utils.common import get_timesteps
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +69,72 @@ def test_rollout_kernel_matches_plain_twin(cuda, batch, hard_constrain):
     assert build.LAUNCHES["rollout"] == before + 1
     xs_p, xT_p = rollout_plain(ctrl, x0, ts, dbs, clips)
     assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+
+
+def score_ctrl(d=10):
+    ctrl = ScoreCtrl(
+        base_model=FourierMLP(dim=d),
+        score_model=TimeEmbed(dim_out=1, num_layers=4, last_bias_init={"constant": 0.01}),
+        target_score=Funnel(dim=d, n_reference_samples=100).score,
+        clip_model=10.0, clip_score=10.0, scale_score=0.7,
+    )
+    ctrl.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # give the zero-initialised last layers values
+        g = torch.Generator().manual_seed(1)
+        ctrl.base_model.out_layer.weight.normal_(0.0, 0.05, generator=g)
+        ctrl.score_model.out_layer.weight.normal_(0.0, 0.05, generator=g)
+    return ctrl
+
+
+@pytest.mark.parametrize("batch,sde", [(32, "vp"), (29, "bm")])
+def test_rollout_kernel_score_form_matches_plain_twin(cuda, batch, sde):
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops.rollout import fused_rollout, rollout_plain
+
+    ctrl = score_ctrl().to(cuda)
+    sde = (VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0) if sde == "vp"
+           else ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0))
+    rng = np.random.default_rng(2)
+    T = 12
+    ts = torch.linspace(0.0, sde.terminal_t, T + 1, device=cuda)
+    x0 = torch.tensor(rng.normal(size=(batch, 10)), dtype=torch.float32, device=cuda)
+    dbs = torch.tensor(rng.normal(size=(T, batch, 10)), dtype=torch.float32, device=cuda)
+    dbs *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+    clips = {"clip_model": 5.0, "clip_score": 3.0}
+    before = dict(build.FORM_LAUNCHES)
+    xs, x_T = fused_rollout(ctrl, x0, ts, dbs, clips, sde=sde)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES["rollout.score"] == before["rollout.score"] + 1
+    assert build.FORM_LAUNCHES["rollout.lerp"] == before["rollout.lerp"]
+    xs_p, xT_p = rollout_plain(ctrl, x0, ts, dbs, clips, sde=sde)
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [32, 29])
+def test_exp_rollout_kernel_matches_plain_twin(cuda, batch):
+    """Kernel 2 on a cosine grid whose last steps have dt = 0."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops.rollout import fused_rollout_exp, rollout_exp_plain
+
+    ctrl = score_ctrl().to(cuda)
+    rng = np.random.default_rng(3)
+    T = 12
+    ts = get_timesteps(0.0, 1.6, steps=T - 1, rescale_t="cosine", device=cuda)
+    assert float(ts[-1] - ts[-2]) == 0.0
+    x0 = torch.tensor(rng.normal(size=(batch, 10)), dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.normal(size=(T, batch, 10)), dtype=torch.float32, device=cuda)
+    clips = {"clip_model": 5.0, "clip_score": 3.0}
+    before = build.LAUNCHES["rollout_exp"]
+    xs, x_T = fused_rollout_exp(ctrl, x0, ts, noise, 0.9, 1.1, clips)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rollout_exp"] == before + 1
+    xs_p, xT_p = rollout_exp_plain(ctrl, x0, ts, noise, 0.9, 1.1, clips)
+    assert torch.equal(xs[0], x0)
+    assert torch.equal(x_T, xs[-1])  # the dt = 0 step passes the state through
     torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
 
