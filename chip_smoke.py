@@ -11,7 +11,9 @@ prints nvcc's register and spill report. Phases:
            numpy seed), with the stated tolerances: kernel 1 (EM rollout) in
            its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
-           grid, softmin and transport at 100k x 100k;
+           grid, kernel 1's generic body (a 32-wide net), softmin and
+           transport at 100k x 100k, and softmin's edges at 100k (a column
+           split of -inf duals, rows that see only -inf);
   main     drive each path through the entry point (`sde_sampler_torch.main`)
            on the funnel (d = 10) at full width, each with the launch counts
            zeroed just before and read just after; every kernel of the path
@@ -25,8 +27,11 @@ prints nvcc's register and spill report. Phases:
              dds_euler  EulerDDS (VP) and pis (PIS, scaled BM, Dirac prior):
              pis        kernel 1's ScoreCtrl form, 20 steps, 10k evaluation;
   timing   time the DIS and DDS optimizer steps (with a profiler breakdown),
-           each kernel and its plain version at its path's shapes, and one
-           full Sinkhorn evaluation.
+           each kernel and its plain version at its path's shapes (the
+           rollout kernels alone on prepared tables, through their wrappers,
+           and in their generic body), and one full Sinkhorn evaluation;
+           print each kernel's launches per paper-scale DIS run, computed
+           from conf/solver/oc_base.yaml.
 
 It prints the card's name and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
@@ -55,6 +60,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # Main-path shapes (conf/solver/oc_base.yaml, conf/target/funnel.yaml,
 # conf/model/lerp.yaml)
 DIM, BATCH, STEPS, WIDTH, HIDDEN = 10, 2048, 200, 64, 2
+GENERIC_WIDTH = 32  # a net outside the fast body's shapes
 EVAL_BATCH = 100_000
 EPS = 1e-3  # Sinkhorn eps (eval/sinkhorn.py default)
 # DDS (conf/solver/dds.yaml, conf/loss/exponential_sde_lv.yaml): the cosine
@@ -162,7 +168,7 @@ def pair_work(n, m, d, per_pair, n_out):
     return n * m * (3 * d + per_pair), 4 * (n * d + m * d + n + m + n_out)
 
 
-def seeded_ctrl(device):
+def seeded_ctrl(device, width=WIDTH):
     """The main-path control stack with weights drawn from a numpy seed."""
     import numpy as np
     import torch
@@ -177,8 +183,8 @@ def seeded_ctrl(device):
     target = Funnel(dim=DIM, n_reference_samples=1000).to(device)
     sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
     ctrl = LerpCtrl(
-        base_model=FourierMLP(dim=DIM, num_layers=HIDDEN + 2, channels=WIDTH),
-        score_model=TimeEmbed(dim_out=1, num_layers=4, channels=WIDTH),
+        base_model=FourierMLP(dim=DIM, num_layers=HIDDEN + 2, channels=width),
+        score_model=TimeEmbed(dim_out=1, num_layers=4, channels=width),
         sde=sde, prior_score=prior.score, target_score=target.score,
         clip_model=10.0, clip_score=10.0, detach_score=False,
     )
@@ -228,7 +234,7 @@ def dds_inputs(device, rng):
     return x0, ts, noise
 
 
-def check_rollout(name, run, plain, x0, ts, noise, report_key, report):
+def check_rollout(name, run, plain, x0, ts, noise, report_key, report, width=WIDTH):
     """A rollout kernel against its plain twin: one step from the twin's own
     states (no compounding) at five steps, then the whole rollout."""
     T = ts.shape[0] - 1
@@ -252,7 +258,7 @@ def check_rollout(name, run, plain, x0, ts, noise, report_key, report):
     marks = sorted({1, T // 20, T // 4, T // 2, 3 * T // 4, T - 1})
     growth = {k: "%.1e" % float((xs_k[k] - xs_p[k]).abs().max()) for k in marks}
     n_zero = int((ts[1:] == ts[:-1]).sum())
-    print(f"kernel {name} (B {x0.shape[0]}, T {T}, d {DIM}, width {WIDTH}"
+    print(f"kernel {name} (B {x0.shape[0]}, T {T}, d {DIM}, width {width}"
           + (f", {n_zero} steps with dt = 0" if n_zero else "") + "): "
           f"max_abs_err {max(e1, e2):.3e} (atol {atol}, rtol {rtol}); one step "
           f"{step_err:.3e} (atol, rtol {TOL['rollout_step']}); max error by "
@@ -340,6 +346,30 @@ def phase_kernels(device, report):
         lambda x, t, n: ro.rollout_exp_plain(score_ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips),
         x0e, ts_e, noise, "rollout_exp", report)
 
+    # kernel 1's generic body: a 32-wide net at the DIS shapes
+    from sde_sampler_torch.ops import build
+
+    generic_ctrl, generic_rng = seeded_ctrl(device, GENERIC_WIDTH)
+    x0g, _, dbs_g = rollout_inputs(device, generic_rng)
+    before = build.FORM_LAUNCHES["rollout.lerp.generic"]
+    check_rollout(
+        "rollout.generic",
+        lambda x, t, n: ro.fused_rollout(generic_ctrl, x, t, n, clips),
+        lambda x, t, n: ro.rollout_plain(generic_ctrl, x, t, n, clips), x0g, ts, dbs_g,
+        "rollout_generic", report, width=GENERIC_WIDTH)
+    if build.FORM_LAUNCHES["rollout.lerp.generic"] <= before:
+        fail("a 32-wide net did not take kernel 1's generic body")
+    r["generic_max_abs_err"] = report.pop("rollout_generic")["max_abs_err"]
+    r["max_abs_err"] = max(r["max_abs_err"], r["generic_max_abs_err"])
+
+    # the two bodies on the main path's shapes: the same sums in the same order
+    prepared = ro._prepare(ctrl, x0, ts, dbs, clips)
+    fast = launch_body(prepared, generic=False)
+    slow = launch_body(prepared, generic=True)
+    r["fast_vs_generic_body"] = max(float((a - b).abs().max()) for a, b in zip(fast, slow))
+    print(f"kernel rollout: fast vs generic body at width {WIDTH}: max |diff| "
+          f"{r['fast_vs_generic_body']:.3e}", flush=True)
+
     for name in ("softmin", "transport"):
         report[name] = {"max_abs_err": 0.0}
     for d in (DIM, 1):
@@ -363,6 +393,56 @@ def phase_kernels(device, report):
         if not ok or not math.isfinite(float(got)):
             fail(f"transport kernel disagrees with its plain version at d={d}")
         report["transport"]["max_abs_err"] = max(report["transport"]["max_abs_err"], err)
+
+    # softmin's edges at 100k: a whole column split of -inf duals, which
+    # merges as no contribution, and duals that are all -inf (every row -inf)
+    n = EVAL_BATCH
+    x, y, _, v = pair_inputs(device, rng, n, DIM, n // 100)
+    plan = sk.softmin_plan(n, n, DIM)
+    v[plan.cols : 2 * plan.cols] = -math.inf
+    for label, dual in (("a split of -inf duals", v), ("all duals -inf", torch.full_like(v, -math.inf))):
+        got, want = sk.softmin(x, y, dual, EPS), sk.softmin_plain(x, y, dual, EPS)
+        ok, err = within(got, want, *TOL["softmin"])
+        finite = bool(torch.isfinite(got).all())
+        print(f"kernel softmin (n = m = {n}, d {DIM}, {plan.splits} splits of "
+              f"{plan.cols} columns, {label}): max_abs_err {err:.3e}", flush=True)
+        if label.startswith("all"):
+            ok = bool((got == -math.inf).all()) and bool((want == -math.inf).all())
+        elif not finite:
+            ok = False
+        if not ok:
+            fail(f"softmin kernel disagrees with its plain version ({label})")
+        if not label.startswith("all"):
+            report["softmin"]["max_abs_err"] = max(report["softmin"]["max_abs_err"], err)
+
+
+def launch_body(prepared, generic: bool):
+    """A rollout kernel alone, in the body asked for, on inputs and tables
+    its wrapper prepared (`ops/rollout.py::_prepare`): to compare the two
+    bodies and to time the kernel without the wrapper's set-up. Not counted
+    as a launch of the wrapper."""
+    import torch
+
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    tensors, c, form, update = prepared
+    x0, dbs, w_hid = tensors[0], tensors[1], tensors[5]
+    T, B, d = dbs.shape
+    xs, x_T = torch.empty_like(dbs), torch.empty_like(x0)
+    lib = build.library()
+    shapes = (B, d, w_hid.shape[1], w_hid.shape[0], T, c["clip_model"], c["clip_score"])
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [*(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr()]
+    if update == "em":
+        code = lib.rollout_launch(*ptrs, *shapes, c["prior_loc"], c["prior_var"],
+                                  c["funnel_var_first"], ro.FORM_CODES[form], int(generic),
+                                  stream)
+    else:
+        code = lib.rollout_exp_launch(*ptrs, *shapes, c["funnel_var_first"], int(generic),
+                                      stream)
+    build.check(code, "rollout")
+    return xs, x_T
 
 
 def main_overrides(solver: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
@@ -399,6 +479,9 @@ def drive_path(solver: str, train_steps: int, eval_batch: int, report):
         count = build.FORM_LAUNCHES[key] if "." in key else build.LAUNCHES[key]
         if count <= 0:
             fail(f"kernel {key} was not launched on the {solver} path")
+    generic = {k: v for k, v in build.FORM_LAUNCHES.items() if k.endswith(".generic") and v}
+    if generic:  # every path's net is 64 wide with two hidden layers
+        fail(f"the {solver} path took the rollout kernels' generic body: {generic}")
     for name in KERNELS:
         if build.LAUNCHES[name]:
             by_path = report[name].setdefault("launches_by_path", {})
@@ -503,8 +586,14 @@ def phase_timing(solvers, device, report):
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
     clips = {"clip_model": 10.0, "clip_score": 10.0}
+    # "ms": the kernel alone, on tables prepared once; "wrapper_ms": the
+    # wrapper's whole call, which also builds the tables (plain torch)
     r = report["rollout"]
-    r["ms"] = cuda_ms(lambda: ro.fused_rollout(ctrl, x0, ts, dbs, clips), reps=20)
+    prepared = ro._prepare(ctrl, x0, ts, dbs, clips)
+    r["ms"] = cuda_ms(lambda: launch_body(prepared, generic=False), reps=50, warmup=3)
+    r["wrapper_ms"] = cuda_ms(lambda: ro.fused_rollout(ctrl, x0, ts, dbs, clips), reps=50,
+                              warmup=3)
+    r["generic_body_ms"] = cuda_ms(lambda: launch_body(prepared, generic=True), reps=20)
     r["plain_ms"] = cuda_ms(
         lambda: ro.rollout_plain(ctrl, x0, ts, dbs, clips), reps=3, warmup=0)
     r["bound_ms"], r["bound_by"] = bound(*rollout_work(BATCH, STEPS, DIM, WIDTH, HIDDEN))
@@ -512,8 +601,11 @@ def phase_timing(solvers, device, report):
     score_ctrl, score_rng = seeded_score_ctrl(device, SEED + 1)
     x0e, ts_e, noise = dds_inputs(device, score_rng)
     r = report["rollout_exp"]
-    r["ms"] = cuda_ms(lambda: ro.fused_rollout_exp(
-        score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=20)
+    prepared = ro._prepare(score_ctrl, x0e, ts_e, noise, clips, exp=(DDS_ALPHA, DDS_SIGMA))
+    r["ms"] = cuda_ms(lambda: launch_body(prepared, generic=False), reps=50, warmup=3)
+    r["wrapper_ms"] = cuda_ms(lambda: ro.fused_rollout_exp(
+        score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=50, warmup=3)
+    r["generic_body_ms"] = cuda_ms(lambda: launch_body(prepared, generic=True), reps=20)
     r["plain_ms"] = cuda_ms(lambda: ro.rollout_exp_plain(
         score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=3, warmup=0)
     r["bound_ms"], r["bound_by"] = bound(*rollout_work(
@@ -527,7 +619,7 @@ def phase_timing(solvers, device, report):
          lambda: sk.transport_cost_plain(x, y, u, v, EPS), 8, 1),
     ):
         k = report[name]
-        k["ms"] = cuda_ms(fn, reps=3)
+        k["ms"] = cuda_ms(fn, reps=10)
         k["plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
         k["bound_ms"], k["bound_by"] = bound(
             *pair_work(EVAL_BATCH, EVAL_BATCH, DIM, per_pair, n_out))
@@ -535,6 +627,10 @@ def phase_timing(solvers, device, report):
         k = report[name]
         print(f"time {name}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+    for name in ("rollout", "rollout_exp"):
+        k = report[name]
+        print(f"time {name}: through its wrapper {k['wrapper_ms']:.3f} ms; generic body "
+              f"alone at the same shapes {k['generic_body_ms']:.3f} ms", flush=True)
 
     samples = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
     gt = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
@@ -546,6 +642,29 @@ def phase_timing(solvers, device, report):
     print(f"Sinkhorn 100k vs 100k (funnel samples): {total:.3f} s, "
           f"{sinkhorn.n_iters} iterations, value {value:.6g}", flush=True)
     report["sinkhorn"] = {"seconds": total, "iterations": sinkhorn.n_iters, "value": value}
+
+    per_run = paper_scale_launches(sinkhorn.n_iters)
+    smoke = {name: report[name].get("launches") for name in KERNELS}
+    print("launches per paper-scale DIS run, computed from conf/solver/oc_base.yaml "
+          f"({sinkhorn.n_iters} Sinkhorn iterations each): {json.dumps(per_run)}; "
+          f"in this smoke run: {json.dumps(smoke)}", flush=True)
+    for name in KERNELS:
+        report[name]["launches_per_paper_dis_run"] = per_run[name]
+
+
+def paper_scale_launches(sinkhorn_iters: int) -> dict:
+    """Launches of each kernel in one paper-scale DIS run (conf/solver/
+    oc_base.yaml): kernel 1 once per optimizer step; a Sinkhorn (two
+    softmins per iteration, one transport) at step 0 (eval_init), every
+    eval_interval steps before the last, at the end, and once more when
+    Solver.__call__ logs the final results again."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "conf" / "solver" / "oc_base.yaml").read_text())
+    steps, interval = int(cfg["train_steps"]), int(cfg["eval_interval"])
+    evals = int(bool(cfg["eval_init"])) + len(range(interval, steps, interval)) + 2
+    return {"rollout": steps, "rollout_exp": 0, "softmin": evals * 2 * sinkhorn_iters,
+            "transport": evals}
 
 
 def main():
@@ -596,7 +715,9 @@ def main():
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": k.get("launches"),
             "launches_by_path": k.get("launches_by_path"),
+            "launches_per_paper_dis_run": k.get("launches_per_paper_dis_run"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
+            "wrapper_ms": k.get("wrapper_ms"), "generic_body_ms": k.get("generic_body_ms"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,
         })

@@ -31,31 +31,68 @@
 // coefficient, diffusion, dt, lerp weight, sscore, ctrl scale for EM, or
 // a, b2s2, sb, unused, sscore, unused for the exponential integrator.
 // sscore is scale_score * clip(score_net(s), clip_model).
-//
-// Mapping: one block per tile of ROWS batch rows; threads run over
-// (row, channel) pairs of each layer; the control-net weights (about 38 KB
-// at d = 10, width 64) and the tile's activations stay in shared memory for
-// all T steps, with __syncthreads between layers. xs[k] receives the state
-// before step k (xs[0] = x0) and x_T the state after the last step.
+// xs[k] receives the state before step k (xs[0] = x0) and x_T the state
+// after the last step.
 //
 // Bound on an H100: operations. Per step and row the net does
 // 2 * (d*C + H*C*C + C*d) flops (about 19k at d = 10, C = 64, H = 2) while
 // the rollout moves only the noise in and the states out (8 bytes per row,
-// step and coordinate). This simple mapping is limited by shared-memory
-// loads (two per multiply-add); register tiling over rows is later work.
+// step and coordinate). B = 2048 rows leave about 16 rows per SM, so a step
+// is a short chain of dependent layers on few warps: latency and
+// instruction count, not bandwidth, set its time.
+//
+// Two bodies, chosen by the wrapper from the shapes:
+//
+// - rollout_fast_kernel, for width C = 64, H = 2 hidden layers (every model
+//   config of the repo) and d = 1..16, all compile-time. One block of 128
+//   threads per 8 rows, two blocks per SM. In the C-wide layers a thread
+//   owns one channel of 4 rows: its weights (the input_embed and both
+//   hidden columns, 138 floats at d = 10) stay in registers for the whole
+//   launch, a warp covers 32 channels of the same rows, so the activations
+//   are read as warp-uniform float4 broadcasts, and 4 independent sums are
+//   in flight per thread. In the C -> d out_layer a thread owns one
+//   output of one row, with its 64 weights in registers too, and updates
+//   that coordinate at once: a step is four phases between barriers. The
+//   per-step tables (T x 70 floats) live in shared memory for the whole
+//   launch, and step k+1's noise arrives by cp.async while step k
+//   computes: no step waits on device memory. Each output keeps the
+//   generic body's sum order (acc = bias, then fmaf over j = 0..C-1) and
+//   both bodies share the update code, so they give the same bits.
+// - rollout_generic_kernel, any (C, H, d): one block per 16 rows, threads
+//   over (row, channel) pairs, one dependent chain per output, tables read
+//   from device memory each step.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;
-constexpr int kTab = 6;  // per-step scalars, see the header
+constexpr int kRows = 16;  // batch rows per block of the generic body
+constexpr int kTab = 6;    // per-step scalars, see the header
+
+constexpr int kGenericThreads = 256;
+constexpr int kFastRows = 8;         // batch rows per block of the fast body
+constexpr int kFastThreads = 128;    // 64 channels x 2 row groups
+constexpr int kFastRowsPerThread = 4;
+constexpr int kFastC = 64;
+constexpr int kFastH = 2;
+// padded activation rows: the out_layer's two rows per warp hit other banks
+constexpr int kActStride = kFastC + 4;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the H100's per-block limit
+static_assert(kFastThreads == kFastC * kFastRows / kFastRowsPerThread,
+              "one thread per channel and row group");
+static_assert(kFastThreads == 16 * kFastRows,
+              "one thread per row and out_layer output, for d <= 16");
 
 // Control form and update of one instance.
 constexpr int kLerpEm = 0;    // kernel 1, LerpCtrl (DIS)
 constexpr int kScoreEm = 1;   // kernel 1, ScoreCtrl (PIS, EulerDDS)
 constexpr int kScoreExp = 2;  // kernel 2, ScoreCtrl (DDS)
+
+struct Consts {
+  float clip_model, clip_score, prior_loc, prior_var, funnel_var_first;
+};
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
@@ -66,16 +103,46 @@ __device__ __forceinline__ float clip(float v, float c) {
   return v < -c ? -c : (v > c ? c : v);
 }
 
+// One coordinate's update from its net output `net`, the row's x[:, 0]
+// (`first`) and sum_{j>0} x[:, j]^2 (`sq`), and the step's scalars `st`.
 template <int kForm>
-__global__ void __launch_bounds__(kThreads) rollout_kernel(
+__device__ __forceinline__ float step_update(float x, float net, float first,
+                                             float sq, bool is_first, int D,
+                                             const float* st, float db,
+                                             const Consts& cs) {
+  const float drift = st[0], diff = st[1], dt = st[2], w = st[3];
+  const float sscore = st[4], cscale = st[5];
+  const float inv_var_other = expf(-first);
+  const float target =
+      is_first ? (-first / cs.funnel_var_first - 0.5f * (float)(D - 1)) +
+                     0.5f * sq * inv_var_other
+               : -x * inv_var_other;
+  if constexpr (kForm == kLerpEm) {
+    const float prior = (cs.prior_loc - x) / cs.prior_var;
+    const float lerp = clip(prior + (target - prior) * w, cs.clip_score);
+    const float u = clip(net, cs.clip_model) * cscale + diff * (sscore * lerp);
+    return x + (drift * x + diff * u) * dt + diff * db;
+  } else {
+    const float u = clip(net, cs.clip_model) + sscore * clip(target, cs.clip_score);
+    if constexpr (kForm == kScoreEm) {
+      return x + (drift * x + diff * u) * dt + diff * db;
+    } else {
+      // drift, diff, dt hold a, beta^2 sigma^2, sigma beta (see header)
+      return (x * drift + diff * u) + dt * db;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- generic
+
+template <int kForm>
+__global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     const float* __restrict__ x0, const float* __restrict__ dbs,
     const float* __restrict__ tab, const float* __restrict__ temb,
     const float* __restrict__ w_in, const float* __restrict__ w_hid,
     const float* __restrict__ b_hid, const float* __restrict__ w_out,
     const float* __restrict__ b_out, float* __restrict__ xs,
-    float* __restrict__ x_T, int B, int D, int C, int H, int T,
-    float clip_model, float clip_score, float prior_loc,
-    float prior_var, float funnel_var_first) {
+    float* __restrict__ x_T, int B, int D, int C, int H, int T, Consts cs) {
   extern __shared__ float sm[];
   float* s_win = sm;                   // (D, C)  input_embed weight, (in, out)
   float* s_whid = s_win + D * C;       // (H, C, C)
@@ -95,29 +162,22 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
   const size_t step_stride = (size_t)B * D;
   const size_t tile_off = (size_t)row0 * D;
 
-  for (int i = tid; i < D * C; i += kThreads) s_win[i] = w_in[i];
-  for (int i = tid; i < H * C * C; i += kThreads) s_whid[i] = w_hid[i];
-  for (int i = tid; i < H * C; i += kThreads) s_bhid[i] = b_hid[i];
-  for (int i = tid; i < C * D; i += kThreads) s_wout[i] = w_out[i];
-  for (int i = tid; i < D; i += kThreads) s_bout[i] = b_out[i];
-  for (int i = tid; i < kRows * D; i += kThreads)
+  for (int i = tid; i < D * C; i += kGenericThreads) s_win[i] = w_in[i];
+  for (int i = tid; i < H * C * C; i += kGenericThreads) s_whid[i] = w_hid[i];
+  for (int i = tid; i < H * C; i += kGenericThreads) s_bhid[i] = b_hid[i];
+  for (int i = tid; i < C * D; i += kGenericThreads) s_wout[i] = w_out[i];
+  for (int i = tid; i < D; i += kGenericThreads) s_bout[i] = b_out[i];
+  for (int i = tid; i < kRows * D; i += kGenericThreads)
     s_x[i] = i < nrows * D ? x0[tile_off + i] : 0.0f;
   __syncthreads();
 
   for (int k = 0; k < T; ++k) {
-    const float drift = tab[k * kTab + 0];
-    const float diff = tab[k * kTab + 1];
-    const float dt = tab[k * kTab + 2];
-    const float w = tab[k * kTab + 3];
-    const float sscore = tab[k * kTab + 4];
-    const float cscale = tab[k * kTab + 5];
-
     float* xs_k = xs + (size_t)k * step_stride + tile_off;
-    for (int i = tid; i < nrows * D; i += kThreads) xs_k[i] = s_x[i];
+    for (int i = tid; i < nrows * D; i += kGenericThreads) xs_k[i] = s_x[i];
 
     // input_embed(x) + timestep_embed(s) (bias folded into temb), then GELU
     const float* temb_k = temb + (size_t)k * C;
-    for (int i = tid; i < kRows * C; i += kThreads) {
+    for (int i = tid; i < kRows * C; i += kGenericThreads) {
       const int r = i / C, c = i - r * C;
       float acc = temb_k[c];
       for (int j = 0; j < D; ++j) acc = fmaf(s_win[j * C + c], s_x[r * D + j], acc);
@@ -130,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
     for (int l = 0; l < H; ++l) {
       const float* W = s_whid + (size_t)l * C * C;
       const float* bias = s_bhid + l * C;
-      for (int i = tid; i < kRows * C; i += kThreads) {
+      for (int i = tid; i < kRows * C; i += kGenericThreads) {
         const int r = i / C, c = i - r * C;
         const float* a = in + r * C;
         float acc = bias[c];
@@ -143,14 +203,14 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
       out = tmp;
     }
 
-    for (int i = tid; i < kRows * D; i += kThreads) {
+    for (int i = tid; i < kRows * D; i += kGenericThreads) {
       const int r = i / D, c = i - r * D;
       const float* a = in + r * C;
       float acc = s_bout[c];
       for (int j = 0; j < C; ++j) acc = fmaf(s_wout[j * D + c], a[j], acc);
       s_out[i] = acc;
     }
-    for (int r = tid; r < kRows; r += kThreads) {
+    for (int r = tid; r < kRows; r += kGenericThreads) {
       float sq = 0.0f;
       for (int j = 1; j < D; ++j) sq = fmaf(s_x[r * D + j], s_x[r * D + j], sq);
       s_first[r] = s_x[r * D];
@@ -159,78 +219,277 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
     __syncthreads();
 
     const float* db_k = dbs + (size_t)k * step_stride + tile_off;
-    for (int i = tid; i < nrows * D; i += kThreads) {
+    const float* st = tab + k * kTab;
+    for (int i = tid; i < nrows * D; i += kGenericThreads) {
       const int r = i / D, j = i - r * D;
-      const float x = s_x[i];
-      const float first = s_first[r];
-      const float inv_var_other = expf(-first);
-      const float target =
-          j == 0 ? (-first / funnel_var_first - 0.5f * (float)(D - 1)) +
-                       0.5f * s_sq[r] * inv_var_other
-                 : -x * inv_var_other;
-      if constexpr (kForm == kLerpEm) {
-        const float prior = (prior_loc - x) / prior_var;
-        const float lerp = clip(prior + (target - prior) * w, clip_score);
-        const float u = clip(s_out[i], clip_model) * cscale + diff * (sscore * lerp);
-        s_x[i] = x + (drift * x + diff * u) * dt + diff * db_k[i];
-      } else {
-        const float u = clip(s_out[i], clip_model) + sscore * clip(target, clip_score);
-        if constexpr (kForm == kScoreEm) {
-          s_x[i] = x + (drift * x + diff * u) * dt + diff * db_k[i];
-        } else {
-          // drift, diff, dt hold a, beta^2 sigma^2, sigma beta (see header)
-          s_x[i] = (x * drift + diff * u) + dt * db_k[i];
+      s_x[i] = step_update<kForm>(s_x[i], s_out[i], s_first[r], s_sq[r], j == 0,
+                                  D, st, db_k[i], cs);
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < nrows * D; i += kGenericThreads) x_T[tile_off + i] = s_x[i];
+}
+
+// ---------------------------------------------------------------- fast
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Block-wide copy of n floats into shared memory; 16 bytes at a time where
+// both sides allow it (dst is 16-byte aligned wherever n % 4 == 0 here).
+__device__ __forceinline__ void copy_in(float* dst, const float* src, int n) {
+  if (n % 4 == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+// Floats of shared memory the fast body needs at a given D and T.
+__host__ __device__ constexpr size_t fast_smem_floats(int D, int T) {
+  return (size_t)T * kFastC + (size_t)T * kTab + 2 * kFastRows * kActStride + D +
+         3 * (size_t)kFastRows * D + 2 * kFastRows;
+}
+
+template <int kForm, int D>
+__global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
+    const float* __restrict__ x0, const float* __restrict__ dbs,
+    const float* __restrict__ tab, const float* __restrict__ temb,
+    const float* __restrict__ w_in, const float* __restrict__ w_hid,
+    const float* __restrict__ b_hid, const float* __restrict__ w_out,
+    const float* __restrict__ b_out, float* __restrict__ xs,
+    float* __restrict__ x_T, int B, int T, Consts cs) {
+  constexpr int C = kFastC, H = kFastH, AS = kActStride, NT = kFastThreads;
+  constexpr int RT = kFastRowsPerThread;
+  constexpr int R = kFastRows;
+  extern __shared__ float4 sm4[];
+  // float4-read arrays first, each at a multiple of 4 floats
+  float* s_temb = reinterpret_cast<float*>(sm4);  // (T, C)
+  float* s_a = s_temb + (size_t)T * C;            // (R, AS) activations, ping
+  float* s_b = s_a + R * AS;                      // (R, AS) activations, pong
+  float* s_tab = s_b + R * AS;                    // (T, kTab)
+  float* s_bout = s_tab + (size_t)T * kTab;       // (D)
+  float* s_x = s_bout + D;                        // (R, D) state tile
+  float* s_db = s_x + R * D;                      // 2 x (R, D) noise
+  float* s_first = s_db + 2 * R * D;              // (R) x[:, 0]
+  float* s_sq = s_first + R;                      // (R) sum_{j>0} x[:, j]^2
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int nx = min(R, B - row0) * D;  // valid floats of the tile
+  const size_t step_stride = (size_t)B * D;
+  const size_t tile_off = (size_t)row0 * D;
+
+  // this thread's channel c of the C-wide layers and its RT rows from r0:
+  // a warp covers 32 channels of the same rows, so activation reads are
+  // warp-uniform broadcasts
+  const int warp = tid >> 5, lane = tid & 31;
+  const int c = 32 * (warp & 1) + lane;
+  const int r0 = RT * (warp >> 1);
+
+  // the weights of channel c stay in registers for the whole launch
+  float win[D], whid[H][C], bhid[H];
+#pragma unroll
+  for (int j = 0; j < D; ++j) win[j] = w_in[j * C + c];
+#pragma unroll
+  for (int l = 0; l < H; ++l) {
+    bhid[l] = b_hid[l * C + c];
+#pragma unroll
+    for (int j = 0; j < C; ++j) whid[l][j] = w_hid[(l * C + j) * C + c];
+  }
+
+  copy_in(s_temb, temb, T * C);
+  copy_in(s_tab, tab, T * kTab);
+  copy_in(s_bout, b_out, D);
+  for (int i = tid; i < R * D; i += NT) {
+    s_x[i] = i < nx ? x0[tile_off + i] : 0.0f;
+    if (i >= nx) s_db[i] = s_db[R * D + i] = 0.0f;  // rows past B
+  }
+  // step k's noise goes to buffer k & 1 (4-byte copies: a ragged B leaves
+  // the tile unaligned)
+  auto prefetch = [&](int k) {
+    const float* src = dbs + (size_t)k * step_stride + tile_off;
+    float* dst = s_db + (k & 1) * R * D;
+    for (int i = tid; i < nx; i += NT) cp_async4(dst + i, src + i);
+  };
+  prefetch(0);
+  cp_async_commit();
+  __syncthreads();
+
+  // this thread's coordinate of the C -> D layer and of the update
+  const int o_row = tid >> 4, o_col = tid & 15;
+  const bool o_valid = o_col < D;
+  const int o_c = o_valid ? o_col : 0;  // clamped for the loads
+  float wout[C];  // its out_layer weights, in registers too
+#pragma unroll
+  for (int j = 0; j < C; ++j) wout[j] = w_out[j * D + o_c];
+
+  for (int k = 0; k < T; ++k) {
+    float* xs_k = xs + (size_t)k * step_stride + tile_off;
+    for (int i = tid; i < nx; i += NT) xs_k[i] = s_x[i];
+    if (k + 1 < T) prefetch(k + 1);
+    cp_async_commit();  // one group per step, empty on the last
+
+    // the funnel score's row reductions of this step's state
+    if (tid < R) {
+      float sq = 0.0f;
+#pragma unroll
+      for (int j = 1; j < D; ++j) sq = fmaf(s_x[tid * D + j], s_x[tid * D + j], sq);
+      s_first[tid] = s_x[tid * D];
+      s_sq[tid] = sq;
+    }
+
+    // input_embed(x) + timestep_embed(s) (bias folded into temb), then GELU
+    float acc[RT];
+    {
+      const float t = s_temb[(size_t)k * C + c];
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) acc[rr] = t;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr)
+          acc[rr] = fmaf(win[j], s_x[(r0 + rr) * D + j], acc[rr]);
+      }
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) s_a[(r0 + rr) * AS + c] = gelu_exact(acc[rr]);
+    }
+    __syncthreads();
+
+    float* in = s_a;
+    float* out = s_b;
+#pragma unroll
+    for (int l = 0; l < H; ++l) {
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) acc[rr] = bhid[l];
+#pragma unroll
+      for (int j0 = 0; j0 < C; j0 += 4) {
+        float4 a[RT];
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) a[rr] = ld4(in + (r0 + rr) * AS + j0);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int rr = 0; rr < RT; ++rr)
+            acc[rr] = fmaf(whid[l][j0 + jj], (&a[rr].x)[jj], acc[rr]);
         }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) out[(r0 + rr) * AS + c] = gelu_exact(acc[rr]);
+      if (l == H - 1) cp_async_wait<1>();  // this step's noise has landed
+      __syncthreads();
+      float* tmp = in;
+      in = out;
+      out = tmp;
+    }
+
+    // out_layer, and the update of the coordinate it outputs
+    {
+      float o = s_bout[o_c];
+#pragma unroll
+      for (int j0 = 0; j0 < C; j0 += 4) {
+        const float4 a = ld4(in + o_row * AS + j0);
+        o = fmaf(wout[j0], a.x, o);
+        o = fmaf(wout[j0 + 1], a.y, o);
+        o = fmaf(wout[j0 + 2], a.z, o);
+        o = fmaf(wout[j0 + 3], a.w, o);
+      }
+      const int i = o_row * D + o_col;
+      if (o_valid && i < nx) {
+        s_x[i] = step_update<kForm>(s_x[i], o, s_first[o_row], s_sq[o_row], o_col == 0,
+                                    D, s_tab + k * kTab, s_db[(k & 1) * R * D + i], cs);
       }
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < nrows * D; i += kThreads) x_T[tile_off + i] = s_x[i];
+  for (int i = tid; i < nx; i += NT) x_T[tile_off + i] = s_x[i];
+}
+
+struct Args {
+  const float *x0, *dbs, *tab, *temb, *w_in, *w_hid, *b_hid, *w_out, *b_out;
+  float *xs, *x_T;
+  int B, D, C, H, T;
+  Consts cs;
+  cudaStream_t stream;
+};
+
+template <int kForm, int D>
+cudaError_t launch_fast(const Args& a) {
+  const size_t smem = sizeof(float) * fast_smem_floats(D, a.T);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = rollout_fast_kernel<kForm, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // room for two blocks per SM (B = 2048 gives 256 blocks for 132 SMs)
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.B + kFastRows - 1) / kFastRows;
+  kernel<<<blocks, kFastThreads, smem, a.stream>>>(
+      a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out, a.b_out,
+      a.xs, a.x_T, a.B, a.T, a.cs);
+  return cudaGetLastError();
 }
 
 template <int kForm>
-int launch(const float* x0, const float* dbs, const float* tab,
-           const float* temb, const float* w_in, const float* w_hid,
-           const float* b_hid, const float* w_out, const float* b_out,
-           float* xs, float* x_T, int B, int D, int C, int H, int T,
-           float clip_model, float clip_score, float prior_loc,
-           float prior_var, float funnel_var_first, void* stream) {
+cudaError_t launch_generic(const Args& a) {
   const size_t smem =
-      sizeof(float) * ((size_t)D * C + (size_t)H * C * C + (size_t)H * C +
-                       (size_t)C * D + D + kRows * (2 * D + 2 * C + 2));
+      sizeof(float) * ((size_t)a.D * a.C + (size_t)a.H * a.C * a.C + (size_t)a.H * a.C +
+                       (size_t)a.C * a.D + a.D + kRows * (2 * a.D + 2 * a.C + 2));
   cudaError_t err = cudaFuncSetAttribute(
-      rollout_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rollout_generic_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + kRows - 1) / kRows;
-  rollout_kernel<kForm><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T, B, D, C,
-      H, T, clip_model, clip_score, prior_loc, prior_var, funnel_var_first);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.B + kRows - 1) / kRows;
+  rollout_generic_kernel<kForm><<<blocks, kGenericThreads, smem, a.stream>>>(
+      a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out, a.b_out,
+      a.xs, a.x_T, a.B, a.D, a.C, a.H, a.T, a.cs);
+  return cudaGetLastError();
+}
+
+// The generic body on request; else the fast body, which takes only
+// C = 64, H = 2, D = 1..16 and tables that fit shared memory.
+template <int kForm>
+int launch(const Args& a, int generic) {
+  if (a.B <= 0 || a.T <= 0) return (int)cudaErrorInvalidValue;
+  if (generic) return (int)launch_generic<kForm>(a);
+  if (a.C != kFastC || a.H != kFastH) return (int)cudaErrorInvalidValue;
+  switch (a.D) {
+#define SDE_CASE(DD) \
+  case DD:           \
+    return (int)launch_fast<kForm, DD>(a);
+    SDE_CASE(1) SDE_CASE(2) SDE_CASE(3) SDE_CASE(4) SDE_CASE(5) SDE_CASE(6)
+    SDE_CASE(7) SDE_CASE(8) SDE_CASE(9) SDE_CASE(10) SDE_CASE(11)
+    SDE_CASE(12) SDE_CASE(13) SDE_CASE(14) SDE_CASE(15) SDE_CASE(16)
+#undef SDE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS) instance, form 1
-// the ScoreCtrl one.
+// the ScoreCtrl one; `generic` picks the any-shape body.
 extern "C" int rollout_launch(
     const float* x0, const float* dbs, const float* tab, const float* temb,
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, float* xs, float* x_T, int B,
     int D, int C, int H, int T, float clip_model, float clip_score,
     float prior_loc, float prior_var, float funnel_var_first, int form,
-    void* stream) {
-  if (form == kLerpEm)
-    return launch<kLerpEm>(x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out,
-                           b_out, xs, x_T, B, D, C, H, T, clip_model,
-                           clip_score, prior_loc, prior_var, funnel_var_first,
-                           stream);
-  if (form == kScoreEm)
-    return launch<kScoreEm>(x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out,
-                            b_out, xs, x_T, B, D, C, H, T, clip_model,
-                            clip_score, prior_loc, prior_var,
-                            funnel_var_first, stream);
+    int generic, void* stream) {
+  const Args a{x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T,
+               B, D, C, H, T,
+               {clip_model, clip_score, prior_loc, prior_var, funnel_var_first},
+               (cudaStream_t)stream};
+  if (form == kLerpEm) return launch<kLerpEm>(a, generic);
+  if (form == kScoreEm) return launch<kScoreEm>(a, generic);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -240,8 +499,10 @@ extern "C" int rollout_exp_launch(
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, float* xs, float* x_T, int B,
     int D, int C, int H, int T, float clip_model, float clip_score,
-    float funnel_var_first, void* stream) {
-  return launch<kScoreExp>(x0, noise, tab, temb, w_in, w_hid, b_hid, w_out,
-                           b_out, xs, x_T, B, D, C, H, T, clip_model,
-                           clip_score, 0.0f, 1.0f, funnel_var_first, stream);
+    float funnel_var_first, int generic, void* stream) {
+  const Args a{x0, noise, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T,
+               B, D, C, H, T,
+               {clip_model, clip_score, 0.0f, 1.0f, funnel_var_first},
+               (cudaStream_t)stream};
+  return launch<kScoreExp>(a, generic);
 }

@@ -31,12 +31,16 @@ NVCC_FLAGS = ARCH_FLAGS + [
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else. The rollout kernels also count by
-# control form ("<kernel>.<form>"), so a run shows which instance it took.
+# control form ("<kernel>.<form>"), and launches of the any-shape generic
+# body once more under "<kernel>.<form>.generic", so a run shows which
+# instance it took.
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
 FORM_LAUNCHES: dict[str, int] = {
     "rollout.lerp": 0, "rollout.score": 0, "rollout_exp.score": 0,
+    "rollout.lerp.generic": 0, "rollout.score.generic": 0,
+    "rollout_exp.score.generic": 0,
 }
 
 
@@ -46,10 +50,27 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def count_launch(name: str, form: str | None = None) -> None:
+def count_launch(name: str, form: str | None = None, generic: bool = False) -> None:
     LAUNCHES[name] += 1
     if form is not None:
         FORM_LAUNCHES[f"{name}.{form}"] += 1
+        if generic:
+            FORM_LAUNCHES[f"{name}.{form}.generic"] += 1
+
+
+# The C entry points' arguments (pointers and the stream as void*, so that
+# ctypes does not cut them to 32 bits); each returns a cudaError_t.
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # tensors, xs, x_T; B, d, C, H, T; clips, prior, funnel; form, generic; stream
+    "rollout_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 5 + [_I32, _I32, _PTR],
+    # tensors, xs, x_T; B, d, C, H, T; clips, funnel; generic; stream
+    "rollout_exp_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 3 + [_I32, _PTR],
+    # x, y, dual, out, packed, partials; n, m, d, splits, cols; eps; stream
+    "softmin_launch": [_PTR] * 6 + [_I32] * 5 + [_F32, _PTR],
+    # x, y, u, v, rows, total; n, m, d; eps; stream
+    "transport_launch": [_PTR] * 6 + [_I32] * 3 + [_F32, _PTR],
+}
 
 
 def _nvcc() -> str:
@@ -123,15 +144,9 @@ def library() -> ctypes.CDLL:
     if not lib_path.exists():
         _build(lib_path, _sources())
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rollout_launch.argtypes = (
-        [ptr] * 11 + [i32] * 5 + [f32] * 5 + [i32, ptr]
-    )
-    lib.rollout_exp_launch.argtypes = [ptr] * 11 + [i32] * 5 + [f32] * 3 + [ptr]
-    lib.softmin_launch.argtypes = [ptr] * 4 + [i32] * 3 + [f32, ptr]
-    lib.transport_launch.argtypes = [ptr] * 6 + [i32] * 3 + [f32, ptr]
-    for fn in (lib.rollout_launch, lib.rollout_exp_launch, lib.softmin_launch,
-               lib.transport_launch):
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 

@@ -18,7 +18,12 @@ specialised to the control forms of the funnel paths, each over a GELU
 - "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
 - "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2).
 
-The wrappers raise on anything else. Everything that depends only on the
+The wrappers raise on anything else. On the card, `kernel_instance` picks
+the kernel's body by shape: the fast body for the width, depth and
+dimensions of every model config of the repo (64 channels, 2 hidden
+layers, d <= 16, tables that fit shared memory), the generic body for any
+other; each counts its launches (`build.FORM_LAUNCHES`, ".generic" for the
+latter). Everything that depends only on the
 step start s = ts[k] is computed here, by plain torch on the tensors'
 device, as per-step tables; the kernel (`csrc/rollout.cu`) or, for a CPU
 tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`) then runs the
@@ -42,6 +47,30 @@ from sde_sampler_torch.ops import build
 
 # instance of csrc/rollout.cu's kernel 1 for each control form
 FORM_CODES = {"lerp": 0, "score": 1}
+
+# The fast body of csrc/rollout.cu (rollout_fast_kernel): its compile-time
+# width, hidden depth and largest d, the rows of a block, and the H100's
+# shared memory per block, which must hold the weights and the per-step
+# tables of the whole launch.
+FAST_WIDTH, FAST_HIDDEN, FAST_MAX_DIM = 64, 2, 16
+FAST_ROWS = 8
+MAX_SMEM_BYTES = 232448
+N_TAB = 6  # per-step scalars
+
+
+def fast_smem_bytes(d: int, T: int) -> int:
+    """Shared memory of the fast body (csrc/rollout.cu::fast_smem_floats)."""
+    C, R = FAST_WIDTH, FAST_ROWS
+    floats = T * C + T * N_TAB + 2 * R * (C + 4) + d + 3 * R * d + 2 * R
+    return 4 * floats
+
+
+def kernel_instance(channels: int, hidden: int, d: int, T: int) -> str:
+    """"fast" or "generic": the body of the rollout kernels for these shapes."""
+    if (channels, hidden) == (FAST_WIDTH, FAST_HIDDEN) and 1 <= d <= FAST_MAX_DIM \
+            and fast_smem_bytes(d, T) <= MAX_SMEM_BYTES:
+        return "fast"
+    return "generic"
 
 
 def _owner(method, cls):
@@ -257,19 +286,22 @@ def rollout_exp_plain(ctrl, x0, ts, noise, alpha, sigma, clips=None):
 
 
 def _launch(name, launch_fn, prepared, channels, *scalars):
-    """Launch one rollout kernel on the inputs' stream; returns (xs, x_T)."""
+    """Launch one rollout kernel on the inputs' stream, in the body that
+    `kernel_instance` picks; returns (xs, x_T)."""
     tensors, consts, form, _ = prepared
     x0, dbs = tensors[0], tensors[1]
     T, B, d = dbs.shape
+    hidden = tensors[5].shape[0]
+    generic = kernel_instance(channels, hidden, d, T) == "generic"
     xs = torch.empty_like(dbs)
     x_T = torch.empty_like(x0)
     code = launch_fn(
         *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, channels, tensors[5].shape[0], T, *scalars,
+        B, d, channels, hidden, T, *scalars, int(generic),
         torch.cuda.current_stream(x0.device).cuda_stream,
     )
     build.check(code, name)
-    build.count_launch(name, form)
+    build.count_launch(name, form, generic)
     return xs, x_T
 
 

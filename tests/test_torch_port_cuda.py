@@ -7,7 +7,8 @@ none; skip without a card. Run it there without the JAX conftest:
 
 Tolerances (float32 on the card, sums in another order):
 - rollouts (kernel 1 in both control forms, kernel 2), 12 steps: 1e-5
-  absolute and relative;
+  absolute and relative, in the fast body (width 64, two hidden layers,
+  d <= 16) and in the generic one (any other shape);
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative.
 """
 import math
@@ -35,10 +36,10 @@ def cuda():
     return resolve_device("cuda")
 
 
-def lerp_ctrl(d=10, hard_constrain=False):
+def lerp_ctrl(d=10, hard_constrain=False, channels=64):
     prior, target = IsotropicGauss(dim=d), Funnel(dim=d, n_reference_samples=100)
     ctrl = LerpCtrl(
-        base_model=FourierMLP(dim=d),
+        base_model=FourierMLP(dim=d, channels=channels),
         score_model=TimeEmbed(dim_out=1, num_layers=4, last_bias_init={"constant": 1.0}),
         sde=VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0),
         prior_score=prior.score, target_score=target.score,
@@ -64,18 +65,20 @@ def test_rollout_kernel_matches_plain_twin(cuda, batch, hard_constrain):
     dbs *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
     clips = {"clip_model": 5.0, "clip_score": 3.0}
     before = build.LAUNCHES["rollout"]
+    generic = build.FORM_LAUNCHES["rollout.lerp.generic"]
     xs, x_T = fused_rollout(ctrl, x0, ts, dbs, clips)
     torch.cuda.synchronize()
     assert build.LAUNCHES["rollout"] == before + 1
+    assert build.FORM_LAUNCHES["rollout.lerp.generic"] == generic  # the fast body
     xs_p, xT_p = rollout_plain(ctrl, x0, ts, dbs, clips)
     assert torch.equal(xs[0], x0)
     torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
 
 
-def score_ctrl(d=10):
+def score_ctrl(d=10, channels=64):
     ctrl = ScoreCtrl(
-        base_model=FourierMLP(dim=d),
+        base_model=FourierMLP(dim=d, channels=channels),
         score_model=TimeEmbed(dim_out=1, num_layers=4, last_bias_init={"constant": 0.01}),
         target_score=Funnel(dim=d, n_reference_samples=100).score,
         clip_model=10.0, clip_score=10.0, scale_score=0.7,
@@ -108,6 +111,7 @@ def test_rollout_kernel_score_form_matches_plain_twin(cuda, batch, sde):
     torch.cuda.synchronize()
     assert build.FORM_LAUNCHES["rollout.score"] == before["rollout.score"] + 1
     assert build.FORM_LAUNCHES["rollout.lerp"] == before["rollout.lerp"]
+    assert build.FORM_LAUNCHES["rollout.score.generic"] == before["rollout.score.generic"]
     xs_p, xT_p = rollout_plain(ctrl, x0, ts, dbs, clips, sde=sde)
     assert torch.equal(xs[0], x0)
     torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
@@ -129,9 +133,11 @@ def test_exp_rollout_kernel_matches_plain_twin(cuda, batch):
     noise = torch.tensor(rng.normal(size=(T, batch, 10)), dtype=torch.float32, device=cuda)
     clips = {"clip_model": 5.0, "clip_score": 3.0}
     before = build.LAUNCHES["rollout_exp"]
+    generic = build.FORM_LAUNCHES["rollout_exp.score.generic"]
     xs, x_T = fused_rollout_exp(ctrl, x0, ts, noise, 0.9, 1.1, clips)
     torch.cuda.synchronize()
     assert build.LAUNCHES["rollout_exp"] == before + 1
+    assert build.FORM_LAUNCHES["rollout_exp.score.generic"] == generic  # the fast body
     xs_p, xT_p = rollout_exp_plain(ctrl, x0, ts, noise, 0.9, 1.1, clips)
     assert torch.equal(xs[0], x0)
     assert torch.equal(x_T, xs[-1])  # the dt = 0 step passes the state through
@@ -162,3 +168,80 @@ def test_sinkhorn_kernels_match_plain_versions(cuda, d):
         transport_cost(x, y, u, dual, eps), transport_cost_plain(x, y, u, dual, eps),
         atol=0, rtol=1e-5,
     )
+
+
+@pytest.mark.parametrize("form", ["lerp", "score", "exp"])
+def test_generic_rollout_body_matches_plain_twin(cuda, form):
+    """A 32-wide net takes the any-shape body, counted as such."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    rng = np.random.default_rng(4)
+    T, batch = 12, 29
+    x0 = torch.tensor(rng.normal(size=(batch, 10)), dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.normal(size=(T, batch, 10)), dtype=torch.float32, device=cuda)
+    clips = {"clip_model": 5.0, "clip_score": 3.0}
+    if form == "lerp":
+        ctrl = lerp_ctrl(channels=32).to(cuda)
+        ts = torch.linspace(0.0, 1.0, T + 1, device=cuda)
+        noise *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+        run = lambda: ro.fused_rollout(ctrl, x0, ts, noise, clips)
+        plain = lambda: ro.rollout_plain(ctrl, x0, ts, noise, clips)
+        key = "rollout.lerp.generic"
+    elif form == "score":
+        ctrl = score_ctrl(channels=32).to(cuda)
+        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+        ts = torch.linspace(0.0, 1.0, T + 1, device=cuda)
+        noise *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+        run = lambda: ro.fused_rollout(ctrl, x0, ts, noise, clips, sde=sde)
+        plain = lambda: ro.rollout_plain(ctrl, x0, ts, noise, clips, sde=sde)
+        key = "rollout.score.generic"
+    else:
+        ctrl = score_ctrl(channels=32).to(cuda)
+        ts = get_timesteps(0.0, 1.6, steps=T - 1, rescale_t="cosine", device=cuda)
+        run = lambda: ro.fused_rollout_exp(ctrl, x0, ts, noise, 0.9, 1.1, clips)
+        plain = lambda: ro.rollout_exp_plain(ctrl, x0, ts, noise, 0.9, 1.1, clips)
+        key = "rollout_exp.score.generic"
+    before = build.FORM_LAUNCHES[key]
+    xs, x_T = run()
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[key] == before + 1
+    xs_p, xT_p = plain()
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 10, 12, 16, 17])
+@pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
+def test_softmin_kernel_splits_and_edges(cuda, d, case):
+    """n = 1000 rows (not a multiple of the 512-row block) against m = 5001
+    columns in four column splits, the last one ragged; d = 1..16 hold the
+    rows in registers, d = 17 takes the run-time-width path. "dead_split":
+    every dual of the second split is -inf (it merges as no
+    contribution); "all_inf": every row sees only -inf and gives -inf."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops.sinkhorn import softmin, softmin_plain, softmin_plan
+
+    n, m, eps = 1000, 5001, 1e-2
+    plan = softmin_plan(n, m, d)
+    assert plan.splits == 4 and m % plan.cols and n % 512
+    rng = np.random.default_rng(100 + d)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    x, y = f(rng.normal(size=(n, d))), f(rng.normal(size=(m, d)) + 0.3)
+    dual = f(rng.normal(size=m) * 0.01)
+    if case == "dead_split":
+        dual[plan.cols : 2 * plan.cols] = -math.inf
+        dual[:7] = -math.inf
+    elif case == "all_inf":
+        dual[:] = -math.inf
+    before = build.LAUNCHES["softmin"]
+    got = softmin(x, y, dual, eps)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["softmin"] == before + 1
+    want = softmin_plain(x, y, dual, eps)
+    if case == "all_inf":
+        assert bool((got == -math.inf).all()) and bool((want == -math.inf).all())
+        return
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

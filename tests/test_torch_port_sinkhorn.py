@@ -106,3 +106,61 @@ def test_sinkhorn_matches_jax(weighted):
                   **{k: torch.from_numpy(v) for k, v in w.items()}))
     assert got == pytest.approx(want, rel=1e-4)
     assert 1 <= s.n_iters <= kw["max_iters"]
+
+
+def split_softmin(x, y, dual, eps, cols, chunk=16):
+    """The softmin kernel's algorithm (csrc/sinkhorn.cu) in float32 numpy:
+    log2 domain, column splits of `cols`, an online max moved once per chunk
+    of `chunk` columns, a max of -inf rescaled against 0, then the merge of
+    the splits' (max, sum) partials."""
+    k2 = np.float32(1.4426950408889634) / np.float32(eps)
+    m = y.shape[0]
+    m_pad = -(-m // chunk) * chunk
+    v2 = np.full(m_pad, -np.inf, np.float32)
+    v2[:m] = dual * k2
+    y_pad = np.zeros((m_pad, y.shape[1]), np.float32)
+    y_pad[:m] = y
+    c = np.sqrt(((x[:, None, :] - y_pad[None]) ** 2).sum(-1), dtype=np.float32)
+    z = (-c * k2 + v2[None]).astype(np.float32)
+    parts = []
+    for j0 in range(0, m_pad, cols):
+        mx = np.full(x.shape[0], -np.inf, np.float32)
+        s = np.zeros(x.shape[0], np.float32)
+        for c0 in range(j0, min(j0 + cols, m_pad), chunk):
+            zc = z[:, c0 : c0 + chunk]
+            mn = np.maximum(mx, zc.max(axis=1))
+            base = np.where(mn == -np.inf, np.float32(0), mn)
+            s = s * np.exp2(mx - base) + np.exp2(zc - base[:, None]).sum(axis=1)
+            mx = mn
+        parts.append((mx, s))
+    pm = np.stack([p[0] for p in parts])
+    ps = np.stack([p[1] for p in parts])
+    big = pm.max(axis=0)
+    safe = np.where(big == -np.inf, np.float32(0), big)
+    total = (ps * np.exp2(pm - safe)).sum(axis=0)
+    with np.errstate(divide="ignore"):
+        out = np.float32(eps) * np.float32(np.log(2)) * (safe + np.log2(total))
+    return np.where(big == -np.inf, -np.inf, out).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
+def test_split_log2_softmin_matches_jax_kernel_and_plain(case):
+    """The kernel's split, chunked, log2-domain online logsumexp (emulated
+    with no invalid float operation) against the JAX Pallas softmin in
+    interpret mode and the port's plain version: 1e-5 absolute."""
+    x, y, dual, _ = clouds(3, n=130, m=301)
+    cols = 64  # five splits, the last one ragged
+    if case == "dead_split":
+        dual[64:128] = -np.inf  # the second split sees only -inf
+        dual[:3] = -np.inf
+    elif case == "all_inf":
+        dual[:] = -np.inf  # every row sees only -inf
+    with np.errstate(invalid="raise"):
+        got = split_softmin(x, y, dual, EPS, cols)
+    plain = softmin_plain(*map(torch.from_numpy, (x, y, dual)), EPS).numpy()
+    if case == "all_inf":
+        assert (got == -np.inf).all() and (plain == -np.inf).all()
+        return
+    want = np.asarray(sp.softmin_pallas(*map(jnp.asarray, (x, y, dual)), EPS, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, plain, atol=1e-5)
