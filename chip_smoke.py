@@ -27,11 +27,11 @@ prints nvcc's register and spill report. Phases:
              dds_euler  EulerDDS (VP) and pis (PIS, scaled BM, Dirac prior):
              pis        kernel 1's ScoreCtrl form, 20 steps, 10k evaluation;
   timing   time the DIS and DDS optimizer steps (with a profiler breakdown),
-           each kernel and its plain version at its path's shapes (the
-           rollout kernels alone on prepared tables, through their wrappers,
-           and in their generic body), and one full Sinkhorn evaluation;
-           print each kernel's launches per paper-scale DIS run, computed
-           from conf/solver/oc_base.yaml.
+           each kernel through its wrapper and its plain version at its
+           path's shapes (the rollout kernels also alone on prepared tables,
+           in each body), and one full Sinkhorn evaluation; print each
+           kernel's launches per paper-scale DIS run, computed from
+           conf/solver/oc_base.yaml.
 
 It prints the card's name and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
@@ -364,8 +364,8 @@ def phase_kernels(device, report):
 
     # the two bodies on the main path's shapes: the same sums in the same order
     prepared = ro._prepare(ctrl, x0, ts, dbs, clips)
-    fast = launch_body(prepared, generic=False)
-    slow = launch_body(prepared, generic=True)
+    fast = ro._launch(prepared, "fast")
+    slow = ro._launch(prepared, "generic")
     r["fast_vs_generic_body"] = max(float((a - b).abs().max()) for a, b in zip(fast, slow))
     print(f"kernel rollout: fast vs generic body at width {WIDTH}: max |diff| "
           f"{r['fast_vs_generic_body']:.3e}", flush=True)
@@ -414,35 +414,6 @@ def phase_kernels(device, report):
             fail(f"softmin kernel disagrees with its plain version ({label})")
         if not label.startswith("all"):
             report["softmin"]["max_abs_err"] = max(report["softmin"]["max_abs_err"], err)
-
-
-def launch_body(prepared, generic: bool):
-    """A rollout kernel alone, in the body asked for, on inputs and tables
-    its wrapper prepared (`ops/rollout.py::_prepare`): to compare the two
-    bodies and to time the kernel without the wrapper's set-up. Not counted
-    as a launch of the wrapper."""
-    import torch
-
-    from sde_sampler_torch.ops import build
-    from sde_sampler_torch.ops import rollout as ro
-
-    tensors, c, form, update = prepared
-    x0, dbs, w_hid = tensors[0], tensors[1], tensors[5]
-    T, B, d = dbs.shape
-    xs, x_T = torch.empty_like(dbs), torch.empty_like(x0)
-    lib = build.library()
-    shapes = (B, d, w_hid.shape[1], w_hid.shape[0], T, c["clip_model"], c["clip_score"])
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [*(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr()]
-    if update == "em":
-        code = lib.rollout_launch(*ptrs, *shapes, c["prior_loc"], c["prior_var"],
-                                  c["funnel_var_first"], ro.FORM_CODES[form], int(generic),
-                                  stream)
-    else:
-        code = lib.rollout_exp_launch(*ptrs, *shapes, c["funnel_var_first"], int(generic),
-                                      stream)
-    build.check(code, "rollout")
-    return xs, x_T
 
 
 def main_overrides(solver: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
@@ -586,14 +557,14 @@ def phase_timing(solvers, device, report):
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
     clips = {"clip_model": 10.0, "clip_score": 10.0}
-    # "ms": the kernel alone, on tables prepared once; "wrapper_ms": the
-    # wrapper's whole call, which also builds the tables (plain torch)
+    # "ms": the wrapper's whole call, which also builds the per-step tables
+    # (plain torch); "kernel_ms" and "generic_body_ms": the kernel alone in
+    # each body, on tables prepared once
     r = report["rollout"]
+    r["ms"] = cuda_ms(lambda: ro.fused_rollout(ctrl, x0, ts, dbs, clips), reps=50, warmup=3)
     prepared = ro._prepare(ctrl, x0, ts, dbs, clips)
-    r["ms"] = cuda_ms(lambda: launch_body(prepared, generic=False), reps=50, warmup=3)
-    r["wrapper_ms"] = cuda_ms(lambda: ro.fused_rollout(ctrl, x0, ts, dbs, clips), reps=50,
-                              warmup=3)
-    r["generic_body_ms"] = cuda_ms(lambda: launch_body(prepared, generic=True), reps=20)
+    r["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared, "fast"), reps=50, warmup=3)
+    r["generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=20)
     r["plain_ms"] = cuda_ms(
         lambda: ro.rollout_plain(ctrl, x0, ts, dbs, clips), reps=3, warmup=0)
     r["bound_ms"], r["bound_by"] = bound(*rollout_work(BATCH, STEPS, DIM, WIDTH, HIDDEN))
@@ -601,11 +572,11 @@ def phase_timing(solvers, device, report):
     score_ctrl, score_rng = seeded_score_ctrl(device, SEED + 1)
     x0e, ts_e, noise = dds_inputs(device, score_rng)
     r = report["rollout_exp"]
-    prepared = ro._prepare(score_ctrl, x0e, ts_e, noise, clips, exp=(DDS_ALPHA, DDS_SIGMA))
-    r["ms"] = cuda_ms(lambda: launch_body(prepared, generic=False), reps=50, warmup=3)
-    r["wrapper_ms"] = cuda_ms(lambda: ro.fused_rollout_exp(
+    r["ms"] = cuda_ms(lambda: ro.fused_rollout_exp(
         score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=50, warmup=3)
-    r["generic_body_ms"] = cuda_ms(lambda: launch_body(prepared, generic=True), reps=20)
+    prepared = ro._prepare(score_ctrl, x0e, ts_e, noise, clips, exp=(DDS_ALPHA, DDS_SIGMA))
+    r["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared, "fast"), reps=50, warmup=3)
+    r["generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=20)
     r["plain_ms"] = cuda_ms(lambda: ro.rollout_exp_plain(
         score_ctrl, x0e, ts_e, noise, DDS_ALPHA, DDS_SIGMA, clips), reps=3, warmup=0)
     r["bound_ms"], r["bound_by"] = bound(*rollout_work(
@@ -629,7 +600,7 @@ def phase_timing(solvers, device, report):
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
     for name in ("rollout", "rollout_exp"):
         k = report[name]
-        print(f"time {name}: through its wrapper {k['wrapper_ms']:.3f} ms; generic body "
+        print(f"time {name}: the kernel alone {k['kernel_ms']:.3f} ms; its generic body "
               f"alone at the same shapes {k['generic_body_ms']:.3f} ms", flush=True)
 
     samples = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
@@ -648,8 +619,7 @@ def phase_timing(solvers, device, report):
     print("launches per paper-scale DIS run, computed from conf/solver/oc_base.yaml "
           f"({sinkhorn.n_iters} Sinkhorn iterations each): {json.dumps(per_run)}; "
           f"in this smoke run: {json.dumps(smoke)}", flush=True)
-    for name in KERNELS:
-        report[name]["launches_per_paper_dis_run"] = per_run[name]
+    report["paper_scale_dis_launches_computed"] = per_run
 
 
 def paper_scale_launches(sinkhorn_iters: int) -> dict:
@@ -715,9 +685,8 @@ def main():
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": k.get("launches"),
             "launches_by_path": k.get("launches_by_path"),
-            "launches_per_paper_dis_run": k.get("launches_per_paper_dis_run"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
-            "wrapper_ms": k.get("wrapper_ms"), "generic_body_ms": k.get("generic_body_ms"),
+            "kernel_ms": k.get("kernel_ms"), "generic_body_ms": k.get("generic_body_ms"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,
         })

@@ -41,7 +41,8 @@
 // is a short chain of dependent layers on few warps: latency and
 // instruction count, not bandwidth, set its time.
 //
-// Two bodies, chosen by the wrapper from the shapes:
+// Two bodies, chosen here by shape (or on request) and reported to the
+// wrapper, which counts the generic one apart:
 //
 // - rollout_fast_kernel, for width C = 64, H = 2 hidden layers (every model
 //   config of the repo) and d = 1..16, all compile-time. One block of 128
@@ -84,6 +85,11 @@ static_assert(kFastThreads == kFastC * kFastRows / kFastRowsPerThread,
               "one thread per channel and row group");
 static_assert(kFastThreads == 16 * kFastRows,
               "one thread per row and out_layer output, for d <= 16");
+
+// The body a launch asks for, and the one it reports.
+constexpr int kByShape = 0;
+constexpr int kFastBody = 1;
+constexpr int kGenericBody = 2;
 
 // Control form and update of one instance.
 constexpr int kLerpEm = 0;    // kernel 1, LerpCtrl (DIS)
@@ -238,9 +244,10 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 
 // Block-wide copy of n floats into shared memory; 16 bytes at a time where
-// both sides allow it (dst is 16-byte aligned wherever n % 4 == 0 here).
+// both sides allow it.
 __device__ __forceinline__ void copy_in(float* dst, const float* src, int n) {
-  if (n % 4 == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {
+  const size_t addr = reinterpret_cast<size_t>(src) | reinterpret_cast<size_t>(dst);
+  if (n % 4 == 0 && (addr & 15) == 0) {
     const float4* s4 = reinterpret_cast<const float4*>(src);
     float4* d4 = reinterpret_cast<float4*>(dst);
     for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
@@ -420,8 +427,7 @@ struct Args {
 
 template <int kForm, int D>
 cudaError_t launch_fast(const Args& a) {
-  const size_t smem = sizeof(float) * fast_smem_floats(D, a.T);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * fast_smem_floats(D, a.T);  // fast_fits
   auto kernel = rollout_fast_kernel<kForm, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -453,13 +459,26 @@ cudaError_t launch_generic(const Args& a) {
   return cudaGetLastError();
 }
 
-// The generic body on request; else the fast body, which takes only
-// C = 64, H = 2, D = 1..16 and tables that fit shared memory.
+// The fast body takes C = 64, H = 2, D = 1..16 and tables that fit shared
+// memory.
+bool fast_fits(const Args& a) {
+  return a.C == kFastC && a.H == kFastH && a.D >= 1 && a.D <= 16 &&
+         sizeof(float) * fast_smem_floats(a.D, a.T) <= kMaxSmem;
+}
+
+// `body`: kByShape takes the fast body where it fits and the generic one
+// elsewhere; kFastBody or kGenericBody asks for one (the fast one fails on
+// a shape it does not take). *used receives the body launched.
 template <int kForm>
-int launch(const Args& a, int generic) {
-  if (a.B <= 0 || a.T <= 0) return (int)cudaErrorInvalidValue;
-  if (generic) return (int)launch_generic<kForm>(a);
-  if (a.C != kFastC || a.H != kFastH) return (int)cudaErrorInvalidValue;
+int launch(const Args& a, int body, int* used) {
+  if (a.B <= 0 || a.T <= 0 || used == nullptr) return (int)cudaErrorInvalidValue;
+  if (body != kByShape && body != kFastBody && body != kGenericBody)
+    return (int)cudaErrorInvalidValue;
+  const bool fits = fast_fits(a);
+  if (body == kFastBody && !fits) return (int)cudaErrorInvalidValue;
+  const bool fast = body == kFastBody || (body == kByShape && fits);
+  *used = fast ? kFastBody : kGenericBody;
+  if (!fast) return (int)launch_generic<kForm>(a);
   switch (a.D) {
 #define SDE_CASE(DD) \
   case DD:           \
@@ -476,20 +495,20 @@ int launch(const Args& a, int generic) {
 }  // namespace
 
 // Kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS) instance, form 1
-// the ScoreCtrl one; `generic` picks the any-shape body.
+// the ScoreCtrl one; `body` and `used` as for `launch`.
 extern "C" int rollout_launch(
     const float* x0, const float* dbs, const float* tab, const float* temb,
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, float* xs, float* x_T, int B,
     int D, int C, int H, int T, float clip_model, float clip_score,
     float prior_loc, float prior_var, float funnel_var_first, int form,
-    int generic, void* stream) {
+    int body, int* used, void* stream) {
   const Args a{x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T,
                B, D, C, H, T,
                {clip_model, clip_score, prior_loc, prior_var, funnel_var_first},
                (cudaStream_t)stream};
-  if (form == kLerpEm) return launch<kLerpEm>(a, generic);
-  if (form == kScoreEm) return launch<kScoreEm>(a, generic);
+  if (form == kLerpEm) return launch<kLerpEm>(a, body, used);
+  if (form == kScoreEm) return launch<kScoreEm>(a, body, used);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -499,10 +518,10 @@ extern "C" int rollout_exp_launch(
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, float* xs, float* x_T, int B,
     int D, int C, int H, int T, float clip_model, float clip_score,
-    float funnel_var_first, int generic, void* stream) {
+    float funnel_var_first, int body, int* used, void* stream) {
   const Args a{x0, noise, tab, temb, w_in, w_hid, b_hid, w_out, b_out, xs, x_T,
                B, D, C, H, T,
                {clip_model, clip_score, 0.0f, 1.0f, funnel_var_first},
                (cudaStream_t)stream};
-  return launch<kScoreExp>(a, generic);
+  return launch<kScoreExp>(a, body, used);
 }

@@ -7,8 +7,11 @@ interface, and loaded with `ctypes`. The library is built at first use into
 the sources and flags, so an edited source is always rebuilt. Nothing is
 compiled or imported when this module is imported: the CPU tests import it.
 
-Each C entry point launches on the caller's stream, allocates nothing and
-returns `cudaGetLastError()`; `check` raises on a non-zero code.
+Each C launch entry point launches on the caller's stream, allocates
+nothing and returns `cudaGetLastError()`; `check` raises on a non-zero
+code. The kernels' shapes and tiling are decided on the C side: a launch
+reports the body it took (`rollout*_launch`), and `softmin_scratch` sizes
+the scratch that the softmin wrapper allocates.
 """
 from __future__ import annotations
 
@@ -61,16 +64,21 @@ def count_launch(name: str, form: str | None = None, generic: bool = False) -> N
 # The C entry points' arguments (pointers and the stream as void*, so that
 # ctypes does not cut them to 32 bits); each returns a cudaError_t.
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_OUT = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    # tensors, xs, x_T; B, d, C, H, T; clips, prior, funnel; form, generic; stream
-    "rollout_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 5 + [_I32, _I32, _PTR],
-    # tensors, xs, x_T; B, d, C, H, T; clips, funnel; generic; stream
-    "rollout_exp_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 3 + [_I32, _PTR],
-    # x, y, dual, out, packed, partials; n, m, d, splits, cols; eps; stream
-    "softmin_launch": [_PTR] * 6 + [_I32] * 5 + [_F32, _PTR],
+    # tensors, xs, x_T; B, d, C, H, T; clips, prior, funnel; form, body; used
+    # body; stream
+    "rollout_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 5 + [_I32, _I32, _OUT, _PTR],
+    # tensors, xs, x_T; B, d, C, H, T; clips, funnel; body; used body; stream
+    "rollout_exp_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 3 + [_I32, _OUT, _PTR],
+    # n, m, d; splits, cols (out)
+    "softmin_scratch": [_I32] * 3 + [_OUT, _OUT],
+    # x, y, dual, out, scratch; n, m, d; eps; stream
+    "softmin_launch": [_PTR] * 5 + [_I32] * 3 + [_F32, _PTR],
     # x, y, u, v, rows, total; n, m, d; eps; stream
     "transport_launch": [_PTR] * 6 + [_I32] * 3 + [_F32, _PTR],
 }
+RESTYPES = {"softmin_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -147,7 +155,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

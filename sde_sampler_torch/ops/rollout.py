@@ -18,12 +18,13 @@ specialised to the control forms of the funnel paths, each over a GELU
 - "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
 - "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2).
 
-The wrappers raise on anything else. On the card, `kernel_instance` picks
-the kernel's body by shape: the fast body for the width, depth and
-dimensions of every model config of the repo (64 channels, 2 hidden
-layers, d <= 16, tables that fit shared memory), the generic body for any
-other; each counts its launches (`build.FORM_LAUNCHES`, ".generic" for the
-latter). Everything that depends only on the
+The wrappers raise on anything else. On the card, the kernel picks its
+body by shape (`csrc/rollout.cu::fast_fits`): the fast body for the width,
+depth and dimensions of every model config of the repo (64 channels, 2
+hidden layers, d <= 16, tables that fit shared memory), the generic body
+for any other. It reports the body it took, and the wrapper counts the
+launch (`build.FORM_LAUNCHES`, once more under ".generic" for the latter).
+Everything that depends only on the
 step start s = ts[k] is computed here, by plain torch on the tensors'
 device, as per-step tables; the kernel (`csrc/rollout.cu`) or, for a CPU
 tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`) then runs the
@@ -33,6 +34,7 @@ value-only: nothing here records a gradient.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -47,30 +49,8 @@ from sde_sampler_torch.ops import build
 
 # instance of csrc/rollout.cu's kernel 1 for each control form
 FORM_CODES = {"lerp": 0, "score": 1}
-
-# The fast body of csrc/rollout.cu (rollout_fast_kernel): its compile-time
-# width, hidden depth and largest d, the rows of a block, and the H100's
-# shared memory per block, which must hold the weights and the per-step
-# tables of the whole launch.
-FAST_WIDTH, FAST_HIDDEN, FAST_MAX_DIM = 64, 2, 16
-FAST_ROWS = 8
-MAX_SMEM_BYTES = 232448
-N_TAB = 6  # per-step scalars
-
-
-def fast_smem_bytes(d: int, T: int) -> int:
-    """Shared memory of the fast body (csrc/rollout.cu::fast_smem_floats)."""
-    C, R = FAST_WIDTH, FAST_ROWS
-    floats = T * C + T * N_TAB + 2 * R * (C + 4) + d + 3 * R * d + 2 * R
-    return 4 * floats
-
-
-def kernel_instance(channels: int, hidden: int, d: int, T: int) -> str:
-    """"fast" or "generic": the body of the rollout kernels for these shapes."""
-    if (channels, hidden) == (FAST_WIDTH, FAST_HIDDEN) and 1 <= d <= FAST_MAX_DIM \
-            and fast_smem_bytes(d, T) <= MAX_SMEM_BYTES:
-        return "fast"
-    return "generic"
+# the body a launch asks for (by shape, or one of the two) and reports
+BODY_CODES = {"shape": 0, "fast": 1, "generic": 2}
 
 
 def _owner(method, cls):
@@ -285,23 +265,32 @@ def rollout_exp_plain(ctrl, x0, ts, noise, alpha, sigma, clips=None):
     return _run_plain(_prepare(ctrl, x0, ts, noise, clips, exp=(alpha, sigma)))
 
 
-def _launch(name, launch_fn, prepared, channels, *scalars):
-    """Launch one rollout kernel on the inputs' stream, in the body that
-    `kernel_instance` picks; returns (xs, x_T)."""
-    tensors, consts, form, _ = prepared
-    x0, dbs = tensors[0], tensors[1]
+def _launch(prepared, body: str = "shape"):
+    """Launch the rollout kernel of `prepared` on the inputs' stream: kernel
+    1 for an EM update, kernel 2 for the exponential integrator, in the body
+    asked for ("shape": the kernel picks); counts the launch under the body
+    the kernel reports and returns (xs, x_T)."""
+    tensors, c, form, update = prepared
+    x0, dbs, temb, w_hid = tensors[0], tensors[1], tensors[3], tensors[5]
     T, B, d = dbs.shape
-    hidden = tensors[5].shape[0]
-    generic = kernel_instance(channels, hidden, d, T) == "generic"
+    lib = build.library()
+    if update == "em":
+        name, launch_fn = "rollout", lib.rollout_launch
+        scalars = (c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"],
+                   c["funnel_var_first"], FORM_CODES[form])
+    else:
+        name, launch_fn = "rollout_exp", lib.rollout_exp_launch
+        scalars = (c["clip_model"], c["clip_score"], c["funnel_var_first"])
     xs = torch.empty_like(dbs)
     x_T = torch.empty_like(x0)
+    used = ctypes.c_int(0)
     code = launch_fn(
         *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, channels, hidden, T, *scalars, int(generic),
-        torch.cuda.current_stream(x0.device).cuda_stream,
+        B, d, temb.shape[1], w_hid.shape[0], T, *scalars, BODY_CODES[body],
+        ctypes.byref(used), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     build.check(code, name)
-    build.count_launch(name, form, generic)
+    build.count_launch(name, form, generic=used.value == BODY_CODES["generic"])
     return xs, x_T
 
 
@@ -318,12 +307,7 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
     prepared = _prepare(ctrl, x0, ts, dbs, clips, sde)
     if x0.device.type == "cpu":
         return _run_plain(prepared)
-    c, form = prepared[1], prepared[2]
-    return _launch(
-        "rollout", build.library().rollout_launch, prepared, ctrl.base_model.channels,
-        c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"],
-        c["funnel_var_first"], FORM_CODES[form],
-    )
+    return _launch(prepared)
 
 
 @torch.no_grad()
@@ -337,8 +321,4 @@ def fused_rollout_exp(ctrl, x0, ts, noise, alpha, sigma, clips=None):
     prepared = _prepare(ctrl, x0, ts, noise, clips, exp=(alpha, sigma))
     if x0.device.type == "cpu":
         return _run_plain(prepared)
-    c = prepared[1]
-    return _launch(
-        "rollout_exp", build.library().rollout_exp_launch, prepared,
-        ctrl.base_model.channels, c["clip_model"], c["clip_score"], c["funnel_var_first"],
-    )
+    return _launch(prepared)

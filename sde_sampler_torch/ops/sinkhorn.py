@@ -10,11 +10,13 @@ through `torch.cdist(..., compute_mode="donot_use_mm_for_euclid_dist")`,
 never the quadratic form whose cancellation broke the TPU's d = 1 path.
 
 The softmin kernel splits the columns across blocks so that a 100k-row
-problem fills the card: `softmin_plan` sizes the splits and the scratch
-that the wrapper allocates (packed columns and per-split partials).
+problem fills the card. The kernel library sizes the splits and the
+scratch (packed columns and per-split partials); `softmin_plan` reads them
+and the wrapper allocates the scratch.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -23,42 +25,22 @@ from sde_sampler_torch.ops import build
 
 ROW_CHUNK = 1024  # rows per dense (ROW_CHUNK, m) tile of the plain versions
 
-# The softmin kernel's tiling (csrc/sinkhorn.cu): rows per block
-# (128 threads x 4 rows), columns per online-max chunk (kChunk), and how many blocks
-# to aim for: 64 per SM of an H100 (132 SMs), so that the last wave of
-# blocks is a small share of the launch.
-SOFTMIN_ROWS_PER_BLOCK = 128 * 4
-SOFTMIN_CHUNK = 16
-SOFTMIN_TARGET_BLOCKS = 132 * 64
-SOFTMIN_MIN_COLS = 1024  # fewest columns a split is worth
-
 
 class SoftminPlan(NamedTuple):
-    row_blocks: int
     splits: int
-    cols: int  # columns per split, a multiple of SOFTMIN_CHUNK
-    m_pad: int  # m rounded up to SOFTMIN_CHUNK
-    packed_width: int  # floats per packed column: point, scaled dual, zeros
-    packed_floats: int  # scratch for the packed columns
-    partial_floats: int  # scratch for a (max, sum) per row and split
-
-
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
+    cols: int  # split s holds columns [s * cols, (s + 1) * cols), the last fewer
+    scratch_floats: int
 
 
 def softmin_plan(n: int, m: int, d: int) -> SoftminPlan:
-    """Column splits and scratch sizes of one softmin launch: split s holds
-    columns [s * cols, min((s + 1) * cols, m_pad)), none of them empty."""
-    row_blocks = _ceil_div(n, SOFTMIN_ROWS_PER_BLOCK)
-    m_pad = _ceil_div(m, SOFTMIN_CHUNK) * SOFTMIN_CHUNK
-    want = _ceil_div(SOFTMIN_TARGET_BLOCKS, max(row_blocks, 1))
-    splits = max(1, min(want, m_pad // SOFTMIN_MIN_COLS))
-    cols = max(1, _ceil_div(_ceil_div(m_pad, splits), SOFTMIN_CHUNK)) * SOFTMIN_CHUNK
-    splits = max(1, _ceil_div(m_pad, cols))
-    width = (d + 4) // 4 * 4
-    return SoftminPlan(row_blocks, splits, cols, m_pad, width, m_pad * width,
-                       2 * splits * n)
+    """The softmin kernel's column splits and scratch for n rows of width d
+    against m columns, as the kernel library sizes them (needs the library,
+    so a CUDA build)."""
+    splits, cols = ctypes.c_int(0), ctypes.c_int(0)
+    floats = build.library().softmin_scratch(n, m, d, ctypes.byref(splits), ctypes.byref(cols))
+    if floats < 0:
+        raise ValueError(f"softmin takes no n={n}, m={m}, d={d}")
+    return SoftminPlan(splits.value, cols.value, floats)
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -102,19 +84,22 @@ def softmin(x: torch.Tensor, y: torch.Tensor, dual: torch.Tensor, eps: float):
     _check(x, y, dual)
     if x.device.type == "cpu":
         return softmin_plain(x, y, dual, eps)
+    if y.shape[1] != x.shape[1] or dual.shape != (y.shape[0],):
+        raise ValueError("shape mismatch between x, y and dual")
+    return _softmin_launch(x, y, dual, eps)
+
+
+def _softmin_launch(x, y, dual, eps: float) -> torch.Tensor:
+    """Launch the softmin kernel on checked inputs, with the scratch the
+    library sizes; returns the (n,) output."""
     n, d = x.shape
     m = y.shape[0]
-    if y.shape[1] != d or dual.shape != (m,):
-        raise ValueError("shape mismatch between x, y and dual")
     out = torch.empty(n, dtype=torch.float32, device=x.device)
-    plan = softmin_plan(n, m, d)
-    packed = torch.empty(plan.packed_floats, dtype=torch.float32, device=x.device)
-    partials = torch.empty(plan.partial_floats, dtype=torch.float32, device=x.device)
-    lib = build.library()
-    code = lib.softmin_launch(
-        x.data_ptr(), y.data_ptr(), dual.data_ptr(), out.data_ptr(),
-        packed.data_ptr(), partials.data_ptr(), n, m, d, plan.splits, plan.cols,
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+    scratch = torch.empty(softmin_plan(n, m, d).scratch_floats, dtype=torch.float32,
+                          device=x.device)
+    code = build.library().softmin_launch(
+        x.data_ptr(), y.data_ptr(), dual.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        n, m, d, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(code, "softmin")
     build.count_launch("softmin")

@@ -10,6 +10,9 @@ Tolerances (float32 on the card, sums in another order):
   absolute and relative, in the fast body (width 64, two hidden layers,
   d <= 16) and in the generic one (any other shape);
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative.
+
+The kernel library also decides which body a rollout shape takes and how
+softmin splits its columns; both are checked here, where it is built.
 """
 import math
 
@@ -36,10 +39,10 @@ def cuda():
     return resolve_device("cuda")
 
 
-def lerp_ctrl(d=10, hard_constrain=False, channels=64):
+def lerp_ctrl(d=10, hard_constrain=False, channels=64, num_layers=4):
     prior, target = IsotropicGauss(dim=d), Funnel(dim=d, n_reference_samples=100)
     ctrl = LerpCtrl(
-        base_model=FourierMLP(dim=d, channels=channels),
+        base_model=FourierMLP(dim=d, channels=channels, num_layers=num_layers),
         score_model=TimeEmbed(dim_out=1, num_layers=4, last_bias_init={"constant": 1.0}),
         sde=VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0),
         prior_score=prior.score, target_score=target.score,
@@ -212,14 +215,17 @@ def test_generic_rollout_body_matches_plain_twin(cuda, form):
     torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", [1, 10, 12, 16, 17])
+@pytest.mark.parametrize("d", [1, 10, 12, 16, 17, 400])
 @pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
 def test_softmin_kernel_splits_and_edges(cuda, d, case):
     """n = 1000 rows (not a multiple of the 512-row block) against m = 5001
     columns in four column splits, the last one ragged; d = 1..16 hold the
-    rows in registers, d = 17 takes the run-time-width path. "dead_split":
-    every dual of the second split is -inf (it merges as no
-    contribution); "all_inf": every row sees only -inf and gives -inf."""
+    rows in registers, d = 17 and 400 take the run-time-width path, which
+    stages nothing in shared memory. d = 400 is drawn at standard deviation
+    sqrt(10 / d), so that its distances are of the order of d = 10's and
+    the same absolute tolerance applies. "dead_split": every dual of the
+    second split is -inf (it merges as no contribution); "all_inf": every
+    row sees only -inf and gives -inf."""
     from sde_sampler_torch.ops import build
     from sde_sampler_torch.ops.sinkhorn import softmin, softmin_plain, softmin_plan
 
@@ -228,7 +234,8 @@ def test_softmin_kernel_splits_and_edges(cuda, d, case):
     assert plan.splits == 4 and m % plan.cols and n % 512
     rng = np.random.default_rng(100 + d)
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
-    x, y = f(rng.normal(size=(n, d))), f(rng.normal(size=(m, d)) + 0.3)
+    scale = 1.0 if d <= 17 else math.sqrt(10 / d)
+    x, y = f(rng.normal(size=(n, d)) * scale), f((rng.normal(size=(m, d)) + 0.3) * scale)
     dual = f(rng.normal(size=m) * 0.01)
     if case == "dead_split":
         dual[plan.cols : 2 * plan.cols] = -math.inf
@@ -245,3 +252,89 @@ def test_softmin_kernel_splits_and_edges(cuda, d, case):
         return
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "channels,layers,d,T,want",
+    [
+        (64, 4, 10, 200, "fast"),  # the main path: DIS at 200 steps, d = 10
+        (64, 4, 10, 257, "fast"),  # DDS's cosine grid
+        (64, 4, 16, 257, "fast"),
+        (64, 4, 2, 12, "fast"),
+        (32, 4, 10, 200, "generic"),
+        (64, 3, 10, 200, "generic"),
+        (64, 4, 17, 200, "generic"),
+        (64, 4, 10, 2000, "generic"),  # tables past the H100's shared memory
+    ],
+)
+def test_rollout_launch_picks_its_body_by_shape(cuda, channels, layers, d, T, want):
+    """The kernel picks its body by shape and reports it for the count. Where
+    the fast body fits, it gives the generic body's bits; where it does not,
+    asking for it raises."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    ctrl = lerp_ctrl(d=d, channels=channels, num_layers=layers).to(cuda)
+    rng = np.random.default_rng(5)
+    x0 = torch.tensor(rng.normal(size=(5, d)), dtype=torch.float32, device=cuda)
+    ts = torch.linspace(0.0, 1.0, T + 1, device=cuda)
+    dbs = torch.tensor(rng.normal(size=(T, 5, d)), dtype=torch.float32, device=cuda)
+    dbs *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+    generic = build.FORM_LAUNCHES["rollout.lerp.generic"]
+    xs, x_T = ro.fused_rollout(ctrl, x0, ts, dbs)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES["rollout.lerp.generic"] == generic + (want == "generic")
+    prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    xs_g, xT_g = ro._launch(prepared, "generic")
+    assert torch.equal(xs, xs_g) and torch.equal(x_T, xT_g)
+    if want == "generic":
+        with pytest.raises(RuntimeError):
+            ro._launch(prepared, "fast")
+
+
+def test_fast_body_is_what_every_model_config_takes(cuda):
+    """conf/model/base/*.yaml: channels 64, num_layers 4 (two hidden), on the
+    DIS and DDS grids; also the widest d the fast body holds."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    for d, T in ((10, 200), (10, 257), (16, 257)):
+        ctrl = score_ctrl(d=d).to(cuda)
+        assert (ctrl.base_model.channels, len(ctrl.base_model.hidden_layer)) == (64, 2)
+        x0 = torch.zeros(3, d, device=cuda)
+        ts = get_timesteps(0.0, 12.8, steps=T - 1, rescale_t="cosine", device=cuda)
+        before = build.FORM_LAUNCHES["rollout_exp.score.generic"]
+        ro.fused_rollout_exp(ctrl, x0, ts, torch.zeros(T, 3, d, device=cuda), 1.0, 1.0)
+        assert build.FORM_LAUNCHES["rollout_exp.score.generic"] == before
+
+
+@pytest.mark.parametrize("n", [1, 777, 100_000])
+@pytest.mark.parametrize("m", [1, 777, 100_000])
+def test_softmin_plan_covers_every_column_once(cuda, n, m):
+    """The library's column splits: each a multiple of 16 columns, none
+    empty, together covering m rounded up to 16; the scratch holds the
+    packed columns (point, dual, zeros to a multiple of 4 floats) and a max
+    and a sum per row and split."""
+    from sde_sampler_torch.ops.sinkhorn import softmin_plan
+
+    d = 10
+    plan = softmin_plan(n, m, d)
+    m_pad = -(-m // 16) * 16
+    assert plan.cols % 16 == 0
+    owner = np.full(m_pad, -1)
+    for s in range(plan.splits):
+        lo, hi = s * plan.cols, min((s + 1) * plan.cols, m_pad)
+        assert hi > lo, "empty split"
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = s
+    assert (owner >= 0).all()
+    assert plan.scratch_floats == m_pad * 12 + 2 * plan.splits * n
+
+
+def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):
+    from sde_sampler_torch.ops.sinkhorn import softmin_plan
+
+    plan = softmin_plan(100_000, 100_000, 10)
+    row_blocks = -(-100_000 // 512)
+    assert row_blocks * plan.splits >= 132 * 16
+    assert plan.cols >= 1024

@@ -1,10 +1,13 @@
 """The Python side of the port's kernel launches, on the CPU.
 
 The kernels themselves run only on a card (tests/test_torch_port_cuda.py).
-What surrounds them is checked here: which body of the rollout kernels a
-shape takes, how the softmin wrapper splits the columns and sizes its
-scratch, and that CPU tensors take the plain versions and never reach the
-kernel library. No JAX: the plain versions' parity with the JAX package is
+What surrounds them is checked here, against a stand-in for the kernel
+library: that the rollout wrappers pass the arguments the C interface
+declares, let the kernel pick its body by shape and count the body it
+reports; that the softmin wrapper allocates the scratch the library sizes;
+and that CPU tensors take the plain versions and never reach the library.
+The body choice and the softmin splits themselves live in the library and
+are tested on the card. No JAX: the plain versions' parity with the JAX package is
 held in tests/test_torch_port_{rollout,dds,sinkhorn}.py.
 """
 import types
@@ -55,87 +58,108 @@ def rollout_inputs(d, B=5, T=4, seed=0):
     return x0, ts, dbs
 
 
+class FakeLibrary:
+    """Stands in for the kernel library: records each launch's arguments,
+    reports the body `body` and returns `code`."""
+
+    def __init__(self, body="fast", code=0):
+        self.calls, self.body, self.code = [], body, code
+
+    def _launch(self, *args):
+        self.calls.append(args)
+        args[-2]._obj.value = ro.BODY_CODES[self.body]  # the `used` out-parameter
+        return self.code
+
+    rollout_launch = rollout_exp_launch = _launch
+
+    def softmin_scratch(self, n, m, d, splits, cols):
+        splits._obj.value, cols._obj.value = 3, 1024
+        return 17 * n + m
+
+    def softmin_launch(self, *args):
+        self.calls.append(args)
+        return self.code
+
+
 @pytest.fixture
-def fake_stream(monkeypatch):
-    """Lets `_launch` run on CPU tensors against a recording launch function."""
+def fake_library(monkeypatch):
+    """Lets the launch paths run on CPU tensors against a FakeLibrary."""
     monkeypatch.setattr(
         torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0)
     )
+    lib = FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    return lib
 
 
-@pytest.mark.parametrize(
-    "mlp,d,T,want",
-    [
-        ({}, 10, 200, "fast"),  # the main path: DIS at 2048 x 200, d = 10
-        ({}, 10, 257, "fast"),  # DDS's cosine grid
-        ({}, 16, 257, "fast"),
-        ({}, 2, 12, "fast"),
-        ({"channels": 32}, 10, 200, "generic"),
-        ({"num_layers": 3}, 10, 200, "generic"),
-        ({}, 17, 200, "generic"),
-        ({}, 10, 2000, "generic"),  # tables past the H100's shared memory
-    ],
-)
-def test_rollout_launch_picks_its_body_by_shape(fake_stream, mlp, d, T, want):
-    ctrl = lerp_ctrl(d, **mlp)
+def prepared_rollout(form, d=10, T=4, **mlp):
     x0, ts, dbs = rollout_inputs(d, T=T)
-    calls = []
+    if form == "lerp":
+        return ro._prepare(lerp_ctrl(d, **mlp), x0, ts, dbs, None)
+    sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+    if form == "score":
+        return ro._prepare(score_ctrl(d, **mlp), x0, ts, dbs, None, sde)
+    return ro._prepare(score_ctrl(d, **mlp), x0, ts, dbs, None, exp=(1.0, 1.0))
 
-    def launch_fn(*args):
-        calls.append(args)
-        return 0
 
+@pytest.mark.parametrize("reported", ["fast", "generic"])
+@pytest.mark.parametrize("form", ["lerp", "score", "exp"])
+def test_rollout_launch_counts_the_body_the_kernel_reports(fake_library, form, reported):
+    """The wrapper lets the kernel pick its body by shape and counts the
+    launch under the body the kernel reports."""
+    fake_library.body = reported
+    prepared = prepared_rollout(form, d=7, T=5, channels=16, num_layers=3)
+    name = "rollout_exp" if form == "exp" else "rollout"
+    key = f"{name}.{'score' if form == 'exp' else form}"
     before = dict(build.FORM_LAUNCHES)
-    prepared = ro._prepare(ctrl, x0, ts, dbs, None)
-    ro._launch("rollout", launch_fn, prepared, ctrl.base_model.channels, 1.0, 2.0, 3.0,
-               4.0, 5.0, ro.FORM_CODES["lerp"])
-    B = x0.shape[0]
-    hidden = len(ctrl.base_model.hidden_layer)
-    (args,) = calls
-    # B, d, C, H, T, the five scalars, the form, the body, the stream
-    assert args[11:16] == (B, d, ctrl.base_model.channels, hidden, T)
-    assert args[21] == ro.FORM_CODES["lerp"]
-    assert args[22] == int(want == "generic")
-    assert len(args) == len(build.SIGNATURES["rollout_launch"])
-    assert ro.kernel_instance(ctrl.base_model.channels, hidden, d, T) == want
-    after = build.FORM_LAUNCHES
-    assert after["rollout.lerp"] == before["rollout.lerp"] + 1
-    assert after["rollout.lerp.generic"] == before["rollout.lerp.generic"] + (want == "generic")
+    launches = build.LAUNCHES[name]
+    xs, x_T = ro._launch(prepared)
+    (args,) = fake_library.calls
+    assert len(args) == len(build.SIGNATURES[f"{name}_launch"])
+    # B, d, C, H, T after the eleven pointers
+    assert args[11:16] == (5, 7, 16, 1, 5)
+    assert args[-3] == ro.BODY_CODES["shape"]
+    if form != "exp":
+        assert args[-4] == ro.FORM_CODES[form]
+    assert xs.shape == (5, 5, 7) and x_T.shape == (5, 7)
+    assert build.LAUNCHES[name] == launches + 1
+    assert build.FORM_LAUNCHES[key] == before[key] + 1
+    assert build.FORM_LAUNCHES[f"{key}.generic"] == before[f"{key}.generic"] + (reported == "generic")
 
 
-def test_fast_body_is_what_every_model_config_takes():
-    """conf/model/base/*.yaml: channels 64, num_layers 4 (two hidden)."""
-    base = FourierMLP(dim=10)
-    assert (base.channels, len(base.hidden_layer)) == (ro.FAST_WIDTH, ro.FAST_HIDDEN)
-    assert ro.fast_smem_bytes(10, 257) <= ro.MAX_SMEM_BYTES
-    assert ro.fast_smem_bytes(16, 257) <= ro.MAX_SMEM_BYTES
+@pytest.mark.parametrize("body", ["fast", "generic"])
+def test_rollout_launch_passes_a_requested_body(fake_library, body):
+    fake_library.body = body
+    ro._launch(prepared_rollout("lerp"), body)
+    (args,) = fake_library.calls
+    assert args[-3] == ro.BODY_CODES[body]
 
 
-@pytest.mark.parametrize("n", [1, 777, 100_000])
-@pytest.mark.parametrize("m", [1, 777, 100_000])
-def test_softmin_plan_covers_every_column_once(n, m):
-    d = 10
-    plan = sk.softmin_plan(n, m, d)
-    assert plan.cols % sk.SOFTMIN_CHUNK == 0
-    assert plan.m_pad % sk.SOFTMIN_CHUNK == 0 and m <= plan.m_pad < m + sk.SOFTMIN_CHUNK
-    owner = np.full(plan.m_pad, -1)
-    for s in range(plan.splits):
-        lo, hi = s * plan.cols, min((s + 1) * plan.cols, plan.m_pad)
-        assert hi > lo, "empty split"
-        assert (owner[lo:hi] == -1).all()
-        owner[lo:hi] = s
-    assert (owner >= 0).all()
-    assert plan.row_blocks * sk.SOFTMIN_ROWS_PER_BLOCK >= n
-    assert (plan.row_blocks - 1) * sk.SOFTMIN_ROWS_PER_BLOCK < n
-    assert plan.packed_width % 4 == 0 and d + 1 <= plan.packed_width < d + 5
-    assert plan.packed_floats == plan.m_pad * plan.packed_width
-    assert plan.partial_floats == 2 * plan.splits * n
+def test_failed_rollout_launch_raises_and_counts_nothing(fake_library):
+    fake_library.code = 1
+    before = dict(build.LAUNCHES), dict(build.FORM_LAUNCHES)
+    with pytest.raises(RuntimeError, match="rollout"):
+        ro._launch(prepared_rollout("lerp"))
+    assert (build.LAUNCHES, build.FORM_LAUNCHES) == before
 
 
-def test_softmin_plan_fills_the_card_at_the_evaluation_size():
-    plan = sk.softmin_plan(100_000, 100_000, 10)
-    assert plan.row_blocks * plan.splits >= 132 * 16
-    assert plan.cols >= sk.SOFTMIN_MIN_COLS
+@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (777, 100_000, 10), (100_000, 777, 17)])
+def test_softmin_launch_allocates_the_scratch_the_library_sizes(fake_library, monkeypatch, n, m, d):
+    sizes = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda size, **kw: sizes.append(size) or empty(size, **kw))
+    rng = np.random.default_rng(0)
+    f = lambda a: torch.from_numpy(a.astype(np.float32))
+    x, y, dual = f(rng.normal(size=(n, d))), f(rng.normal(size=(m, d))), f(rng.normal(size=m))
+    launches = build.LAUNCHES["softmin"]
+    out = sk._softmin_launch(x, y, dual, 0.1)
+    (args,) = fake_library.calls
+    assert len(args) == len(build.SIGNATURES["softmin_launch"])
+    assert args[5:8] == (n, m, d) and args[8] == pytest.approx(0.1)
+    assert sizes == [n, 17 * n + m]  # out, then the scratch
+    assert out.shape == (n,)
+    assert sk.softmin_plan(n, m, d) == (3, 1024, 17 * n + m)
+    assert build.LAUNCHES["softmin"] == launches + 1
 
 
 def _no_library():
