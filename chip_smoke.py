@@ -12,8 +12,10 @@ prints nvcc's register and spill report. Phases:
            its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
            grid, kernel 1's generic body (a 32-wide net), softmin and
-           transport at 100k x 100k, and softmin's edges at 100k (a column
-           split of -inf duals, rows that see only -inf);
+           transport at 100k x 100k, softmin's edges at 100k (a column
+           split of -inf duals, rows that see only -inf) and transport's (a
+           column split of -inf duals, every dual -inf, two calls that must
+           give the same bits);
   main     drive each path through the entry point (`sde_sampler_torch.main`)
            on the funnel (d = 10) at full width, each with the launch counts
            zeroed just before and read just after; every kernel of the path
@@ -29,7 +31,9 @@ prints nvcc's register and spill report. Phases:
   timing   time the DIS and DDS optimizer steps (with a profiler breakdown),
            each kernel through its wrapper and its plain version at its
            path's shapes (the rollout kernels also alone on prepared tables,
-           in each body), and one full Sinkhorn evaluation; print each
+           in each body), and one full Sinkhorn evaluation, whose transport
+           kernel must be no further from float64 than the plain version
+           on the same funnel samples and duals; print each
            kernel's launches per paper-scale DIS run, computed from
            conf/solver/oc_base.yaml.
 
@@ -80,8 +84,10 @@ SHORT_STEPS, SHORT_EVAL = 20, 10_000  # the EulerDDS and PIS paths
 #   compound less than the VP drift's);
 # - softmin: a 100k-term logsumexp at eps = 1e-3 (z up to 1e4, ulp 1e-3)
 #   times eps, summed in another order: atol 1e-4 on values of order 1;
-# - transport: a sum of 1e10 products, per-row in float32 then in float64
-#   (kernel) vs float32 rows then float64 (plain): rtol 1e-4.
+# - transport: a sum of 1e10 products, in float32 per row and column split
+#   then in float64 (kernel) vs float32 rows then float64 (plain); the
+#   kernel's log2-domain exponent carries about 1e-4 of random-signed error
+#   into each plan entry, which averages out over the sum: rtol 1e-4.
 TOL = {"rollout_step": (1e-5, 1e-5), "rollout": (1e-3, 1e-3),
        "softmin": (1e-4, 0.0), "transport": (0.0, 1e-4)}
 
@@ -397,7 +403,8 @@ def phase_kernels(device, report):
     # softmin's edges at 100k: a whole column split of -inf duals, which
     # merges as no contribution, and duals that are all -inf (every row -inf)
     n = EVAL_BATCH
-    x, y, _, v = pair_inputs(device, rng, n, DIM, n // 100)
+    x, y, u, v = pair_inputs(device, rng, n, DIM, n // 100)
+    v_transport = v.clone()
     plan = sk.softmin_plan(n, n, DIM)
     v[plan.cols : 2 * plan.cols] = -math.inf
     for label, dual in (("a split of -inf duals", v), ("all duals -inf", torch.full_like(v, -math.inf))):
@@ -414,6 +421,31 @@ def phase_kernels(device, report):
             fail(f"softmin kernel disagrees with its plain version ({label})")
         if not label.startswith("all"):
             report["softmin"]["max_abs_err"] = max(report["softmin"]["max_abs_err"], err)
+
+    # transport's edges at 100k: a whole column split of -inf duals, two
+    # calls on the same inputs (the same bits: no atomics), and every dual
+    # -inf (exactly 0)
+    plan = sk.transport_plan(n, n, DIM)
+    v = v_transport
+    v[plan.cols : 2 * plan.cols] = -math.inf
+    got = sk.transport_cost(x, y, u, v, EPS)
+    again = sk.transport_cost(x, y, u, v, EPS)
+    want = sk.transport_cost_plain(x, y, u, v, EPS)
+    ok, err = within(got, want, *TOL["transport"])
+    print(f"kernel transport (n = m = {n}, d {DIM}, {plan.splits} splits of {plan.cols} "
+          f"columns, a split of -inf duals): value {float(want):.6g}, max_abs_err "
+          f"{err:.3e}; two calls equal: {bool(torch.equal(got, again))}", flush=True)
+    if not ok or not math.isfinite(float(got)):
+        fail("transport kernel disagrees with its plain version (a split of -inf duals)")
+    if not torch.equal(got, again):
+        fail("two transport calls on the same inputs gave different bits")
+    report["transport"]["max_abs_err"] = max(report["transport"]["max_abs_err"], err)
+    dead = torch.full_like(u, -math.inf)
+    got, want = sk.transport_cost(x, y, dead, dead, EPS), sk.transport_cost_plain(x, y, dead, dead, EPS)
+    print(f"kernel transport (n = m = {n}, d {DIM}, all duals -inf): value {float(got)}, "
+          f"plain {float(want)}", flush=True)
+    if float(got) != 0.0 or float(want) != 0.0:
+        fail("transport with every dual -inf is not exactly 0")
 
 
 def main_overrides(solver: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
@@ -606,13 +638,39 @@ def phase_timing(solvers, device, report):
     samples = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
     gt = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
     sinkhorn = Sinkhorn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    value = float(sinkhorn(samples, gt))
-    total = time.perf_counter() - start
+    seen = {}
+    launch = sk.transport_cost
+
+    def recording(*args):  # keeps the evaluation's own transport inputs
+        seen["args"] = args
+        return launch(*args)
+
+    sk.transport_cost = recording
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        value = float(sinkhorn(samples, gt))
+        total = time.perf_counter() - start
+    finally:
+        sk.transport_cost = launch
     print(f"Sinkhorn 100k vs 100k (funnel samples): {total:.3f} s, "
           f"{sinkhorn.n_iters} iterations, value {value:.6g}", flush=True)
     report["sinkhorn"] = {"seconds": total, "iterations": sinkhorn.n_iters, "value": value}
+    # the same transport in the plain version, in float32 and in float64.
+    # Funnel distances reach about 1e3, so the exponent is a difference of
+    # large terms and its float32 rounding, through the convex exp, biases
+    # every float32 form upwards; the kernel must be no further from
+    # float64 than the plain version is.
+    x, y, u, v, eps = seen["args"]
+    plain = float(sk.transport_cost_plain(x, y, u, v, eps))
+    exact = float(sk.transport_cost_plain(x.double(), y.double(), u.double(), v.double(), eps))
+    report["sinkhorn"].update(plain_float32=plain, plain_float64=exact)
+    print(f"Sinkhorn's transport: kernel {value:.7g}, plain float32 {plain:.7g}, "
+          f"plain float64 {exact:.7g}; relative to float64: kernel "
+          f"{(value - exact) / exact:.3e}, plain float32 {(plain - exact) / exact:.3e}",
+          flush=True)
+    if not abs(value - exact) <= abs(plain - exact):
+        fail("the Sinkhorn's transport kernel is further from float64 than the plain version")
 
     per_run = paper_scale_launches(sinkhorn.n_iters)
     smoke = {name: report[name].get("launches") for name in KERNELS}

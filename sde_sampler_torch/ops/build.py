@@ -10,8 +10,8 @@ compiled or imported when this module is imported: the CPU tests import it.
 Each C launch entry point launches on the caller's stream, allocates
 nothing and returns `cudaGetLastError()`; `check` raises on a non-zero
 code. The kernels' shapes and tiling are decided on the C side: a launch
-reports the body it took (`rollout*_launch`), and `softmin_scratch` sizes
-the scratch that the softmin wrapper allocates.
+reports the body it took (`rollout*_launch`), and `softmin_scratch` and
+`transport_scratch` size the scratch that the Sinkhorn wrappers allocate.
 """
 from __future__ import annotations
 
@@ -75,10 +75,12 @@ SIGNATURES = {
     "softmin_scratch": [_I32] * 3 + [_OUT, _OUT],
     # x, y, dual, out, scratch; n, m, d; eps; stream
     "softmin_launch": [_PTR] * 5 + [_I32] * 3 + [_F32, _PTR],
-    # x, y, u, v, rows, total; n, m, d; eps; stream
+    # n, m, d; splits, cols (out)
+    "transport_scratch": [_I32] * 3 + [_OUT, _OUT],
+    # x, y, u, v, total, scratch; n, m, d; eps; stream
     "transport_launch": [_PTR] * 6 + [_I32] * 3 + [_F32, _PTR],
 }
-RESTYPES = {"softmin_scratch": ctypes.c_longlong}
+RESTYPES = {"softmin_scratch": ctypes.c_longlong, "transport_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

@@ -9,10 +9,10 @@ Both versions form the distance by direct differences: the plain version
 through `torch.cdist(..., compute_mode="donot_use_mm_for_euclid_dist")`,
 never the quadratic form whose cancellation broke the TPU's d = 1 path.
 
-The softmin kernel splits the columns across blocks so that a 100k-row
-problem fills the card. The kernel library sizes the splits and the
-scratch (packed columns and per-split partials); `softmin_plan` reads them
-and the wrapper allocates the scratch.
+Both kernels split the columns across blocks so that a 100k-row problem
+fills the card. The kernel library sizes the splits and the scratch
+(packed columns and per-split partials); `softmin_plan` and
+`transport_plan` read them and the wrappers allocate the scratch.
 """
 from __future__ import annotations
 
@@ -26,21 +26,31 @@ from sde_sampler_torch.ops import build
 ROW_CHUNK = 1024  # rows per dense (ROW_CHUNK, m) tile of the plain versions
 
 
-class SoftminPlan(NamedTuple):
+class SplitPlan(NamedTuple):
     splits: int
     cols: int  # split s holds columns [s * cols, (s + 1) * cols), the last fewer
     scratch_floats: int
 
 
-def softmin_plan(n: int, m: int, d: int) -> SoftminPlan:
+def _plan(kernel: str, n: int, m: int, d: int) -> SplitPlan:
+    splits, cols = ctypes.c_int(0), ctypes.c_int(0)
+    scratch = getattr(build.library(), f"{kernel}_scratch")
+    floats = scratch(n, m, d, ctypes.byref(splits), ctypes.byref(cols))
+    if floats < 0:
+        raise ValueError(f"{kernel} takes no n={n}, m={m}, d={d}")
+    return SplitPlan(splits.value, cols.value, floats)
+
+
+def softmin_plan(n: int, m: int, d: int) -> SplitPlan:
     """The softmin kernel's column splits and scratch for n rows of width d
     against m columns, as the kernel library sizes them (needs the library,
     so a CUDA build)."""
-    splits, cols = ctypes.c_int(0), ctypes.c_int(0)
-    floats = build.library().softmin_scratch(n, m, d, ctypes.byref(splits), ctypes.byref(cols))
-    if floats < 0:
-        raise ValueError(f"softmin takes no n={n}, m={m}, d={d}")
-    return SoftminPlan(splits.value, cols.value, floats)
+    return _plan("softmin", n, m, d)
+
+
+def transport_plan(n: int, m: int, d: int) -> SplitPlan:
+    """The transport kernel's column splits and scratch, as `softmin_plan`."""
+    return _plan("transport", n, m, d)
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -115,12 +125,20 @@ def transport_cost(x, y, u, v, eps: float) -> torch.Tensor:
     m = y.shape[0]
     if y.shape[1] != d or u.shape != (n,) or v.shape != (m,):
         raise ValueError("shape mismatch between x, y, u and v")
-    rows = torch.empty(n, dtype=torch.float32, device=x.device)
+    return _transport_launch(x, y, u, v, eps)
+
+
+def _transport_launch(x, y, u, v, eps: float) -> torch.Tensor:
+    """Launch the transport kernel on checked inputs, with the scratch the
+    library sizes; returns the float32 scalar."""
+    n, d = x.shape
+    m = y.shape[0]
     total = torch.empty((), dtype=torch.float32, device=x.device)
-    lib = build.library()
-    code = lib.transport_launch(
-        x.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
-        rows.data_ptr(), total.data_ptr(), n, m, d, float(eps),
+    scratch = torch.empty(transport_plan(n, m, d).scratch_floats, dtype=torch.float32,
+                          device=x.device)
+    code = build.library().transport_launch(
+        x.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(), total.data_ptr(),
+        scratch.data_ptr(), n, m, d, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(code, "transport")

@@ -9,10 +9,14 @@ Tolerances (float32 on the card, sums in another order):
 - rollouts (kernel 1 in both control forms, kernel 2), 12 steps: 1e-5
   absolute and relative, in the fast body (width 64, two hidden layers,
   d <= 16) and in the generic one (any other shape);
-- softmin: 1e-5 absolute; transport cost: 1e-5 relative.
+- softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
+  (1e-4 at the evaluation's eps = 1e-3, and for a plan of one normal
+  entry), exactly 0 when every dual is -inf or every plan entry lies below
+  2^-126; two transport calls give the same bits.
 
 The kernel library also decides which body a rollout shape takes and how
-softmin splits its columns; both are checked here, where it is built.
+the Sinkhorn kernels split their columns; both are checked here, where it
+is built.
 """
 import math
 
@@ -28,6 +32,7 @@ from sde_sampler_torch.models.reparam import LerpCtrl, ScoreCtrl
 from sde_sampler_torch.utils.common import get_timesteps
 
 pytestmark = pytest.mark.cuda
+TRANSPORT_BLOCK_ROWS = 512  # 128 threads x 4 rows (csrc/sinkhorn.cu)
 
 
 @pytest.fixture
@@ -148,9 +153,20 @@ def test_exp_rollout_kernel_matches_plain_twin(cuda, batch):
     torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("duals", ["random", "plan"])
 @pytest.mark.parametrize("d", [1, 10, 40])
-def test_sinkhorn_kernels_match_plain_versions(cuda, d):
-    """d = 40 takes the kernels' run-time-width path (d > 16)."""
+def test_sinkhorn_kernels_match_plain_versions(cuda, d, duals):
+    """d = 40 takes the kernels' run-time-width path (d > 16).
+
+    Transport on random duals: at d = 1 many plan entries are normal floats
+    and the kernel is held to the plain version. At d = 10 all plan entries
+    but one lie below float32's smallest normal, 2^-126, and at d = 40 all
+    do: the kernel drops those (ex2.approx.ftz) where the plain version
+    keeps them as subnormals, so there it is held to the sum over the
+    normal entries alone (one entry at d = 10, whose exponent of about -117
+    in log2 units gets no averaging: rtol 1e-4; exactly 0 at d = 40). On
+    the duals of one Sinkhorn iteration (`plan_duals`) the plan carries
+    mass at every d."""
     from sde_sampler_torch.ops.sinkhorn import (
         softmin,
         softmin_plain,
@@ -167,10 +183,57 @@ def test_sinkhorn_kernels_match_plain_versions(cuda, d):
     torch.testing.assert_close(
         softmin(x, y, dual, eps), softmin_plain(x, y, dual, eps), atol=1e-5, rtol=0
     )
-    torch.testing.assert_close(
-        transport_cost(x, y, u, dual, eps), transport_cost_plain(x, y, u, dual, eps),
-        atol=0, rtol=1e-5,
-    )
+    v = dual
+    if duals == "plan":
+        u, v = plan_duals(x, y, eps)
+        v[:5] = -math.inf
+    got, want = transport_cost(x, y, u, v, eps), transport_cost_plain(x, y, u, v, eps)
+    if duals == "plan" or d == 1:
+        assert float(want) > 0
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-5)
+        return
+    assert 0.0 <= float(want) < 1e-30
+    kept = normal_entries_cost(x, y, u, v, eps)
+    assert (kept > 0) == (d == 10)
+    assert math.isclose(float(got), kept, rel_tol=1e-4, abs_tol=0.0)
+
+
+def normal_entries_cost(x, y, u, v, eps) -> float:
+    """The transport cost in float64 over the plan entries that are normal
+    float32 numbers (at least 2^-126), the ones the kernel keeps."""
+    m = torch.cdist(x.double(), y.double(), compute_mode="donot_use_mm_for_euclid_dist")
+    plan = torch.exp((-m + u.double()[:, None] + v.double()[None, :]) / eps)
+    return float((plan * m).where(plan >= 2.0**-126, 0.0).sum())
+
+
+def plan_duals(x, y, eps):
+    """The duals after one Sinkhorn iteration from uniform weights, under
+    which the plan carries mass (as the evaluation's Sinkhorn duals do)."""
+    from sde_sampler_torch.ops.sinkhorn import softmin_plain
+
+    n, m = x.shape[0], y.shape[0]
+    v = torch.full((m,), eps * math.log(1 / m), device=x.device)
+    u = eps * math.log(1 / n) - softmin_plain(x, y, v, eps)
+    v = eps * math.log(1 / m) - softmin_plain(y, x, u, eps)
+    return u, v
+
+
+@pytest.mark.parametrize("d", [1, 10, 40])
+def test_transport_kernel_at_the_evaluation_eps(cuda, d):
+    """eps = 1e-3, the evaluation Sinkhorn's: the duals, in log2 units
+    (u * log2(e) / eps), are about 1e3, so their rounding puts about 1e-4
+    of random-signed error into each plan entry; held at the rtol of the
+    100k check in chip_smoke.py."""
+    from sde_sampler_torch.ops.sinkhorn import transport_cost, transport_cost_plain
+
+    rng = np.random.default_rng(300 + d)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    x, y = f(rng.normal(size=(3000, d))), f(rng.normal(size=(2000, d)) * 1.2 + 0.3)
+    eps = 1e-3
+    u, v = plan_duals(x, y, eps)
+    want = transport_cost_plain(x, y, u, v, eps)
+    assert float(want) > 0
+    torch.testing.assert_close(transport_cost(x, y, u, v, eps), want, atol=0, rtol=1e-4)
 
 
 @pytest.mark.parametrize("form", ["lerp", "score", "exp"])
@@ -254,6 +317,62 @@ def test_softmin_kernel_splits_and_edges(cuda, d, case):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [1, 10, 16, 17, 400])
+@pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
+def test_transport_kernel_splits_and_edges(cuda, d, case):
+    """n = 1000 rows against m = 5001 columns in four column splits, the
+    last one ragged; d = 1..16 hold the rows in registers, d = 17 and 400
+    take the run-time-width path. d = 400 is drawn at standard deviation
+    sqrt(10 / d), as in the softmin test. "dead_split": every column dual
+    of the second split is -inf, and a few rows' duals too; "all_inf":
+    every dual is -inf, and the cost is exactly 0."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops.sinkhorn import (
+        transport_cost,
+        transport_cost_plain,
+        transport_plan,
+    )
+
+    n, m, eps = 1000, 5001, 1e-2
+    plan = transport_plan(n, m, d)
+    assert plan.splits == 4 and m % plan.cols
+    rng = np.random.default_rng(200 + d)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    scale = 1.0 if d <= 17 else math.sqrt(10 / d)
+    x, y = f(rng.normal(size=(n, d)) * scale), f((rng.normal(size=(m, d)) + 0.3) * scale)
+    u, v = plan_duals(x, y, eps)
+    if case == "dead_split":
+        v[plan.cols : 2 * plan.cols] = -math.inf
+        v[:7] = -math.inf
+        u[:5] = -math.inf
+    elif case == "all_inf":
+        u[:] = -math.inf
+        v[:] = -math.inf
+    before = build.LAUNCHES["transport"]
+    got = transport_cost(x, y, u, v, eps)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["transport"] == before + 1
+    want = transport_cost_plain(x, y, u, v, eps)
+    if case == "all_inf":
+        assert float(got) == 0.0 and float(want) == 0.0
+        return
+    assert float(want) > 0
+    torch.testing.assert_close(got, want, atol=0, rtol=1e-5)
+
+
+def test_transport_kernel_is_deterministic(cuda):
+    """The splits' partials are totalled in a fixed order, without atomics:
+    two calls on the same inputs give the same bits."""
+    from sde_sampler_torch.ops.sinkhorn import transport_cost
+
+    rng = np.random.default_rng(7)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    x, y = f(rng.normal(size=(3000, 10))), f(rng.normal(size=(20000, 10)) + 0.3)
+    u, v = plan_duals(x, y, 1e-2)
+    first = transport_cost(x, y, u, v, 1e-2)
+    assert all(torch.equal(transport_cost(x, y, u, v, 1e-2), first) for _ in range(3))
+
+
 @pytest.mark.parametrize(
     "channels,layers,d,T,want",
     [
@@ -329,6 +448,27 @@ def test_softmin_plan_covers_every_column_once(cuda, n, m):
         owner[lo:hi] = s
     assert (owner >= 0).all()
     assert plan.scratch_floats == m_pad * 12 + 2 * plan.splits * n
+
+
+@pytest.mark.parametrize("n", [1, 777, 100_000])
+@pytest.mark.parametrize("m", [1, 777, 100_000])
+def test_transport_plan_covers_every_column_once(cuda, n, m):
+    """As softmin's plan; the scratch holds the packed columns and one
+    double (two floats) per block of 512 rows and split."""
+    from sde_sampler_torch.ops.sinkhorn import transport_plan
+
+    d = 10
+    plan = transport_plan(n, m, d)
+    m_pad = -(-m // 16) * 16
+    assert plan.cols % 16 == 0
+    owner = np.full(m_pad, -1)
+    for s in range(plan.splits):
+        lo, hi = s * plan.cols, min((s + 1) * plan.cols, m_pad)
+        assert hi > lo, "empty split"
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = s
+    assert (owner >= 0).all()
+    assert plan.scratch_floats == m_pad * 12 + 2 * plan.splits * -(-n // TRANSPORT_BLOCK_ROWS)
 
 
 def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):

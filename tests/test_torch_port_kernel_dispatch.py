@@ -4,11 +4,12 @@ The kernels themselves run only on a card (tests/test_torch_port_cuda.py).
 What surrounds them is checked here, against a stand-in for the kernel
 library: that the rollout wrappers pass the arguments the C interface
 declares, let the kernel pick its body by shape and count the body it
-reports; that the softmin wrapper allocates the scratch the library sizes;
-and that CPU tensors take the plain versions and never reach the library.
-The body choice and the softmin splits themselves live in the library and
-are tested on the card. No JAX: the plain versions' parity with the JAX package is
-held in tests/test_torch_port_{rollout,dds,sinkhorn}.py.
+reports; that the softmin and transport wrappers allocate the scratch the
+library sizes and pass it in the declared order; and that CPU tensors take
+the plain versions and never reach the library. The body choice and the
+Sinkhorn kernels' splits themselves live in the library and are tested on
+the card. No JAX: the plain versions' parity with the JAX package is held
+in tests/test_torch_port_{rollout,dds,sinkhorn}.py.
 """
 import types
 
@@ -76,9 +77,15 @@ class FakeLibrary:
         splits._obj.value, cols._obj.value = 3, 1024
         return 17 * n + m
 
-    def softmin_launch(self, *args):
+    def transport_scratch(self, n, m, d, splits, cols):
+        splits._obj.value, cols._obj.value = 5, 2048
+        return 13 * m + 2 * n
+
+    def _record(self, *args):
         self.calls.append(args)
         return self.code
+
+    softmin_launch = transport_launch = _record
 
 
 @pytest.fixture
@@ -160,6 +167,42 @@ def test_softmin_launch_allocates_the_scratch_the_library_sizes(fake_library, mo
     assert out.shape == (n,)
     assert sk.softmin_plan(n, m, d) == (3, 1024, 17 * n + m)
     assert build.LAUNCHES["softmin"] == launches + 1
+
+
+def transport_inputs(n, m, d):
+    rng = np.random.default_rng(1)
+    f = lambda a: torch.from_numpy(a.astype(np.float32))
+    return (f(rng.normal(size=(n, d))), f(rng.normal(size=(m, d))),
+            f(rng.normal(size=n) * 0.01), f(rng.normal(size=m) * 0.01))
+
+
+@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (777, 100_000, 10), (100_000, 777, 17)])
+def test_transport_launch_allocates_the_scratch_the_library_sizes(fake_library, monkeypatch, n, m, d):
+    """The wrapper allocates the scalar and the scratch the library reports,
+    and passes pointers and sizes in the order the C interface declares."""
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda size, **kw: made.append(empty(size, **kw)) or made[-1])
+    x, y, u, v = transport_inputs(n, m, d)
+    launches = build.LAUNCHES["transport"]
+    total = sk._transport_launch(x, y, u, v, 0.1)
+    (args,) = fake_library.calls
+    assert len(args) == len(build.SIGNATURES["transport_launch"])
+    assert [t.shape for t in made] == [(), (13 * m + 2 * n,)]  # the scalar, then the scratch
+    assert total is made[0]
+    pointers = [t.data_ptr() for t in (x, y, u, v, *made)]
+    assert list(args[:6]) == pointers
+    assert args[6:9] == (n, m, d) and args[9] == pytest.approx(0.1)
+    assert sk.transport_plan(n, m, d) == (5, 2048, 13 * m + 2 * n)
+    assert build.LAUNCHES["transport"] == launches + 1
+
+
+def test_failed_transport_launch_raises_and_counts_nothing(fake_library):
+    fake_library.code = 700
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="transport"):
+        sk._transport_launch(*transport_inputs(40, 30, 3), 0.1)
+    assert build.LAUNCHES == before
 
 
 def _no_library():

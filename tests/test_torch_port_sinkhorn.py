@@ -164,3 +164,56 @@ def test_split_log2_softmin_matches_jax_kernel_and_plain(case):
     want = np.asarray(sp.softmin_pallas(*map(jnp.asarray, (x, y, dual)), EPS, interpret=True))
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(got, plain, atol=1e-5)
+
+
+def split_transport(x, y, u, v, eps, cols, chunk=16):
+    """The transport kernel's algorithm (csrc/sinkhorn.cu) in float32 numpy:
+    packed log2-domain duals (columns past m padded to `chunk` with -inf),
+    c = sq * rsqrt(sq) (0 below the smallest normal), z = -c k2 + (u2_i +
+    v2_j), exp2(z) flushed to 0 below the smallest normal, a float32
+    partial per row and column split of `cols`, and a float64 total of the
+    partials."""
+    k2 = np.float32(1.4426950408889634) / np.float32(eps)
+    m = y.shape[0]
+    m_pad = -(-m // chunk) * chunk
+    v2 = np.full(m_pad, -np.inf, np.float32)
+    v2[:m] = v * k2
+    u2 = (u * k2).astype(np.float32)
+    y_pad = np.zeros((m_pad, y.shape[1]), np.float32)
+    y_pad[:m] = y
+    sq = ((x[:, None, :] - y_pad[None]) ** 2).sum(-1, dtype=np.float32)
+    tiny = np.finfo(np.float32).tiny
+    c = np.where(sq >= tiny, sq / np.sqrt(np.maximum(sq, tiny)), np.float32(0))
+    z = (-c * k2 + (u2[:, None] + v2[None])).astype(np.float32)
+    plan = np.exp2(z)
+    terms = np.where(plan >= tiny, plan, np.float32(0)) * c
+    parts = [terms[:, j0 : j0 + cols].sum(axis=1, dtype=np.float32)
+             for j0 in range(0, m_pad, cols)]
+    return float(np.stack(parts).astype(np.float64).sum())
+
+
+@pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
+def test_split_log2_transport_matches_jax_kernel_and_plain(case):
+    """The kernel's split, log2-domain transport sum (emulated with no
+    invalid float operation) against the JAX Pallas transport cost in
+    interpret mode (1e-3 relative, the JAX cancellation bar above), float64
+    truth and the port's plain version (1e-5 relative); all -inf duals give
+    exactly 0."""
+    x, y, v, u = clouds(3, n=130, m=301)
+    cols = 64  # five splits, the last one ragged
+    if case == "dead_split":
+        v[64:128] = -np.inf  # the second split sees only -inf
+        u[:3] = -np.inf
+    elif case == "all_inf":
+        u[:] = -np.inf
+        v[:] = -np.inf
+    with np.errstate(invalid="raise"):
+        got = split_transport(x, y, u, v, EPS, cols)
+    plain = float(transport_cost_plain(*map(torch.from_numpy, (x, y, u, v)), EPS))
+    if case == "all_inf":
+        assert got == 0.0 and plain == 0.0
+        return
+    want = float(sp.transport_cost_pallas(*map(jnp.asarray, (x, y, u, v)), EPS, interpret=True))
+    assert got == pytest.approx(want, rel=1e-3)
+    assert got == pytest.approx(f64_truth(x, y, v, u, EPS)[1], rel=1e-5)
+    assert got == pytest.approx(plain, rel=1e-5)
