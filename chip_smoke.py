@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                   # every phase: the release check
     python3 chip_smoke.py --phases kernels  # build and kernel checks only
+    python3 chip_smoke.py --phases kernels,timing  # and the kernel times
 
 It first builds the CUDA kernels from sde_sampler_torch/csrc (timed) and
 prints nvcc's register and spill report. Phases:
@@ -11,31 +12,37 @@ prints nvcc's register and spill report. Phases:
            numpy seed), with the stated tolerances: kernel 1 (EM rollout) in
            its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
-           grid, kernel 1's generic body (a 32-wide net), softmin and
-           transport at 100k x 100k, softmin's edges at 100k (a column
-           split of -inf duals, rows that see only -inf) and transport's (a
-           column split of -inf duals, every dual -inf, two calls that must
-           give the same bits);
+           grid, kernel 1's generic body (a 32-wide net), each instance of
+           the mixture, wells and ClippedCtrl forms (INSTANCES), softmin and
+           transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
+           edges at 100k (a column split of -inf duals, rows that see only
+           -inf) and transport's (a column split of -inf duals, every dual
+           -inf, two calls that must give the same bits);
   main     drive each path through the entry point (`sde_sampler_torch.main`)
-           on the funnel (d = 10) at full width, each with the launch counts
-           zeroed just before and read just after; every kernel of the path
-           must have run on it:
-             dis        two-phase LV, batch 2048 x 200 EM steps, LerpCtrl,
-                        220 optimizer steps (past the clip milestone 200),
-                        then the final 100k evaluation (both log Z
-                        estimators, ESS, Sinkhorn against exact samples);
-             dds        two-phase LV through kernel 2, batch 2048 x 257
-                        cosine steps, ScoreCtrl, 220 steps, 100k evaluation;
-             dds_euler  EulerDDS (VP) and pis (PIS, scaled BM, Dirac prior):
-             pis        kernel 1's ScoreCtrl form, 20 steps, 10k evaluation;
-  timing   time the DIS and DDS optimizer steps (with a profiler breakdown),
-           each kernel through its wrapper and its plain version at its
-           path's shapes (the rollout kernels also alone on prepared tables,
-           in each body), and one full Sinkhorn evaluation, whose transport
-           kernel must be no further from float64 than the plain version
-           on the same funnel samples and duals; print each
+           at full width, each with the launch counts zeroed just before and
+           read just after; every kernel of the path must have run on it:
+             dis        funnel (d = 10), two-phase LV, batch 2048 x 200 EM
+                        steps, LerpCtrl, 220 optimizer steps (past the clip
+                        milestone 200), then the final 100k evaluation (both
+                        log Z estimators, ESS, Sinkhorn against exact
+                        samples);
+             dds        funnel, two-phase LV through kernel 2, batch 2048 x
+                        257 cosine steps, ScoreCtrl, 220 steps, 100k eval;
+             gmm_dis    the grid mixture (d = 2, K = 9) as dis, 220 steps,
+                        100k evaluation;
+             dds_euler, pis (funnel), mw_dds (d = 5, kernel 2),
+             mw_50d_dis (d = 50, the generic body), dw_shift_pis (d = 1)
+             and gmm_dis_no_score (the ClippedCtrl): 20 steps, 10k eval;
+  timing   time the DIS, DDS and mixture DIS optimizer steps (with a
+           profiler breakdown), each kernel and instance through its
+           wrapper, alone and as its plain version at its path's shapes
+           (the funnel rollouts in each body), softmin and transport at
+           100k for d = 2 and 50, and one full Sinkhorn evaluation, whose
+           transport kernel must be no further from float64 than the plain
+           version on the same funnel samples and duals; print each
            kernel's launches per paper-scale DIS run, computed from
-           conf/solver/oc_base.yaml.
+           conf/solver/oc_base.yaml. Without the main phase it times the
+           kernels only.
 
 It prints the card's name and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
@@ -99,25 +106,57 @@ REPLACES = {
     "transport": "sde_sampler_tpu/ops/sinkhorn_pallas.py:221",
 }
 SOURCES = {
-    "rollout": "sde_sampler_torch/csrc/rollout.cu",
-    "rollout_exp": "sde_sampler_torch/csrc/rollout.cu",
+    "rollout": "sde_sampler_torch/csrc/rollout.cuh",
+    "rollout_exp": "sde_sampler_torch/csrc/rollout.cuh",
     "softmin": "sde_sampler_torch/csrc/sinkhorn.cu",
     "transport": "sde_sampler_torch/csrc/sinkhorn.cu",
 }
-# The paths of the main phase, the kernels (by "<kernel>.<form>" for the
-# rollouts) each must launch, and their depth. After 20 steps the EulerDDS
-# control is barely trained, and about a quarter of its evaluation
-# trajectories reach rnd >= max_rnd (2389 of 10000 at seed 0 on an H100):
-# there a single overflowing trajectory would make the plain LB means
-# infinite, so the short paths are held to their finite means.
+# The paths of the main phase: target, solver, the kernels (by
+# "<kernel>.<form>.<target>" for the rollouts) each must launch, its depth
+# (None: the full --train-steps and --eval-batch), the log Z keys it is held
+# to, and whether its rollout takes the generic body (d > 16). After 20
+# steps the EulerDDS control is barely trained, and about a quarter of its
+# evaluation trajectories reach rnd >= max_rnd (2389 of 10000 at seed 0 on
+# an H100): there a single overflowing trajectory would make the plain LB
+# means infinite, so the short paths are held to their finite means.
 LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb", "eval/log_norm_const_lb_ito"]
 FINITE_LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb_finite",
                      "eval/log_norm_const_lb_ito_finite"]
+SINKHORN = ("softmin", "transport")
 PATHS = {
-    "dis": (("rollout.lerp", "softmin", "transport"), None, None, LOG_Z_KEYS),
-    "dds": (("rollout_exp.score", "softmin", "transport"), None, None, LOG_Z_KEYS),
-    "dds_euler": (("rollout.score",), SHORT_STEPS, SHORT_EVAL, FINITE_LOG_Z_KEYS),
-    "pis": (("rollout.score",), SHORT_STEPS, SHORT_EVAL, FINITE_LOG_Z_KEYS),
+    "dis": dict(target="funnel", solver="dis", kernels=("rollout.lerp.funnel", *SINKHORN),
+                steps=None, eval=None, log_z=LOG_Z_KEYS),
+    "dds": dict(target="funnel", solver="dds", kernels=("rollout_exp.score.funnel", *SINKHORN),
+                steps=None, eval=None, log_z=LOG_Z_KEYS),
+    "dds_euler": dict(target="funnel", solver="dds_euler", kernels=("rollout.score.funnel",),
+                      steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "pis": dict(target="funnel", solver="pis", kernels=("rollout.score.funnel",),
+                steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dis": dict(target="gmm", solver="dis", kernels=("rollout.lerp.gmm", *SINKHORN),
+                    steps=None, eval=None, log_z=LOG_Z_KEYS),
+    "mw_dds": dict(target="mw", solver="dds", kernels=("rollout_exp.score.wells", *SINKHORN),
+                   steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "mw_50d_dis": dict(target="mw_50d", solver="dis", kernels=("rollout.lerp.wells", *SINKHORN),
+                       steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                       generic=True),
+    "dw_shift_pis": dict(target="dw_shift", solver="pis",
+                         kernels=("rollout.score.wells", *SINKHORN),
+                         steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dis_no_score": dict(target="gmm", solver="dis_no_score",
+                             kernels=("rollout.clipped.none", *SINKHORN),
+                             steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+}
+# The rollout instances beyond the funnel's, each checked against its plain
+# twin and timed at the shapes of the path that runs it (gmm_dis,
+# gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis): label (the kernels
+# line's name) -> control form ("exp": kernel 2's) and target
+# (conf/target/*.yaml).
+INSTANCES = {
+    "rollout.lerp.gmm": dict(form="lerp", target="gmm"),
+    "rollout.clipped.none": dict(form="clipped", target="gmm"),
+    "rollout.score.wells": dict(form="score", target="dw_shift"),
+    "rollout_exp.score.wells": dict(form="exp", target="mw"),
+    "rollout.lerp.wells": dict(form="lerp", target="mw_50d"),
 }
 
 
@@ -157,14 +196,20 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rollout_work(B, T, d, C, H, per_coord=25):
+def rollout_work(B, T, d, C, H, per_coord=25, K=0):
     # multiply-adds of the net (2 flops each), GELU with erf (~10 flops per
     # activation) and `per_coord` flops of score and update per coordinate
     # (about 25 for the LerpCtrl EM step, 20 for the ScoreCtrl exponential
-    # integrator: funnel score 8, clips and score term 4, update 4, exp 4)
-    ops = T * B * (2 * C * (2 * d + H * C) + 10 * C * (H + 1) + per_coord * d)
+    # integrator: funnel score 8, clips and score term 4, update 4, exp 4;
+    # FORM_FLOPS + TARGET_FLOPS for the other instances).
+    # A mixture of K components adds its row phase, per row and component
+    # 3d flops for the log-weight and about 10 for the softmax (exp 4, max,
+    # sum, division), and 3K flops per coordinate for the score's sum; its
+    # table, K (2d + 1) floats, is read once.
+    ops = T * B * (2 * C * (2 * d + H * C) + 10 * C * (H + 1) + per_coord * d
+                   + K * (3 * d + 10) + 3 * K * d)
     nbytes = 4 * (B * d + T * B * d + T * (6 + C) + 2 * C * d + H * C * (C + 1) + d
-                  + T * B * d + B * d)
+                  + T * B * d + B * d + K * (2 * d + 1))
     return ops, nbytes
 
 
@@ -240,6 +285,91 @@ def dds_inputs(device, rng):
     return x0, ts, noise
 
 
+def conf_target(name: str, device):
+    """A target as conf/target/<name>.yaml configures it."""
+    import yaml
+
+    from sde_sampler_torch.utils.config import instantiate
+
+    cfg = yaml.safe_load((ROOT / "conf" / "target" / f"{name}.yaml").read_text())
+    return instantiate(cfg).to(device)
+
+
+# flops of a form's control and update, and of a target's inline score, per
+# coordinate (rollout_work); a mixture's are counted by its K
+FORM_FLOPS = {"lerp": 17, "score": 12, "exp": 12, "clipped": 8}
+TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0}
+
+
+def seeded_instance(device, label, seed):
+    """A rollout instance of INSTANCES at its path's shapes, with weights and
+    inputs from a numpy seed: the path's control (conf/model/*.yaml, clips
+    10/10), SDE and grid, x0 from its prior (0 for the PIS Dirac). Returns
+    (run, plain, prepared, x0, ts, noise, work), run and plain taking
+    (x0, ts, noise)."""
+    import numpy as np
+    import torch
+
+    from sde_sampler_torch.distr.gauss import IsotropicGauss
+    from sde_sampler_torch.eq.sdes import VP, ScaledBM
+    from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+    from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
+    from sde_sampler_torch.ops import rollout as ro
+    from sde_sampler_torch.utils.common import get_timesteps
+
+    spec = INSTANCES[label]
+    form = spec["form"]
+    target = conf_target(spec["target"], device)
+    d = target.dim
+    base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH)
+    score_net = lambda bias: TimeEmbed(dim_out=1, num_layers=4, channels=WIDTH,
+                                       last_bias_init={"constant": bias})
+    clips = {"clip_model": 10.0, "clip_score": 10.0}
+    sde = None
+    if form == "lerp":
+        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
+        ctrl = LerpCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
+                        prior_score=IsotropicGauss(dim=d).score, target_score=target.score,
+                        **clips)
+    elif form == "clipped":
+        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
+        ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
+    else:
+        if form == "score":  # PIS: the scaled BM of conf/sde/bm_pis.yaml
+            sde = ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0)
+        ctrl = ScoreCtrl(base_model=base, score_model=score_net(0.01),
+                         target_score=target.score, **clips)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in ctrl.parameters():
+            b = 1.0 / math.sqrt(p.shape[-1]) if p.ndim == 2 else 0.1
+            p.copy_(torch.from_numpy(rng.uniform(-b, b, p.shape).astype(np.float32)))
+    ctrl = ctrl.to(device)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    if form == "exp":
+        ts = get_timesteps(**DDS_GRID, device=device)
+    else:
+        ts = torch.linspace(0.0, sde.terminal_t, STEPS + 1, device=device)
+    T = ts.shape[0] - 1
+    x0 = f(rng.standard_normal((BATCH, d)) * (0.0 if form == "score" else 1.0))
+    noise = f(rng.standard_normal((T, BATCH, d)))
+    if form == "exp":
+        run = lambda x, t, n: ro.fused_rollout_exp(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
+        plain = lambda x, t, n: ro.rollout_exp_plain(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
+        prepared = ro._prepare(ctrl, x0, ts, noise, clips, exp=(DDS_ALPHA, DDS_SIGMA))
+    else:
+        noise *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+        pass_sde = sde if form == "score" else None
+        run = lambda x, t, n: ro.fused_rollout(ctrl, x, t, n, clips, sde=pass_sde)
+        plain = lambda x, t, n: ro.rollout_plain(ctrl, x, t, n, clips, sde=pass_sde)
+        prepared = ro._prepare(ctrl, x0, ts, noise, clips, pass_sde)
+    kind = prepared[1]["kind"]
+    K = prepared[0][9].numel() // (2 * d + 1)
+    work = rollout_work(BATCH, T, d, WIDTH, HIDDEN,
+                        per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K)
+    return run, plain, prepared, x0, ts, noise, work
+
+
 def check_rollout(name, run, plain, x0, ts, noise, report_key, report, width=WIDTH):
     """A rollout kernel against its plain twin: one step from the twin's own
     states (no compounding) at five steps, then the whole rollout."""
@@ -264,7 +394,7 @@ def check_rollout(name, run, plain, x0, ts, noise, report_key, report, width=WID
     marks = sorted({1, T // 20, T // 4, T // 2, 3 * T // 4, T - 1})
     growth = {k: "%.1e" % float((xs_k[k] - xs_p[k]).abs().max()) for k in marks}
     n_zero = int((ts[1:] == ts[:-1]).sum())
-    print(f"kernel {name} (B {x0.shape[0]}, T {T}, d {DIM}, width {width}"
+    print(f"kernel {name} (B {x0.shape[0]}, T {T}, d {x0.shape[1]}, width {width}"
           + (f", {n_zero} steps with dt = 0" if n_zero else "") + "): "
           f"max_abs_err {max(e1, e2):.3e} (atol {atol}, rtol {rtol}); one step "
           f"{step_err:.3e} (atol, rtol {TOL['rollout_step']}); max error by "
@@ -376,8 +506,29 @@ def phase_kernels(device, report):
     print(f"kernel rollout: fast vs generic body at width {WIDTH}: max |diff| "
           f"{r['fast_vs_generic_body']:.3e}", flush=True)
 
+    # the instances of the mixture, the wells and the ClippedCtrl, each at
+    # its path's shapes
+    for i, label in enumerate(INSTANCES):
+        run, plain, _, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
+        check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
+
     for name in ("softmin", "transport"):
         report[name] = {"max_abs_err": 0.0}
+    # the new paths' evaluation widths at their 10k evaluation: gmm (2),
+    # mw (5), mw_50d (50, the run-time-width path)
+    for d in (2, 5, 50):
+        n = SHORT_EVAL
+        x, y, u, v = pair_inputs(device, rng, n, d, n // 100)
+        got, want = sk.softmin(x, y, v, EPS), sk.softmin_plain(x, y, v, EPS)
+        ok, err = within(got, want, *TOL["softmin"])
+        got_t, want_t = sk.transport_cost(x, y, u, v, EPS), sk.transport_cost_plain(x, y, u, v, EPS)
+        ok_t, err_t = within(got_t, want_t, *TOL["transport"])
+        print(f"kernel softmin / transport (n = m = {n}, d {d}): max_abs_err {err:.3e} / "
+              f"{err_t:.3e} on {float(want_t):.6g}", flush=True)
+        if not (ok and ok_t) or not bool(torch.isfinite(got).all()):
+            fail(f"softmin or transport disagrees with its plain version at n = {n}, d = {d}")
+        report["softmin"]["max_abs_err"] = max(report["softmin"]["max_abs_err"], err)
+        report["transport"]["max_abs_err"] = max(report["transport"]["max_abs_err"], err_t)
     for d in (DIM, 1):
         n, n_inf = EVAL_BATCH, EVAL_BATCH // 100
         x, y, u, v = pair_inputs(device, rng, n, d, n_inf)
@@ -448,64 +599,73 @@ def phase_kernels(device, report):
         fail("transport with every dual -inf is not exactly 0")
 
 
-def main_overrides(solver: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
+def main_overrides(path: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
+    spec = PATHS[path]
     overrides = [
-        "target=funnel", f"solver={solver}",
+        f"target={spec['target']}", f"solver={spec['solver']}",
         "plot_results=False", "eval_init=False", "store_last_ckpt=False",
         f"train_steps={train_steps}", f"eval_batch_size={eval_batch}",
         "log_interval=50", f"out_dir={run_dir}", f"seed={SEED}",
     ]
-    if solver == "dis":
+    if spec["solver"] == "dis":
         overrides.insert(2, "loss.method=lv")
     return overrides
 
 
-def drive_path(solver: str, train_steps: int, eval_batch: int, report):
+def drive_path(path: str, train_steps: int, eval_batch: int, report):
     """One path through the entry point, launch counts zeroed just before
     and read just after; returns the trained solver."""
     from sde_sampler_torch import main as entry
     from sde_sampler_torch.ops import build
 
-    run_dir = OUT_DIR / f"chip_smoke_{solver}"
+    spec = PATHS[path]
+    run_dir = OUT_DIR / f"chip_smoke_{path}"
     if run_dir.exists():
         for f in run_dir.glob("*"):
             if f.is_file():
                 f.unlink()
     build.reset_launches()
     start = time.perf_counter()
-    solver_obj = entry.main(main_overrides(solver, run_dir, train_steps, eval_batch))
+    solver_obj = entry.main(main_overrides(path, run_dir, train_steps, eval_batch))
     seconds = time.perf_counter() - start
     launches = {k: v for k, v in {**build.LAUNCHES, **build.FORM_LAUNCHES}.items() if v}
-    print(f"path {solver}: {train_steps} steps + final eval ({eval_batch} samples) in "
+    print(f"path {path}: {train_steps} steps + final eval ({eval_batch} samples) in "
           f"{seconds:.1f} s; launches {launches}", flush=True)
-    for key in PATHS[solver][0]:
+    for key in spec["kernels"]:
         count = build.FORM_LAUNCHES[key] if "." in key else build.LAUNCHES[key]
         if count <= 0:
-            fail(f"kernel {key} was not launched on the {solver} path")
+            fail(f"kernel {key} was not launched on the {path} path")
     generic = {k: v for k, v in build.FORM_LAUNCHES.items() if k.endswith(".generic") and v}
-    if generic:  # every path's net is 64 wide with two hidden layers
-        fail(f"the {solver} path took the rollout kernels' generic body: {generic}")
+    if bool(generic) != spec.get("generic", False):
+        # every path's net is 64 wide with two hidden layers: the fast body
+        # unless d > 16
+        fail(f"the {path} path took the rollout kernels' generic body {generic}, "
+             f"expected: {spec.get('generic', False)}")
     for name in KERNELS:
         if build.LAUNCHES[name]:
             by_path = report[name].setdefault("launches_by_path", {})
-            by_path[solver] = build.LAUNCHES[name]
+            by_path[path] = build.LAUNCHES[name]
             report[name]["launches"] = report[name].get("launches", 0) + build.LAUNCHES[name]
+    for label in INSTANCES:
+        if build.FORM_LAUNCHES[label]:
+            report[label]["launches"] = report[label].get("launches", 0) + build.FORM_LAUNCHES[label]
 
     lines = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [l["train/loss"] for l in lines if "train/loss" in l]
     final = solver_obj.last_metrics
-    keys = PATHS[solver][3] + ["eval/effective_sample_size", "error/sinkhorn"]
+    keys = spec["log_z"] + ["eval/effective_sample_size", "error/sinkhorn"]
     summary = {k: final[k] for k in keys + ["eval/n_nonfinite_rnd", "eval/n_filtered_rnd"]}
     summary["train/loss_last"] = losses[-1] if losses else None
     summary["clip_model"] = solver_obj.scheduled_params["generative_ctrl.clip_model"]
-    print(f"path {solver} result: " + json.dumps(summary), flush=True)
+    summary["log_norm_const"] = solver_obj.target.log_norm_const
+    print(f"path {path} result: " + json.dumps(summary), flush=True)
     if not losses or not all(math.isfinite(x) for x in losses):
-        fail(f"{solver}: non-finite training loss")
+        fail(f"{path}: non-finite training loss")
     if not all(math.isfinite(final[k]) for k in keys):
-        fail(f"{solver}: non-finite log Z, ESS or Sinkhorn value")
+        fail(f"{path}: non-finite log Z, ESS or Sinkhorn value")
     if summary["clip_model"] == 10.0 and train_steps > 200:
-        fail(f"{solver}: the clip milestone at step 200 did not fire")
-    report.setdefault("paths", {})[solver] = {
+        fail(f"{path}: the clip milestone at step 200 did not fire")
+    report.setdefault("paths", {})[path] = {
         "seconds": seconds, **summary, "train_steps": train_steps,
         "eval_batch_size": eval_batch, "launches": launches,
     }
@@ -517,9 +677,9 @@ def phase_main(args, report):
     if args.eval_batch != EVAL_BATCH:
         print(f"eval_batch_size cut to {args.eval_batch} (from {EVAL_BATCH})", flush=True)
     solvers = {}
-    for solver, (_, steps, eval_batch, _) in PATHS.items():
-        solvers[solver] = drive_path(
-            solver, steps or args.train_steps, eval_batch or args.eval_batch, report)
+    for path, spec in PATHS.items():
+        solvers[path] = drive_path(
+            path, spec["steps"] or args.train_steps, spec["eval"] or args.eval_batch, report)
     return solvers
 
 
@@ -580,11 +740,13 @@ def phase_timing(solvers, device, report):
     from sde_sampler_torch.ops import rollout as ro
     from sde_sampler_torch.ops import sinkhorn as sk
 
-    # optimizer steps of the DIS and DDS paths (the trained solvers, more steps)
-    solver = solvers["dis"]
-    report["step"] = time_steps(solver, STEPS, "DIS")
-    dds = solvers["dds"]
-    report["dds_step"] = time_steps(dds, dds.train_ts.shape[0] - 1, "DDS")
+    # optimizer steps of the DIS, DDS and mixture DIS paths (the trained
+    # solvers, more steps)
+    if solvers is not None:
+        report["step"] = time_steps(solvers["dis"], STEPS, "DIS")
+        dds = solvers["dds"]
+        report["dds_step"] = time_steps(dds, dds.train_ts.shape[0] - 1, "DDS")
+        report["gmm_step"] = time_steps(solvers["gmm_dis"], STEPS, "GMM DIS")
 
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
@@ -614,6 +776,35 @@ def phase_timing(solvers, device, report):
     r["bound_ms"], r["bound_by"] = bound(*rollout_work(
         BATCH, ts_e.shape[0] - 1, DIM, WIDTH, HIDDEN, per_coord=20))
 
+    # the new instances at their paths' shapes: through the wrapper, the
+    # kernel alone in the body its shape takes, the plain twin
+    for i, label in enumerate(INSTANCES):
+        run, plain, prepared, x0i, tsi, noisei, work = seeded_instance(
+            device, label, SEED + 10 + i)
+        k = report[label]
+        k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=20, warmup=2)
+        k["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=20, warmup=2)
+        k["plain_ms"] = cuda_ms(lambda: plain(x0i, tsi, noisei), reps=1, warmup=0)
+        k["bound_ms"], k["bound_by"] = bound(*work)
+        print(f"time {label} (d {x0i.shape[1]}, T {tsi.shape[0] - 1}): {k['ms']:.3f} ms "
+              f"through its wrapper, {k['kernel_ms']:.3f} ms alone (plain {k['plain_ms']:.3f} "
+              f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+
+    # softmin and transport at the mixture's and mw_50d's widths, 100k x 100k
+    # (the kernels alone; the plain versions take tens of seconds there)
+    for d in (2, 50):
+        x, y, u, v = pair_inputs(device, rng, EVAL_BATCH, d, 0)
+        widths = report.setdefault("sinkhorn_kernels_by_d", {})
+        widths[d] = {
+            "softmin_ms": cuda_ms(lambda: sk.softmin(x, y, v, EPS), reps=5),
+            "transport_ms": cuda_ms(lambda: sk.transport_cost(x, y, u, v, EPS), reps=5),
+            "softmin_bound_ms": bound(*pair_work(EVAL_BATCH, EVAL_BATCH, d, 6, EVAL_BATCH))[0],
+            "transport_bound_ms": bound(*pair_work(EVAL_BATCH, EVAL_BATCH, d, 8, 1))[0],
+        }
+        print(f"time softmin / transport at 100k x 100k, d {d}: {widths[d]['softmin_ms']:.3f} "
+              f"/ {widths[d]['transport_ms']:.3f} ms (bounds {widths[d]['softmin_bound_ms']:.4f} "
+              f"/ {widths[d]['transport_bound_ms']:.4f} ms)", flush=True)
+
     x, y, u, v = pair_inputs(device, rng, EVAL_BATCH, DIM, 0)
     for name, fn, plain, per_pair, n_out in (
         ("softmin", lambda: sk.softmin(x, y, v, EPS),
@@ -635,6 +826,9 @@ def phase_timing(solvers, device, report):
         print(f"time {name}: the kernel alone {k['kernel_ms']:.3f} ms; its generic body "
               f"alone at the same shapes {k['generic_body_ms']:.3f} ms", flush=True)
 
+    if solvers is None:
+        return
+    solver = solvers["dis"]
     samples = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
     gt = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
     sinkhorn = Sinkhorn()
@@ -695,6 +889,29 @@ def paper_scale_launches(sinkhorn_iters: int) -> dict:
             "transport": evals}
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """nvcc's -Xptxas -v report, one line per kernel: its name with its
+    template arguments, registers and spills."""
+    import re
+
+    lines, name = [], None
+    for line in log.splitlines():
+        if line.startswith("=="):
+            lines.append(line.strip())
+        entry = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?",
+                          line)
+        if entry:
+            args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+            name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and spill.groups() != ("0", "0"):
+            lines.append(f"{name}: spills {spill.group(1)} / {spill.group(2)} bytes")
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            lines.append(f"{name}: {used.group(1)} registers")
+    return lines
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="kernels,main,timing")
@@ -725,23 +942,23 @@ def main():
     build.library()
     report["build_seconds"] = time.perf_counter() - start
     print(f"kernels built in {report['build_seconds']:.1f} s", flush=True)
-    for line in build.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip(), flush=True)
+    for line in ptxas_summary(build.library_path().with_suffix(".log").read_text()):
+        print("  " + line, flush=True)
 
-    report.update({name: {} for name in KERNELS})
+    report.update({name: {} for name in (*KERNELS, *INSTANCES)})
     if "kernels" in phases:
         phase_kernels(device, report)
     solvers = phase_main(args, report) if "main" in phases else None
-    if "timing" in phases and solvers is not None:
+    if "timing" in phases:
         phase_timing(solvers, device, report)
 
     kernels = []
-    for name in KERNELS:
+    for name in (*KERNELS, *INSTANCES):
         k = report[name]
+        kernel = name.split(".")[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": k.get("launches"),
+            "name": name, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": k.get("launches"),
             "launches_by_path": k.get("launches_by_path"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
             "kernel_ms": k.get("kernel_ms"), "generic_body_ms": k.get("generic_body_ms"),

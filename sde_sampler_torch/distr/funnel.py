@@ -2,7 +2,7 @@
 
 Port of `sde_sampler_tpu/distr/funnel.py`: x₀ ~ N(0, σ²),
 x_i | x₀ ~ N(0, exp(x₀)); analytic score, exact sampler and domain.
-The rollout kernel (`ops/rollout.py`, `csrc/rollout.cu`) inlines the same
+The rollout kernel (`ops/rollout.py`, `csrc/rollout.cuh`) inlines the same
 score formula.
 """
 from __future__ import annotations

@@ -34,16 +34,24 @@ NVCC_FLAGS = ARCH_FLAGS + [
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else. The rollout kernels also count by
-# control form ("<kernel>.<form>"), and launches of the any-shape generic
-# body once more under "<kernel>.<form>.generic", so a run shows which
-# instance it took.
+# control form ("<kernel>.<form>") and by form and target
+# ("<kernel>.<form>.<target>"), and launches of the any-shape generic body
+# once more under "<kernel>.<form>.generic", so a run shows which instance
+# it took.
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
+ROLLOUT_INSTANCES = {
+    "rollout": {"lerp": ("funnel", "gmm", "wells"), "score": ("funnel", "gmm", "wells"),
+                "clipped": ("none",)},
+    "rollout_exp": {"score": ("funnel", "gmm", "wells")},
+}
 FORM_LAUNCHES: dict[str, int] = {
-    "rollout.lerp": 0, "rollout.score": 0, "rollout_exp.score": 0,
-    "rollout.lerp.generic": 0, "rollout.score.generic": 0,
-    "rollout_exp.score.generic": 0,
+    key: 0
+    for kernel, forms in ROLLOUT_INSTANCES.items()
+    for form, targets in forms.items()
+    for key in (f"{kernel}.{form}", f"{kernel}.{form}.generic",
+                *(f"{kernel}.{form}.{target}" for target in targets))
 }
 
 
@@ -53,10 +61,13 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def count_launch(name: str, form: str | None = None, generic: bool = False) -> None:
+def count_launch(name: str, form: str | None = None, target: str | None = None,
+                 generic: bool = False) -> None:
     LAUNCHES[name] += 1
     if form is not None:
         FORM_LAUNCHES[f"{name}.{form}"] += 1
+        if target is not None:
+            FORM_LAUNCHES[f"{name}.{form}.{target}"] += 1
         if generic:
             FORM_LAUNCHES[f"{name}.{form}.generic"] += 1
 
@@ -66,11 +77,12 @@ def count_launch(name: str, form: str | None = None, generic: bool = False) -> N
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _OUT = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    # tensors, xs, x_T; B, d, C, H, T; clips, prior, funnel; form, body; used
-    # body; stream
-    "rollout_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 5 + [_I32, _I32, _OUT, _PTR],
-    # tensors, xs, x_T; B, d, C, H, T; clips, funnel; body; used body; stream
-    "rollout_exp_launch": [_PTR] * 11 + [_I32] * 5 + [_F32] * 3 + [_I32, _OUT, _PTR],
+    # tensors and the mixture table, xs, x_T; B, d, C, H, T, K; clips,
+    # prior, target scalars; form, target, body; used body; stream
+    "rollout_launch": [_PTR] * 12 + [_I32] * 6 + [_F32] * 7 + [_I32] * 3 + [_OUT, _PTR],
+    # tensors and the mixture table, xs, x_T; B, d, C, H, T, K; clips,
+    # target scalars; target, body; used body; stream
+    "rollout_exp_launch": [_PTR] * 12 + [_I32] * 6 + [_F32] * 5 + [_I32] * 2 + [_OUT, _PTR],
     # n, m, d; splits, cols (out)
     "softmin_scratch": [_I32] * 3 + [_OUT, _OUT],
     # x, y, dual, out, scratch; n, m, d; eps; stream

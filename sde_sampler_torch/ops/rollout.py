@@ -1,4 +1,4 @@
-"""Fused rollouts of the funnel controls: kernel 1 (EM) and kernel 2 (DDS).
+"""Fused rollouts of the SDE controls: kernel 1 (EM) and kernel 2 (DDS).
 
 Port of `fused_sim_rollout` (`sde_sampler_tpu/ops/rollout_pallas.py:68`)
 with its two step functions:
@@ -11,22 +11,33 @@ with its two step functions:
   β = clip(α√dt, 0, 1), a = √(1 − β²) and standard normals ε.
 
 The JAX kernel traces any step function; CUDA cannot, so these are
-specialised to the control forms of the funnel paths, each over a GELU
-`FourierMLP` with an optional `TimeEmbed` score net (one output) and the
-`Funnel` target score:
+specialised to control forms over a GELU `FourierMLP` with an optional
+`TimeEmbed` score net (one output):
 
 - "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
-- "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2).
+- "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2);
+- "clipped", a `ClippedCtrl`, u = clip(net, clip_model) with no score
+  (`solver=dis_no_score`, `pis_no_score`), kernel 1 only;
+
+and, for the forms with a score, to the targets whose score the kernel
+evaluates inline (`TARGET_CODES`): "funnel" (`Funnel`), "gmm" (`GMM`, and
+`Gauss` and `IsotropicGauss` as one-component mixtures) and "wells"
+(`DoubleWell`, `MultiWell`). A ClippedCtrl has no target ("none"). Each
+target has a small float32 table: the mixture's loc (K, d), 1/scale²
+(K, d) and log w_k − Σ_j log scale_kj (K), built on the tensors' device
+per call; the funnel's first-coordinate variance, and the wells' number,
+separation and shift, passed by value.
 
 The wrappers raise on anything else. On the card, the kernel picks its
-body by shape (`csrc/rollout.cu::fast_fits`): the fast body for the width,
+body by shape (`csrc/rollout.cuh::fast_fits`): the fast body for the width,
 depth and dimensions of every model config of the repo (64 channels, 2
 hidden layers, d <= 16, tables that fit shared memory), the generic body
 for any other. It reports the body it took, and the wrapper counts the
-launch (`build.FORM_LAUNCHES`, once more under ".generic" for the latter).
-Everything that depends only on the
+launch (`build.count_launch`: by kernel, by "<kernel>.<form>", by
+"<kernel>.<form>.<target>", and once more under "<kernel>.<form>.generic"
+for the generic body). Everything that depends only on the
 step start s = ts[k] is computed here, by plain torch on the tensors'
-device, as per-step tables; the kernel (`csrc/rollout.cu`) or, for a CPU
+device, as per-step tables; the kernel (`csrc/rollout.cuh`) or, for a CPU
 tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`) then runs the
 whole loop. All return `xs` (T, B, d), the state before every step
 (xs[0] = x0), and `x_T`, the state after the last one. The rollouts are
@@ -40,68 +51,83 @@ import math
 import torch
 import torch.nn.functional as F
 
+from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
-from sde_sampler_torch.distr.gauss import IsotropicGauss
+from sde_sampler_torch.distr.gauss import GMM, Gauss, IsotropicGauss
 from sde_sampler_torch.eq.sdes import OU
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import LerpCtrl, ScoreCtrl, _pick
+from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl, _pick
 from sde_sampler_torch.ops import build
 
-# instance of csrc/rollout.cu's kernel 1 for each control form
-FORM_CODES = {"lerp": 0, "score": 1}
+# kernel 1's control forms (kernel 2 has only the ScoreCtrl one)
+FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3}
+FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped"}
+# the targets whose score the kernels inline
+TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3}
+TARGETS = {Funnel: "funnel", GMM: "gmm", Gauss: "gmm", IsotropicGauss: "gmm",
+           DoubleWell: "wells", MultiWell: "wells"}
 # the body a launch asks for (by shape, or one of the two) and reports
 BODY_CODES = {"shape": 0, "fast": 1, "generic": 2}
 
 
-def _owner(method, cls):
-    """The object a bound score method belongs to, if it is `cls`'s score."""
+def _owner(method, classes):
+    """The object a bound score method belongs to, if it is exactly one of
+    `classes` and the method is that class's own score."""
     owner = getattr(method, "__self__", None)
-    if isinstance(owner, cls) and getattr(method, "__func__", None) is type(owner).score:
+    cls = type(owner)
+    if cls in classes and getattr(method, "__func__", None) is cls.score:
         return owner
     return None
 
 
 def resolve_step(ctrl, sde=None, update: str = "em"):
-    """(form, sde, prior, target) of the specialised step; raises on any other.
+    """(form, sde, prior, target kind, target) of the specialised step;
+    raises on any other.
 
-    `sde` is the SDE the EM update integrates (a LerpCtrl's own by default);
-    the exponential integrator (`update="exp"`) takes none.
+    `sde` is the SDE the EM update integrates (a LerpCtrl's own, and by
+    default a ClippedCtrl's); the exponential integrator (`update="exp"`)
+    takes none.
     """
-    if type(ctrl) is LerpCtrl:
-        form = "lerp"
-    elif type(ctrl) is ScoreCtrl:
-        form = "score"
-    else:
+    form = FORMS.get(type(ctrl))
+    if form is None:
         raise NotImplementedError(
-            "the rollout kernels need a LerpCtrl or a ScoreCtrl, got "
+            "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, got "
             f"{type(ctrl).__name__}"
         )
-    if form == "lerp" and update != "em":
+    if form != "score" and update != "em":
         raise NotImplementedError("the exponential integrator needs a ScoreCtrl")
     base = ctrl.base_model
     if not isinstance(base, FourierMLP) or base.activation != "gelu":
         raise NotImplementedError("the rollout kernels need a GELU FourierMLP")
-    score_model = ctrl.score_model
+    score_model = getattr(ctrl, "score_model", None)
     if score_model is not None and (
         not isinstance(score_model, TimeEmbed) or score_model.dim_out != 1
     ):
         raise NotImplementedError(
             "the rollout kernels need a TimeEmbed score net with one output"
         )
-    target = _owner(ctrl.target_score, Funnel)
-    if target is None or type(target) is not Funnel:
-        raise NotImplementedError("the rollout kernels need the Funnel target")
+    kind, target = "none", None
+    if form != "clipped":
+        target = _owner(ctrl.target_score, TARGETS)
+        if target is None:
+            raise NotImplementedError(
+                "the rollout kernels need a Funnel, GMM, Gauss, IsotropicGauss, "
+                "DoubleWell or MultiWell target"
+            )
+        kind = TARGETS[type(target)]
     prior = None
     if form == "lerp":
         if sde is not None and sde is not ctrl.sde:
             raise NotImplementedError("a LerpCtrl rolls out its own SDE")
         sde = ctrl.sde
-        prior = _owner(ctrl.prior_score, IsotropicGauss)
-        if prior is None or type(prior) is not IsotropicGauss:
+        prior = _owner(ctrl.prior_score, (IsotropicGauss,))
+        if prior is None:
             raise NotImplementedError("the rollout kernel needs an IsotropicGauss prior")
+    elif form == "clipped" and sde is None:
+        sde = ctrl.sde
     if update == "em" and (not isinstance(sde, OU) or type(sde).drift is not OU.drift):
         raise NotImplementedError("the rollout kernel needs an OU-family SDE")
-    return form, sde, prior, target
+    return form, sde, prior, kind, target
 
 
 @torch.no_grad()
@@ -115,10 +141,11 @@ def exp_coeffs(ts: torch.Tensor, alpha: float, sigma: float):
 @torch.no_grad()
 def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     """Per-step tables: the time-embedding rows (T, C) and six scalars per
-    step (T, 6) in the column order of csrc/rollout.cu. EM: drift
+    step (T, 6) in the column order of csrc/rollout.cuh. EM: drift
     coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
-    and the hard-constraint factor of the net output. Exponential integrator
-    (`exp=(alpha, sigma)`): a, β²σ², σβ, 0, scale_score * clip(score net), 1."""
+    (0 for a ClippedCtrl) and the hard-constraint factor of the net output.
+    Exponential integrator (`exp=(alpha, sigma)`): a, β²σ², σβ, 0,
+    scale_score * clip(score net), 1."""
     s = ts[:-1]
     base = ctrl.base_model
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
@@ -126,8 +153,11 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     ones = torch.ones_like(s)
     hard = getattr(ctrl, "hard_constrain", False)
     ctrl_scale = ctrl.constrain(ones, s) if hard else ones
-    sscore = ctrl.scale_score * ones
-    if ctrl.score_model is not None:
+    if type(ctrl) is ClippedCtrl:
+        sscore = torch.zeros_like(s)
+    else:
+        sscore = ctrl.scale_score * ones
+    if getattr(ctrl, "score_model", None) is not None:
         score_net = ctrl.score_model(s)[:, 0]
         if clip_model is not None:
             score_net = score_net.clamp(-clip_model, clip_model)
@@ -149,6 +179,30 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     return torch.stack(columns, dim=1).contiguous(), temb.contiguous()
 
 
+@torch.no_grad()
+def target_table(kind: str, target, device) -> tuple[torch.Tensor, tuple]:
+    """The target's table: (mixture table, three scalars). The mixture's
+    table lies on `device`: loc (K, d), 1/scale² (K, d) and the component
+    constants log w_k − Σ_j log scale_kj (K), flattened in that order. The
+    scalars are the funnel's first-coordinate variance, or the wells'
+    number, separation and shift."""
+    empty = torch.zeros(0, device=device)
+    if kind == "gmm":
+        loc, scale = target.loc.to(device), target.scale.to(device)
+        const = target.log_mix_weights.to(device) - torch.log(scale).sum(dim=-1)
+        table = torch.cat([loc.reshape(-1), (1.0 / scale**2).reshape(-1), const])
+        return table.contiguous(), (0.0, 0.0, 0.0)
+    if kind == "funnel":
+        return empty, (target.distr_first.scale0**2, 0.0, 0.0)
+    if kind == "wells":
+        if isinstance(target, MultiWell):
+            n, well = target.n_double_wells, target.double_well
+        else:
+            n, well = 1, target
+        return empty, (float(n), well.separation, well.shift)
+    return empty, (0.0, 0.0, 0.0)
+
+
 def _weights(base: FourierMLP):
     """Net weights in (in, out) layout; hidden layers stacked."""
     hidden = list(base.hidden_layer)
@@ -168,16 +222,15 @@ def _weights(base: FourierMLP):
     ]
 
 
-def _consts(ctrl, prior: IsotropicGauss | None, target: Funnel, clips):
+def _consts(ctrl, prior: IsotropicGauss | None, clips):
     inf = math.inf
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
-    clip_score = _pick(clips, "clip_score", ctrl.clip_score)
+    clip_score = _pick(clips, "clip_score", getattr(ctrl, "clip_score", None))
     return dict(
         clip_model=inf if clip_model is None else float(clip_model),
         clip_score=inf if clip_score is None else float(clip_score),
         prior_loc=0.0 if prior is None else prior.loc0,
         prior_var=1.0 if prior is None else prior.scale0**2,
-        funnel_var_first=target.distr_first.scale0**2,
     )
 
 
@@ -185,13 +238,42 @@ def _clip(v, c):
     return v if math.isinf(c) else v.clamp(-c, c)
 
 
+def _target_score(kind, x, table, scalars):
+    """The target score of the kernel's inline device functions."""
+    d = x.shape[1]
+    if kind == "funnel":
+        first = x[:, :1]
+        inv_var_other = torch.exp(-first)
+        sq = (x[:, 1:] ** 2).sum(dim=1, keepdim=True)
+        return torch.cat(
+            [
+                (-first / scalars[0] - 0.5 * (d - 1)) + 0.5 * sq * inv_var_other,
+                -x[:, 1:] * inv_var_other,
+            ],
+            dim=1,
+        )
+    if kind == "gmm":
+        K = table.shape[0] // (2 * d + 1)
+        loc = table[: K * d].reshape(K, d)
+        inv_var = table[K * d : 2 * K * d].reshape(K, d)
+        const = table[2 * K * d :]
+        diff = x[:, None, :] - loc[None]
+        log_w = const - 0.5 * (diff * diff * inv_var).sum(dim=-1)  # (B, K)
+        e = torch.exp(log_w - log_w.max(dim=1, keepdim=True).values)
+        weighted = (e[:, :, None] * ((loc[None] - x[:, None, :]) * inv_var)).sum(dim=1)
+        return weighted / e.sum(dim=1, keepdim=True)
+    # wells: the first n coordinates in the quartic wells, the rest N(shift, 1)
+    n, sep, shift = int(scalars[0]), scalars[1], scalars[2]
+    xw = x[:, :n] - shift
+    return torch.cat([-4.0 * (xw * xw - sep) * xw, shift - x[:, n:]], dim=1)
+
+
 @torch.no_grad()
-def _plain_loop(x0, dbs, tab, temb, weights, form, update, *, clip_model,
-                clip_score, prior_loc, prior_var, funnel_var_first):
+def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
+                scalars, clip_model, clip_score, prior_loc, prior_var):
     """The kernel's arithmetic in plain PyTorch: the same step, the same tables."""
     w_in, w_hid, b_hid, w_out, b_out = weights
     T = dbs.shape[0]
-    d = x0.shape[1]
     xs = torch.empty_like(dbs)
     x = x0.clone()
     for k in range(T):
@@ -201,22 +283,16 @@ def _plain_loop(x0, dbs, tab, temb, weights, form, update, *, clip_model,
         for l in range(w_hid.shape[0]):
             h = F.gelu(h @ w_hid[l] + b_hid[l])
         out = h @ w_out + b_out
-        first = x[:, :1]
-        inv_var_other = torch.exp(-first)
-        sq = (x[:, 1:] ** 2).sum(dim=1, keepdim=True)
-        target = torch.cat(
-            [
-                (-first / funnel_var_first - 0.5 * (d - 1)) + 0.5 * sq * inv_var_other,
-                -x[:, 1:] * inv_var_other,
-            ],
-            dim=1,
-        )
-        if form == "lerp":
-            prior = (prior_loc - x) / prior_var
-            lerp = _clip(prior + (target - prior) * w, clip_score)
-            u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
+        if form == "clipped":
+            u = _clip(out, clip_model)
         else:
-            u = _clip(out, clip_model) + sscore * _clip(target, clip_score)
+            target = _target_score(kind, x, target_tab, scalars)
+            if form == "lerp":
+                prior = (prior_loc - x) / prior_var
+                lerp = _clip(prior + (target - prior) * w, clip_score)
+                u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
+            else:
+                u = _clip(out, clip_model) + sscore * _clip(target, clip_score)
         if update == "em":
             x = x + (drift * x + diff * u) * dt + diff * dbs[k]
         else:  # the first three columns hold a, β²σ², σβ
@@ -228,26 +304,30 @@ def _plain_loop(x0, dbs, tab, temb, weights, form, update, *, clip_model,
 def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
     """Checked inputs, tables, weights and constants of one rollout."""
     update = "em" if exp is None else "exp"
-    form, sde, prior, target = resolve_step(ctrl, sde, update)
+    form, sde, prior, kind, target = resolve_step(ctrl, sde, update)
     T, B, d = dbs.shape
     if x0.shape != (B, d) or ts.shape != (T + 1,):
         raise ValueError(
             f"shape mismatch: x0 {tuple(x0.shape)}, ts {tuple(ts.shape)}, "
             f"noise {tuple(dbs.shape)}"
         )
+    if target is not None and target.dim != d:
+        raise ValueError(f"the target has dimension {target.dim}, the state {d}")
     x0 = x0.detach().contiguous()
     dbs = dbs.detach().contiguous()
     tab, temb = step_tables(ctrl, sde, ts.detach(), clips, exp)
     weights = _weights(ctrl.base_model)
-    tensors = [x0, dbs, tab, temb, *weights]
+    target_tab, scalars = target_table(kind, target, x0.device)
+    tensors = [x0, dbs, tab, temb, *weights, target_tab]
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
         raise TypeError("rollout inputs must be float32 on one device")
-    return tensors, _consts(ctrl, prior, target, clips), form, update
+    consts = dict(_consts(ctrl, prior, clips), kind=kind, scalars=scalars)
+    return tensors, consts, form, update
 
 
 def _run_plain(prepared):
-    (x0, dbs, tab, temb, *weights), consts, form, update = prepared
-    return _plain_loop(x0, dbs, tab, temb, weights, form, update, **consts)
+    (x0, dbs, tab, temb, *weights, target_tab), consts, form, update = prepared
+    return _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, **consts)
 
 
 def _check_device(x0):
@@ -271,26 +351,28 @@ def _launch(prepared, body: str = "shape"):
     asked for ("shape": the kernel picks); counts the launch under the body
     the kernel reports and returns (xs, x_T)."""
     tensors, c, form, update = prepared
-    x0, dbs, temb, w_hid = tensors[0], tensors[1], tensors[3], tensors[5]
+    x0, dbs, temb, w_hid, target_tab = tensors[0], tensors[1], tensors[3], tensors[5], tensors[9]
     T, B, d = dbs.shape
+    K = target_tab.numel() // (2 * d + 1)
     lib = build.library()
+    target = TARGET_CODES[c["kind"]]
     if update == "em":
         name, launch_fn = "rollout", lib.rollout_launch
         scalars = (c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"],
-                   c["funnel_var_first"], FORM_CODES[form])
+                   *c["scalars"], FORM_CODES[form], target)
     else:
         name, launch_fn = "rollout_exp", lib.rollout_exp_launch
-        scalars = (c["clip_model"], c["clip_score"], c["funnel_var_first"])
+        scalars = (c["clip_model"], c["clip_score"], *c["scalars"], target)
     xs = torch.empty_like(dbs)
     x_T = torch.empty_like(x0)
     used = ctypes.c_int(0)
     code = launch_fn(
         *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, temb.shape[1], w_hid.shape[0], T, *scalars, BODY_CODES[body],
+        B, d, temb.shape[1], w_hid.shape[0], T, K, *scalars, BODY_CODES[body],
         ctypes.byref(used), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     build.check(code, name)
-    build.count_launch(name, form, generic=used.value == BODY_CODES["generic"])
+    build.count_launch(name, form, c["kind"], generic=used.value == BODY_CODES["generic"])
     return xs, x_T
 
 
@@ -299,9 +381,10 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
     """Run all T = len(ts) - 1 EM steps of `sde` under `ctrl`; returns
     (xs, x_T). `dbs` holds the Brownian increments (T, B, d).
 
-    A LerpCtrl integrates its own SDE (`sde` may be omitted) and reads its
-    prior and target from its bound score methods; a ScoreCtrl needs the
-    `sde`. A CUDA tensor launches kernel 1, a CPU tensor runs the plain twin.
+    A LerpCtrl integrates its own SDE and reads its prior and target from
+    its bound score methods; a ClippedCtrl integrates `sde`, by default its
+    own; a ScoreCtrl needs the `sde`. A CUDA tensor launches kernel 1, a CPU
+    tensor runs the plain twin.
     """
     _check_device(x0)
     prepared = _prepare(ctrl, x0, ts, dbs, clips, sde)

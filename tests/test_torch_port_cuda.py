@@ -8,7 +8,10 @@ none; skip without a card. Run it there without the JAX conftest:
 Tolerances (float32 on the card, sums in another order):
 - rollouts (kernel 1 in both control forms, kernel 2), 12 steps: 1e-5
   absolute and relative, in the fast body (width 64, two hidden layers,
-  d <= 16) and in the generic one (any other shape);
+  d <= 16) and in the generic one (any other shape); each (form, target)
+  instance of the mixture, the wells and the score-free ClippedCtrl in
+  both bodies the same, for one step from the plain twin's state and over
+  12 steps of the configs' step size;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
   (1e-4 at the evaluation's eps = 1e-3, and for a plan of one normal
   entry), exactly 0 when every dual is -inf or every plan entry lies below
@@ -24,11 +27,13 @@ import numpy as np
 import pytest
 import torch
 
+from sde_sampler_torch.distr.delta import Delta
+from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
-from sde_sampler_torch.distr.gauss import IsotropicGauss
+from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import LerpCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
 from sde_sampler_torch.utils.common import get_timesteps
 
 pytestmark = pytest.mark.cuda
@@ -478,3 +483,133 @@ def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):
     row_blocks = -(-100_000 // 512)
     assert row_blocks * plan.splits >= 132 * 16
     assert plan.cols >= 1024
+
+
+# The (form, target) instances beyond the funnel's: form, target, d. The
+# mixtures: conf/target/gmm.yaml (grid, K = 9), the multi preset (K = 80)
+# and gauss_shift (K = 1, d = 1); the wells: mw (d = 5), dw_shift (d = 1)
+# and a MultiWell with Gaussian coordinates (d = 12).
+TARGET_INSTANCES = {
+    "lerp.gmm": ("lerp", lambda: GMM(name="grid"), 2),
+    "lerp.gmm.multi": ("lerp", lambda: GMM(name="multi", domain_tol=None), 2),
+    "lerp.gmm.d1": ("lerp", lambda: IsotropicGauss(dim=1, loc=3.0), 1),
+    "score.gmm": ("score", lambda: GMM(name="grid"), 2),
+    "score.wells": ("score", lambda: MultiWell(dim=5, n_double_wells=5, separation=4.0), 5),
+    "score.wells.d1": ("score", lambda: DoubleWell(separation=2.0, shift=1.5), 1),
+    "lerp.wells": ("lerp", lambda: MultiWell(dim=12, n_double_wells=5, separation=2.0), 12),
+    "clipped.none": ("clipped", None, 2),
+    "exp.gmm": ("exp", lambda: GMM(name="grid"), 2),
+    "exp.wells": ("exp", lambda: MultiWell(dim=5, n_double_wells=5, separation=4.0), 5),
+}
+
+
+def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
+    """The control of an instance with seeded weights, and its inputs: the
+    last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl
+    and ClippedCtrl, the PIS scaled BM for the ScoreCtrl), a cosine grid
+    with dt = 0 steps for kernel 2. Returns (prepare(x0, ts, noise), x0,
+    ts, noise)."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    form, make_target, d = spec or TARGET_INSTANCES[name]
+    sde = (ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0) if form == "score"
+           else VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0))
+    base = FourierMLP(dim=d)
+    if form == "clipped":
+        ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
+    else:
+        target = make_target().to(cuda)
+        # the score nets' last bias of conf/model/lerp.yaml (1) and score.yaml (0.01)
+        bias = 1.0 if form == "lerp" else 0.01
+        common = dict(base_model=base, target_score=target.score, clip_model=10.0,
+                      clip_score=10.0,
+                      score_model=TimeEmbed(dim_out=1, num_layers=4,
+                                            last_bias_init={"constant": bias}))
+        if form == "lerp":
+            ctrl = LerpCtrl(sde=sde, prior_score=IsotropicGauss(dim=d).score, **common)
+        else:
+            ctrl = ScoreCtrl(**common)
+    ctrl.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # give the zero-initialised last layer values
+        base.out_layer.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    ctrl = ctrl.to(cuda)
+    rng = np.random.default_rng(seed)
+    scale = 3.0 if "gmm" in name and d > 1 else 1.0
+    x0 = torch.tensor(rng.normal(size=(batch, d)) * scale, dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.normal(size=(T, batch, d)), dtype=torch.float32, device=cuda)
+    clips = {"clip_model": 5.0, "clip_score": 10.0}
+    if form == "exp":
+        ts = get_timesteps(0.0, 1.6, steps=T - 1, rescale_t="cosine", device=cuda)
+        return (lambda x, t, n: ro._prepare(ctrl, x, t, n, clips, exp=(0.9, 1.1))), x0, ts, noise
+    end = sde.terminal_t
+    ts = torch.linspace(end * (1 - T / 200), end, T + 1, device=cuda)
+    noise *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+    pass_sde = sde if form == "score" else None
+    return (lambda x, t, n: ro._prepare(ctrl, x, t, n, clips, pass_sde)), x0, ts, noise
+
+
+@pytest.mark.parametrize("body", ["fast", "generic"])
+@pytest.mark.parametrize("name", list(TARGET_INSTANCES))
+def test_target_instances_match_plain_twin(cuda, name, body):
+    """One step from the plain twin's own states (no compounding), then the
+    whole rollout, in the body asked for; counted under its target. The
+    fast body gives the generic body's bits. The nets are those of the
+    configs (a ScoreCtrl's score net starts near 0.01): with a score net
+    near 1, kernel 2's 12-step grid on mw's stiff wells (slope up to about
+    80) multiplies rounding differences by more than 2 a step."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    prepare, x0, ts, noise = instance_setup(cuda, name)
+    form = TARGET_INSTANCES[name][0]
+    kernel = "rollout_exp" if form == "exp" else "rollout"
+    key = f"{kernel}.{'score' if form == 'exp' else form}.{name.split('.')[1]}"
+    T = noise.shape[0]
+    before = build.FORM_LAUNCHES[key]
+    xs, x_T = ro._launch(prepare(x0, ts, noise), body)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[key] == before + 1
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    assert bool(torch.isfinite(xs_p).all())
+    for k in (0, T // 2, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
+        want = xT_p if k == T - 1 else xs_p[k + 1]
+        torch.testing.assert_close(x1, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    if body == "fast":
+        xs_g, xT_g = ro._launch(prepare(x0, ts, noise), "generic")
+        assert torch.equal(xs, xs_g) and torch.equal(x_T, xT_g)
+
+
+def test_wide_wells_take_the_generic_body_by_shape(cuda):
+    """mw_50d (d = 50) under DIS: the generic body, by shape, at the
+    rollout's tolerance."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    spec = ("lerp", lambda: MultiWell(dim=50, n_double_wells=5, separation=2.0), 50)
+    prepare, x0, ts, noise = instance_setup(cuda, "lerp.wells.d50", spec=spec)
+    before = build.FORM_LAUNCHES["rollout.lerp.generic"]
+    xs, x_T = ro._launch(prepare(x0, ts, noise))
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES["rollout.lerp.generic"] == before + 1
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+
+
+def test_unsupported_target_instances_raise_before_the_launch(cuda):
+    """No quiet fallback on the card: a ClippedCtrl under kernel 2 and a
+    target without an inline score raise."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    prepare, x0, ts, noise = instance_setup(cuda, "clipped.none")
+    ctrl = ClippedCtrl(base_model=FourierMLP(dim=2), sde=VP()).to(cuda)
+    with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
+        ro.fused_rollout_exp(ctrl, x0, ts, noise, 1.0, 1.0)
+    delta = ScoreCtrl(base_model=FourierMLP(dim=2).to(cuda),
+                      target_score=Delta(dim=2).to(cuda).score)
+    with pytest.raises(NotImplementedError, match="MultiWell target"):
+        ro.fused_rollout(delta, x0, ts, noise, sde=VP())

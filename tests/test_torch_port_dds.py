@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from sde_sampler_tpu.distr.double_well import MultiWell as JMultiWell
 from sde_sampler_tpu.distr.funnel import Funnel as JFunnel
 from sde_sampler_tpu.distr.gauss import IsotropicGauss as JIsoGauss
 from sde_sampler_tpu.losses.oc import BaseOCLoss as JBaseOCLoss
@@ -35,6 +36,7 @@ from sde_sampler_tpu.models.mlp import TimeEmbed as JTimeEmbed
 from sde_sampler_tpu.models.reparam import ScoreCtrl as JScoreCtrl
 from sde_sampler_tpu.ops.rollout_pallas import exp_integrator_step_fn, fused_sim_rollout
 from sde_sampler_torch import main as entry
+from sde_sampler_torch.distr.double_well import MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import IsotropicGauss
 from sde_sampler_torch.eq.sdes import VP
@@ -52,10 +54,12 @@ ALPHA, SIGMA = 0.9, 1.1
 _PARAMS = {}
 
 
-def score_pair(clip=10.0, scale_score=0.7, j_sde=None, sde=None, d=D):
-    """The funnel ScoreCtrl in both packages, sharing JAX's init (the last
-    layers get values so that every parameter is seen)."""
-    j_target, target = JFunnel(dim=d, n_reference_samples=100), Funnel(dim=d, n_reference_samples=100)
+def score_pair(clip=10.0, scale_score=0.7, j_sde=None, sde=None, d=D, targets=None):
+    """The funnel ScoreCtrl (or one on `targets`, a (JAX, port) pair) in both
+    packages, sharing JAX's init (the last layers get values so that every
+    parameter is seen)."""
+    j_target, target = targets or (
+        JFunnel(dim=d, n_reference_samples=100), Funnel(dim=d, n_reference_samples=100))
     common = dict(clip_model=clip, clip_score=clip, detach_score=False, scale_score=scale_score)
     j_ctrl = JScoreCtrl(
         base_model=JFourierMLP(dim=d, num_layers=4, channels=64),
@@ -86,18 +90,26 @@ def cosine_grid(steps=T, end=1.6):
     return ts
 
 
-def rollout_inputs(seed=1, batch=B):
+def rollout_inputs(seed=1, batch=B, d=D):
     rng = np.random.default_rng(seed)
-    x0 = rng.normal(size=(batch, D)).astype(np.float32)
-    noise = rng.normal(size=(T, batch, D)).astype(np.float32)
+    x0 = rng.normal(size=(batch, d)).astype(np.float32)
+    noise = rng.normal(size=(T, batch, d)).astype(np.float32)
     return x0, cosine_grid(), noise
 
 
-@pytest.mark.parametrize("clipped", [False, True])
-def test_exp_plain_rollout_matches_jax_kernel_and_scan(clipped):
-    j_ctrl, ctrl, params, _, _ = score_pair(clip=10.0 if clipped else None)
+@pytest.mark.parametrize("clipped,target", [(False, "funnel"), (True, "funnel"), (True, "mw")],
+                         ids=["False", "True", "score.wells"])
+def test_exp_plain_rollout_matches_jax_kernel_and_scan(clipped, target):
+    """"score.wells": the DDS ScoreCtrl on mw (MultiWell, d = 5, five wells
+    at separation 4), kernel 2's wells form."""
+    d = D if target == "funnel" else 5
+    j_ctrl, ctrl, params, _, _ = score_pair(
+        clip=10.0 if clipped else None, d=d,
+        targets=None if target == "funnel" else (
+            JMultiWell(dim=5, n_double_wells=5, separation=4.0),
+            MultiWell(dim=5, n_double_wells=5, separation=4.0)))
     clips = {"clip_model": 0.3, "clip_score": 2.0} if clipped else None
-    x0, ts, noise = rollout_inputs()
+    x0, ts, noise = rollout_inputs(d=d)
 
     def apply_ctrl(p, s, x):
         return j_ctrl.apply({"params": p}, s, x, clips=clips)
@@ -144,19 +156,19 @@ def test_rollouts_raise_on_unsupported_controls_and_targets():
     _, ctrl, _, _, _ = score_pair()
     x0, ts, noise = map(torch.from_numpy, rollout_inputs())
     sde = VP()
+    # the score-free ClippedCtrl has kernel 1's form only
     plain = ClippedCtrl(base_model=FourierMLP(dim=D), sde=sde)
-    with pytest.raises(NotImplementedError, match="LerpCtrl or a ScoreCtrl"):
+    with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
         fused_rollout_exp(plain, x0, ts, noise, ALPHA, SIGMA)
-    with pytest.raises(NotImplementedError, match="LerpCtrl or a ScoreCtrl"):
-        fused_rollout(plain, x0, ts, noise, sde=sde)
     prior = IsotropicGauss(dim=D)
     lerp = LerpCtrl(base_model=FourierMLP(dim=D), sde=sde, prior_score=prior.score,
                     target_score=Funnel(dim=D, n_reference_samples=10).score)
     with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
         fused_rollout_exp(lerp, x0, ts, noise, ALPHA, SIGMA)
-    gauss_target = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=prior.score)
-    with pytest.raises(NotImplementedError, match="Funnel target"):
-        fused_rollout_exp(gauss_target, x0, ts, noise, ALPHA, SIGMA)
+    # a target without an inline score: a bare function
+    bare = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=lambda x: -x)
+    with pytest.raises(NotImplementedError, match="MultiWell target"):
+        fused_rollout_exp(bare, x0, ts, noise, ALPHA, SIGMA)
     wide = ScoreCtrl(base_model=FourierMLP(dim=D), score_model=TimeEmbed(dim_out=D),
                      target_score=ctrl.target_score)
     with pytest.raises(NotImplementedError, match="one output"):

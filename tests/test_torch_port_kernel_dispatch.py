@@ -17,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from sde_sampler_torch.distr.double_well import MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
-from sde_sampler_torch.distr.gauss import IsotropicGauss
+from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
 from sde_sampler_torch.eq.sdes import VP
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import LerpCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
 from sde_sampler_torch.ops import build
 from sde_sampler_torch.ops import rollout as ro
 from sde_sampler_torch.ops import sinkhorn as sk
@@ -123,15 +124,68 @@ def test_rollout_launch_counts_the_body_the_kernel_reports(fake_library, form, r
     xs, x_T = ro._launch(prepared)
     (args,) = fake_library.calls
     assert len(args) == len(build.SIGNATURES[f"{name}_launch"])
-    # B, d, C, H, T after the eleven pointers
-    assert args[11:16] == (5, 7, 16, 1, 5)
+    # B, d, C, H, T, K after the twelve pointers
+    assert args[12:18] == (5, 7, 16, 1, 5, 0)
     assert args[-3] == ro.BODY_CODES["shape"]
+    assert args[-4] == ro.TARGET_CODES["funnel"]
     if form != "exp":
-        assert args[-4] == ro.FORM_CODES[form]
+        assert args[-5] == ro.FORM_CODES[form]
     assert xs.shape == (5, 5, 7) and x_T.shape == (5, 7)
     assert build.LAUNCHES[name] == launches + 1
     assert build.FORM_LAUNCHES[key] == before[key] + 1
+    assert build.FORM_LAUNCHES[f"{key}.funnel"] == before[f"{key}.funnel"] + 1
     assert build.FORM_LAUNCHES[f"{key}.generic"] == before[f"{key}.generic"] + (reported == "generic")
+
+
+@pytest.mark.parametrize("case", ["lerp.gmm", "score.wells", "exp.gmm", "clipped.none"])
+def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
+    """The mixture's table (loc, 1/scale², log-weight constants) goes by
+    pointer with its K; the wells' count, separation and shift and the
+    funnel's variance by value; the launch counts under its target."""
+    form, target = case.split(".")
+    d = 2
+    x0, ts, dbs = rollout_inputs(d)
+    sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+    mixture = GMM(dim=d, loc=[[1.0, 2.0], [-1.0, 0.5], [0.0, 0.0]],
+                  scale=[[0.5, 1.0], [2.0, 1.0], [1.0, 1.0]],
+                  mixture_weights=[1.0, 2.0, 1.0], domain_tol=None)
+    wells = MultiWell(dim=d, n_double_wells=1, separation=3.0, shift=0.5)
+    distr = mixture if target == "gmm" else wells
+    if form == "lerp":
+        ctrl = lerp_ctrl(d)
+        ctrl.target_score = distr.score
+        prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    elif form == "clipped":
+        ctrl = ClippedCtrl(base_model=FourierMLP(dim=d), clip_model=3.0, sde=sde)
+        prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    else:
+        ctrl = ScoreCtrl(base_model=FourierMLP(dim=d), target_score=distr.score)
+        exp = (1.0, 1.0) if form == "exp" else None
+        prepared = ro._prepare(ctrl, x0, ts, dbs, None, None if exp else sde, exp=exp)
+    kernel = "rollout_exp" if form == "exp" else "rollout"
+    form_key = "score" if form == "exp" else form
+    key = f"{kernel}.{form_key}.{target}"
+    before = build.FORM_LAUNCHES[key]
+    ro._launch(prepared)
+    (args,) = fake_library.calls
+    table = prepared[0][9]
+    assert args[9] == table.data_ptr()
+    K = 3 if target == "gmm" else 0
+    assert args[17] == K
+    assert args[-4] == ro.TARGET_CODES[target]
+    if form != "exp":
+        assert args[-5] == ro.FORM_CODES[form]
+    scalars = args[-8:-5] if form != "exp" else args[-7:-4]
+    if target == "gmm":
+        want = torch.cat([mixture.loc.reshape(-1), (1 / mixture.scale**2).reshape(-1),
+                          torch.log(torch.tensor([0.25, 0.5, 0.25]))
+                          - torch.log(mixture.scale).sum(-1)])
+        torch.testing.assert_close(table, want)
+    elif target == "wells":
+        assert scalars == (1.0, 3.0, 0.5) and table.numel() == 0
+    else:
+        assert table.numel() == 0
+    assert build.FORM_LAUNCHES[key] == before + 1
 
 
 @pytest.mark.parametrize("body", ["fast", "generic"])

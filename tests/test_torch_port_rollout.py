@@ -2,12 +2,21 @@
 
 On the CPU `fused_rollout` runs its plain twin (`rollout_plain`), which
 must match the JAX kernel `fused_sim_rollout` in interpret mode and the
-lax.scan reference on the flagship stack (LerpCtrl over FourierMLP and a
-TimeEmbed score net, VP SDE, funnel target) at B 32, T 12, with the
-parameters carried across and the same numpy noise. Float32 on both
-sides, summed in another order: atol 2e-5 + rtol 1e-5, the tolerance of
-the JAX package's own kernel test (tests/test_rollout_pallas.py:54).
-The CUDA kernel is held against the twin in tests/test_torch_port_cuda.py.
+lax.scan reference at B 32, T 12, with the parameters carried across and
+the same numpy noise: the flagship stack (LerpCtrl over FourierMLP and a
+TimeEmbed score net, VP SDE, funnel target), and each other (form, target)
+case of the kernel: the LerpCtrl on the grid mixture (d = 2) and on a
+MultiWell with Gaussian coordinates (d = 6), the score-free ClippedCtrl,
+and at d = 1, where the JAX kernel refuses the shape and only its scan
+runs, the PIS ScoreCtrl on the shifted double well and the LerpCtrl on the
+shifted Gaussian. Float32 on both sides, summed in another order: atol
+2e-5 + rtol 1e-5, the tolerance of the JAX package's own kernel test
+(tests/test_rollout_pallas.py:54). The new cases run the last T steps of
+the configs' 200-step grid, where the lerp weight is near 1: at the step
+of a 12-step grid the quartic wells' score, of slope up to about 100,
+makes each EM step multiply rounding differences by 2 to 3, and the JAX
+kernel and its own scan part by 2.5e-4 after 12 steps. The CUDA kernel is held against the
+twin in tests/test_torch_port_cuda.py.
 """
 import jax
 import jax.numpy as jnp
@@ -15,53 +24,147 @@ import numpy as np
 import pytest
 import torch
 
+from sde_sampler_tpu.distr.double_well import DoubleWell as JDoubleWell
+from sde_sampler_tpu.distr.double_well import MultiWell as JMultiWell
+from sde_sampler_tpu.distr.gauss import GMM as JGMM
+from sde_sampler_tpu.distr.gauss import IsotropicGauss as JIsoGauss
+from sde_sampler_tpu.eq.sdes import VP as JVP
+from sde_sampler_tpu.eq.sdes import ScaledBM as JScaledBM
+from sde_sampler_tpu.models.mlp import FourierMLP as JFourierMLP
+from sde_sampler_tpu.models.mlp import TimeEmbed as JTimeEmbed
+from sde_sampler_tpu.models.reparam import ClippedCtrl as JClippedCtrl
+from sde_sampler_tpu.models.reparam import LerpCtrl as JLerpCtrl
+from sde_sampler_tpu.models.reparam import ScoreCtrl as JScoreCtrl
 from sde_sampler_tpu.ops.rollout_pallas import fused_sim_rollout, sde_step_fn
-from sde_sampler_torch.models.mlp import FourierMLP
-from sde_sampler_torch.models.reparam import ClippedCtrl
-from sde_sampler_torch.ops.rollout import fused_rollout
+from sde_sampler_torch.distr.base import Distribution
+from sde_sampler_torch.distr.delta import Delta
+from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
+from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.eq.sdes import VP, ScaledBM
+from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
+from sde_sampler_torch.ops.rollout import fused_rollout, fused_rollout_exp
+from sde_sampler_torch.utils.params import load_flax_params
 
 from test_torch_port_models import flagship_pair
 
 D, B, T = 10, 32, 12
 
+# the targets of the cases, in both packages: (JAX, port, d)
+TARGETS = {
+    "gmm": lambda: (JGMM(name="grid"), GMM(name="grid"), 2),
+    "mw": lambda: (JMultiWell(dim=6, n_double_wells=2, separation=2.0, shift=0.5),
+                   MultiWell(dim=6, n_double_wells=2, separation=2.0, shift=0.5), 6),
+    "dw_shift": lambda: (JDoubleWell(separation=2.0, shift=1.5),
+                         DoubleWell(separation=2.0, shift=1.5), 1),
+    "gauss_shift": lambda: (JIsoGauss(dim=1, loc=3.0, scale=1.0),
+                            IsotropicGauss(dim=1, loc=3.0, scale=1.0), 1),
+}
+VP_KW = dict(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
+BM_KW = dict(diff_coeff=0.4472135954999579, terminal_t=5.0)
 
-def inputs(seed=1):
+
+def ctrl_pair(form, target):
+    """A control of `form` on `target` in both packages (the model configs'
+    nets, conf/model/{lerp,score,clipped}.yaml), sharing a perturbed JAX
+    init; returns (JAX control, port control, params, d, terminal time)."""
+    j_target, p_target, d = TARGETS[target]()
+    nets = dict(num_layers=4, channels=64)
+    if form == "score":  # PIS: scaled BM
+        j_sde, sde = JScaledBM(**BM_KW), ScaledBM(**BM_KW)
+    else:
+        j_sde, sde = JVP(**VP_KW), VP(**VP_KW)
+    if form == "clipped":
+        j_ctrl = JClippedCtrl(base_model=JFourierMLP(dim=d, **nets), clip_model=10.0, sde=j_sde)
+        ctrl = ClippedCtrl(base_model=FourierMLP(dim=d, **nets), clip_model=10.0, sde=sde)
+    else:
+        cls, j_cls = (LerpCtrl, JLerpCtrl) if form == "lerp" else (ScoreCtrl, JScoreCtrl)
+        common = dict(clip_model=10.0, clip_score=10.0, detach_score=False)
+        extra, j_extra = {}, {}
+        if form == "lerp":
+            extra = dict(prior_score=IsotropicGauss(dim=d).score)
+            j_extra = dict(prior_score=JIsoGauss(dim=d).score)
+        j_ctrl = j_cls(
+            base_model=JFourierMLP(dim=d, **nets),
+            score_model=JTimeEmbed(dim_out=1, **nets, last_bias_init={"constant": 1.0}),
+            sde=j_sde, target_score=j_target.score, **common, **j_extra,
+        )
+        ctrl = cls(
+            base_model=FourierMLP(dim=d, **nets),
+            score_model=TimeEmbed(dim_out=1, **nets, last_bias_init={"constant": 1.0}),
+            sde=sde, target_score=p_target.score, **common, **extra,
+        )
+    params = j_ctrl.init(jax.random.PRNGKey(0), jnp.zeros(()), jnp.zeros((2, d)))["params"]
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.05 * jax.random.normal(jax.random.PRNGKey(1), a.shape), params
+    )
+    load_flax_params(ctrl, jax.tree_util.tree_map(np.asarray, params))
+    return j_ctrl, ctrl, params, d, sde.terminal_t
+
+
+def inputs(seed=1, d=D, terminal_t=1.0, scale=1.0, start=0.0):
+    """x0 (B, d) at standard deviation `scale`, a grid of T steps from
+    `start` to `terminal_t`, and Brownian increments on it."""
     rng = np.random.default_rng(seed)
-    x0 = rng.normal(size=(B, D)).astype(np.float32)
-    ts = np.linspace(0.0, 1.0, T + 1).astype(np.float32)
-    dbs = (rng.normal(size=(T, B, D)) * np.sqrt(np.diff(ts))[:, None, None]).astype(
+    x0 = (rng.normal(size=(B, d)) * scale).astype(np.float32)
+    ts = np.linspace(start, terminal_t, T + 1).astype(np.float32)
+    dbs = (rng.normal(size=(T, B, d)) * np.sqrt(np.diff(ts))[:, None, None]).astype(
         np.float32
     )
     return x0, ts, dbs
 
 
-def jax_rollouts(j_ctrl, params, x0, ts, dbs, clips):
+def jax_rollouts(j_ctrl, params, x0, ts, dbs, clips, kernel=True):
     def apply_ctrl(p, s, x):
         return j_ctrl.apply({"params": p}, s, x, clips=clips)
 
     sde = j_ctrl.sde
     step = sde_step_fn(apply_ctrl, drift=sde.drift, diff=sde.diff)
     x0, ts, dbs = map(jnp.asarray, (x0, ts, dbs))
-    kernel = fused_sim_rollout(step, params, x0, ts, dbs, block_b=16, interpret=True)
 
     def body(x, inp):
         s, t, db = inp
         return step(params, s, t, x, db), x
 
     x_T, xs = jax.lax.scan(body, x0, (ts[:-1], ts[1:], dbs))
-    return kernel, (xs, x_T)
+    if not kernel:  # the JAX kernel refuses d = 1
+        return [(xs, x_T)]
+    return [fused_sim_rollout(step, params, x0, ts, dbs, block_b=16, interpret=True),
+            (xs, x_T)]
 
 
-@pytest.mark.parametrize("clips", [None, {"clip_model": 0.3, "clip_score": 2.0}])
-def test_plain_rollout_matches_jax_kernel_and_scan(clips):
-    j_ctrl, ctrl, params = flagship_pair()
-    x0, ts, dbs = inputs()
-    (xs_k, xT_k), (xs_s, xT_s) = jax_rollouts(j_ctrl, params, x0, ts, dbs, clips)
+CASES = [
+    pytest.param("lerp", "funnel", None, id="clips0"),
+    pytest.param("lerp", "funnel", {"clip_model": 0.3, "clip_score": 2.0}, id="clips1"),
+    pytest.param("lerp", "gmm", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.gmm"),
+    pytest.param("clipped", "gmm", {"clip_model": 0.3}, id="clipped.gmm"),
+    pytest.param("lerp", "mw", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.wells"),
+    pytest.param("score", "dw_shift", {"clip_model": 5.0, "clip_score": 10.0},
+                 id="score.wells.d1"),
+    pytest.param("lerp", "gauss_shift", None, id="lerp.gmm.d1"),
+]
+
+
+@pytest.mark.parametrize("form,target,clips", CASES)
+def test_plain_rollout_matches_jax_kernel_and_scan(form, target, clips):
+    if target == "funnel":
+        j_ctrl, ctrl, params = flagship_pair()
+        d, terminal_t = D, 1.0
+    else:
+        j_ctrl, ctrl, params, d, terminal_t = ctrl_pair(form, target)
+    # the mixture's states spread over its modes, 5 apart; the new cases
+    # take the last T steps of the configs' 200-step grid
+    start = 0.0 if target == "funnel" else terminal_t * (1 - T / 200)
+    x0, ts, dbs = inputs(d=d, terminal_t=terminal_t, scale=3.0 if target == "gmm" else 1.0,
+                         start=start)
+    wants = jax_rollouts(j_ctrl, params, x0, ts, dbs, clips, kernel=d > 1)
     xs, x_T = fused_rollout(
-        ctrl, torch.from_numpy(x0), torch.from_numpy(ts), torch.from_numpy(dbs), clips
+        ctrl, torch.from_numpy(x0), torch.from_numpy(ts), torch.from_numpy(dbs), clips,
+        sde=ctrl.sde if form == "score" else None,
     )
     assert torch.equal(xs[0], torch.from_numpy(x0))
-    for want_xs, want_xT in ((xs_k, xT_k), (xs_s, xT_s)):
+    assert bool(torch.isfinite(xs).all())
+    for want_xs, want_xT in wants:
         np.testing.assert_allclose(xs.numpy(), np.asarray(want_xs), atol=2e-5, rtol=1e-5)
         np.testing.assert_allclose(x_T.numpy(), np.asarray(want_xT), atol=2e-5, rtol=1e-5)
 
@@ -84,11 +187,39 @@ def test_plain_twin_matches_the_generic_loop_with_hard_constraint():
     torch.testing.assert_close(x_T, x, atol=2e-5, rtol=1e-5)
 
 
+class Ring(Distribution):
+    """A target without an inline score in the kernels (autograd score)."""
+
+    def unnorm_log_prob(self, x):
+        return -((x.norm(dim=-1, keepdim=True) - 2.0) ** 2)
+
+
 def test_rollout_raises_on_an_unsupported_step():
+    """Controls, targets and updates the kernels lack raise on the CPU as
+    on the card: no plain fallback."""
     _, ctrl, _ = flagship_pair()
     x0, ts, dbs = map(torch.from_numpy, inputs())
-    plain = ClippedCtrl(base_model=FourierMLP(dim=D), sde=ctrl.sde)
-    with pytest.raises(NotImplementedError, match="LerpCtrl"):
-        fused_rollout(plain, x0, ts, dbs)
+    sde = ctrl.sde
+
+    class Subclassed(LerpCtrl):
+        pass
+
+    other = Subclassed(base_model=FourierMLP(dim=D), sde=sde, prior_score=ctrl.prior_score,
+                       target_score=ctrl.target_score)
+    with pytest.raises(NotImplementedError, match="LerpCtrl, a ScoreCtrl or a ClippedCtrl"):
+        fused_rollout(other, x0, ts, dbs)
+    # the score-free ClippedCtrl runs the EM kernel only
+    plain = ClippedCtrl(base_model=FourierMLP(dim=D), sde=sde)
+    assert fused_rollout(plain, x0, ts, dbs)[0].shape == dbs.shape
+    with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
+        fused_rollout_exp(plain, x0, ts, dbs, 1.0, 1.0)
+    # targets without an inline score, including subclasses of the supported ones
+    for target in (Ring(dim=D), Delta(dim=D, loc=0.5)):
+        score = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=target.score)
+        with pytest.raises(NotImplementedError, match="MultiWell target"):
+            fused_rollout(score, x0, ts, dbs, sde=sde)
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_rollout(ctrl, x0[:5], ts, dbs)
+    mixture = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=GMM(name="grid").score)
+    with pytest.raises(ValueError, match="dimension 2"):
+        fused_rollout(mixture, x0, ts, dbs, sde=sde)
