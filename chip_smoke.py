@@ -13,7 +13,8 @@ prints nvcc's register and spill report. Phases:
            its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
            grid, kernel 1's generic body (a 32-wide net), each instance of
-           the mixture, wells and ClippedCtrl forms (INSTANCES), softmin and
+           the mixture, wells, ClippedCtrl and LerpTargetCtrl forms
+           (INSTANCES; the LerpTargetCtrl's in both bodies), softmin and
            transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
            edges at 100k (a column split of -inf duals, rows that see only
            -inf) and transport's (a column split of -inf duals, every dual
@@ -30,11 +31,18 @@ prints nvcc's register and spill report. Phases:
                         257 cosine steps, ScoreCtrl, 220 steps, 100k eval;
              gmm_dis    the grid mixture (d = 2, K = 9) as dis, 220 steps,
                         100k evaluation;
+             gmm_bridge_diff_init  the mixture under the Bridge with a
+                        learned inference control (a ClippedCtrl, its exact
+                        divergence in phase 2 and at every evaluation step),
+                        220 steps, 100k evaluation;
              dds_euler, pis (funnel), mw_dds (d = 5, kernel 2),
-             mw_50d_dis (d = 50, the generic body), dw_shift_pis (d = 1)
-             and gmm_dis_no_score (the ClippedCtrl): 20 steps, 10k eval;
-  timing   time the DIS, DDS and mixture DIS optimizer steps (with a
-           profiler breakdown), each kernel and instance through its
+             mw_50d_dis (d = 50, the generic body), dw_shift_pis (d = 1),
+             gmm_dis_no_score (the ClippedCtrl) and gmm_bridge (the
+             LerpTargetCtrl on the scaled BM, a LerpPriorCtrl inference
+             control): 20 steps, 10k eval;
+  timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
+           steps (with a profiler breakdown; for the Bridge also the card
+           time of phase 2's divergence), each kernel and instance through its
            wrapper, alone and as its plain version at its path's shapes
            (the funnel rollouts in each body), softmin and transport at
            100k for d = 2 and 50, and one full Sinkhorn evaluation, whose
@@ -145,18 +153,25 @@ PATHS = {
     "gmm_dis_no_score": dict(target="gmm", solver="dis_no_score",
                              kernels=("rollout.clipped.none", *SINKHORN),
                              steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_bridge_diff_init": dict(target="gmm", solver="bridge_diff_init",
+                                 kernels=("rollout.lerp.gmm", *SINKHORN),
+                                 steps=None, eval=None, log_z=LOG_Z_KEYS),
+    "gmm_bridge": dict(target="gmm", solver="bridge", kernels=("rollout.lerp_target.gmm", *SINKHORN),
+                       steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
 }
 # The rollout instances beyond the funnel's, each checked against its plain
 # twin and timed at the shapes of the path that runs it (gmm_dis,
-# gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis): label (the kernels
-# line's name) -> control form ("exp": kernel 2's) and target
-# (conf/target/*.yaml).
+# gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis, gmm_bridge): label
+# (the kernels line's name) -> control form ("exp": kernel 2's) and target
+# (conf/target/*.yaml); `bodies`: also checked in the generic body, which
+# must give the fast body's bits.
 INSTANCES = {
     "rollout.lerp.gmm": dict(form="lerp", target="gmm"),
     "rollout.clipped.none": dict(form="clipped", target="gmm"),
     "rollout.score.wells": dict(form="score", target="dw_shift"),
     "rollout_exp.score.wells": dict(form="exp", target="mw"),
     "rollout.lerp.wells": dict(form="lerp", target="mw_50d"),
+    "rollout.lerp_target.gmm": dict(form="lerp_target", target="gmm", bodies=True),
 }
 
 
@@ -297,15 +312,16 @@ def conf_target(name: str, device):
 
 # flops of a form's control and update, and of a target's inline score, per
 # coordinate (rollout_work); a mixture's are counted by its K
-FORM_FLOPS = {"lerp": 17, "score": 12, "exp": 12, "clipped": 8}
+FORM_FLOPS = {"lerp": 17, "lerp_target": 13, "score": 12, "exp": 12, "clipped": 8}
 TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0}
 
 
 def seeded_instance(device, label, seed):
     """A rollout instance of INSTANCES at its path's shapes, with weights and
     inputs from a numpy seed: the path's control (conf/model/*.yaml, clips
-    10/10), SDE and grid, x0 from its prior (0 for the PIS Dirac). Returns
-    (run, plain, prepared, x0, ts, noise, work), run and plain taking
+    10/10), SDE (conf/sde/*.yaml) and grid, x0 from its prior (0 for the
+    PIS Dirac). Returns (run, plain, prepare, x0, ts, noise, work), run,
+    plain and prepare (the checked inputs and tables of a launch) taking
     (x0, ts, noise)."""
     import numpy as np
     import torch
@@ -313,7 +329,7 @@ def seeded_instance(device, label, seed):
     from sde_sampler_torch.distr.gauss import IsotropicGauss
     from sde_sampler_torch.eq.sdes import VP, ScaledBM
     from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-    from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
+    from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, LerpTargetCtrl, ScoreCtrl
     from sde_sampler_torch.ops import rollout as ro
     from sde_sampler_torch.utils.common import get_timesteps
 
@@ -331,6 +347,10 @@ def seeded_instance(device, label, seed):
         ctrl = LerpCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
                         prior_score=IsotropicGauss(dim=d).score, target_score=target.score,
                         **clips)
+    elif form == "lerp_target":  # solver=bridge: conf/sde/bm.yaml
+        sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
+        ctrl = LerpTargetCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
+                              target_score=target.score, **clips)
     elif form == "clipped":
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
         ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
@@ -356,18 +376,19 @@ def seeded_instance(device, label, seed):
     if form == "exp":
         run = lambda x, t, n: ro.fused_rollout_exp(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
         plain = lambda x, t, n: ro.rollout_exp_plain(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
-        prepared = ro._prepare(ctrl, x0, ts, noise, clips, exp=(DDS_ALPHA, DDS_SIGMA))
+        prepare = lambda x, t, n: ro._prepare(ctrl, x, t, n, clips, exp=(DDS_ALPHA, DDS_SIGMA))
     else:
         noise *= torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
         pass_sde = sde if form == "score" else None
         run = lambda x, t, n: ro.fused_rollout(ctrl, x, t, n, clips, sde=pass_sde)
         plain = lambda x, t, n: ro.rollout_plain(ctrl, x, t, n, clips, sde=pass_sde)
-        prepared = ro._prepare(ctrl, x0, ts, noise, clips, pass_sde)
+        prepare = lambda x, t, n: ro._prepare(ctrl, x, t, n, clips, pass_sde)
+    prepared = prepare(x0, ts, noise)
     kind = prepared[1]["kind"]
     K = prepared[0][9].numel() // (2 * d + 1)
     work = rollout_work(BATCH, T, d, WIDTH, HIDDEN,
                         per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K)
-    return run, plain, prepared, x0, ts, noise, work
+    return run, plain, prepare, x0, ts, noise, work
 
 
 def check_rollout(name, run, plain, x0, ts, noise, report_key, report, width=WIDTH):
@@ -506,11 +527,26 @@ def phase_kernels(device, report):
     print(f"kernel rollout: fast vs generic body at width {WIDTH}: max |diff| "
           f"{r['fast_vs_generic_body']:.3e}", flush=True)
 
-    # the instances of the mixture, the wells and the ClippedCtrl, each at
-    # its path's shapes
+    # the instances of the mixture, the wells, the ClippedCtrl and the
+    # LerpTargetCtrl, each at its path's shapes
     for i, label in enumerate(INSTANCES):
-        run, plain, _, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
+        run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
         check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
+        if not INSTANCES[label].get("bodies"):
+            continue
+        # the generic body against the plain twin, and the fast body's bits
+        check_rollout(f"{label}.generic", lambda x, t, n: ro._launch(prepare(x, t, n), "generic"),
+                      plain, x0i, tsi, noisei, f"{label}.generic", report)
+        k = report[label]
+        k["generic_max_abs_err"] = report.pop(f"{label}.generic")["max_abs_err"]
+        k["max_abs_err"] = max(k["max_abs_err"], k["generic_max_abs_err"])
+        prepared = prepare(x0i, tsi, noisei)
+        fast, slow = ro._launch(prepared, "fast"), ro._launch(prepared, "generic")
+        k["fast_vs_generic_body"] = max(float((a - b).abs().max()) for a, b in zip(fast, slow))
+        print(f"kernel {label}: fast vs generic body at its path's shapes: max |diff| "
+              f"{k['fast_vs_generic_body']:.3e}", flush=True)
+        if k["fast_vs_generic_body"] != 0.0:
+            fail(f"{label}: the fast and generic bodies give different bits")
 
     for name in ("softmin", "transport"):
         report[name] = {"max_abs_err": 0.0}
@@ -657,6 +693,8 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
     summary = {k: final[k] for k in keys + ["eval/n_nonfinite_rnd", "eval/n_filtered_rnd"]}
     summary["train/loss_last"] = losses[-1] if losses else None
     summary["clip_model"] = solver_obj.scheduled_params["generative_ctrl.clip_model"]
+    if solver_obj.inference_ctrl is not None:
+        summary["inference_clip_model"] = solver_obj.scheduled_params["inference_ctrl.clip_model"]
     summary["log_norm_const"] = solver_obj.target.log_norm_const
     print(f"path {path} result: " + json.dumps(summary), flush=True)
     if not losses or not all(math.isfinite(x) for x in losses):
@@ -683,24 +721,29 @@ def phase_main(args, report):
     return solvers
 
 
-def step_breakdown(solver, step_ms: float, n: int = 5) -> dict:
-    """Device time per optimizer step by kernel name (torch.profiler), and
-    the device's idle share of the unprofiled step time."""
+def kernel_ms(fn, n: int = 5) -> dict[str, float]:
+    """Device ms per call of fn() by kernel name (torch.profiler)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            solver.step()
+            fn()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
     per_kernel: dict[str, float] = {}
     for e in prof.events():
         # kernels only: device-side events that are not annotation ranges
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    return per_kernel
+
+
+def step_breakdown(solver, step_ms: float, n: int = 5) -> dict:
+    """Device time per optimizer step by kernel name (torch.profiler), and
+    the device's idle share of the unprofiled step time."""
+    per_kernel = kernel_ms(solver.step, n)
     busy_ms = sum(per_kernel.values())
     top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12])
     idle = 1.0 - busy_ms / step_ms if busy_ms else None
@@ -708,6 +751,35 @@ def step_breakdown(solver, step_ms: float, n: int = 5) -> dict:
           f"(idle share {idle if idle is None else round(idle, 4)}); top kernels "
           + json.dumps({k[:60]: round(v, 4) for k, v in top.items()}), flush=True)
     return {"device_busy_ms": busy_ms, "idle_share": idle, "top_ms": top}
+
+
+def divergence_share(solver, busy_ms: float) -> dict:
+    """Card time of phase 2's divergence in a Bridge step: the inference
+    control and its exact divergence on every (T, B) state, forward and
+    backward, as the two-phase loss runs them (torch.profiler), on states of
+    the path's shapes; and its share of the step's busy time."""
+    import torch
+
+    from sde_sampler_torch.losses.oc import divx_exact
+
+    ts, B, d = solver.train_ts, solver.train_batch_size, solver.target.dim
+    T = ts.shape[0] - 1
+    s = ts[:-1].reshape(T, 1, 1)
+    xs = 3.0 * torch.randn((T, B, d), device=ts.device, generator=solver.generator)
+    ctrl, clips = solver.inference_ctrl, solver.current_clips().get("inference_ctrl")
+
+    def forward_backward():
+        div, value = divx_exact(lambda t, x: ctrl(t, x, clips=clips), s, xs)
+        (div.sum() + value.sum()).backward()
+        ctrl.zero_grad(set_to_none=True)
+
+    forward_backward()
+    ms = sum(kernel_ms(forward_backward).values())
+    share = ms / busy_ms if busy_ms else None
+    print(f"phase 2's divergence (inference control and its exact divergence on {T} x {B} "
+          f"states, forward and backward): device busy {ms:.3f} ms, "
+          f"{share if share is None else round(share, 4)} of the step's busy time", flush=True)
+    return {"device_busy_ms": ms, "share_of_step_busy": share}
 
 
 def time_steps(solver, n_em_steps: int, label: str) -> dict:
@@ -740,13 +812,17 @@ def phase_timing(solvers, device, report):
     from sde_sampler_torch.ops import rollout as ro
     from sde_sampler_torch.ops import sinkhorn as sk
 
-    # optimizer steps of the DIS, DDS and mixture DIS paths (the trained
-    # solvers, more steps)
+    # optimizer steps of the DIS, DDS, mixture DIS and mixture Bridge paths
+    # (the trained solvers, more steps)
     if solvers is not None:
         report["step"] = time_steps(solvers["dis"], STEPS, "DIS")
         dds = solvers["dds"]
         report["dds_step"] = time_steps(dds, dds.train_ts.shape[0] - 1, "DDS")
         report["gmm_step"] = time_steps(solvers["gmm_dis"], STEPS, "GMM DIS")
+        bridge = solvers["gmm_bridge_diff_init"]
+        report["bridge_step"] = time_steps(bridge, STEPS, "GMM Bridge (diff init)")
+        report["bridge_step"]["divergence"] = divergence_share(
+            bridge, report["bridge_step"]["breakdown"]["device_busy_ms"])
 
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
@@ -779,8 +855,9 @@ def phase_timing(solvers, device, report):
     # the new instances at their paths' shapes: through the wrapper, the
     # kernel alone in the body its shape takes, the plain twin
     for i, label in enumerate(INSTANCES):
-        run, plain, prepared, x0i, tsi, noisei, work = seeded_instance(
+        run, plain, prepare, x0i, tsi, noisei, work = seeded_instance(
             device, label, SEED + 10 + i)
+        prepared = prepare(x0i, tsi, noisei)
         k = report[label]
         k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=20, warmup=2)
         k["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=20, warmup=2)

@@ -11,6 +11,10 @@
 //     u = clip(FourierMLP(s, x), clip_model) * ctrl_scale[k]
 //         + diff[k] * sscore[k] * clip(lerp(prior score, target score; w[k]),
 //                                     clip_score)
+//   lerp_target (LerpTargetCtrl, the generative control of solver=bridge;
+//   kernel 1 only; no prior):
+//     u = clip(FourierMLP(s, x), clip_model) * ctrl_scale[k]
+//         + diff[k] * sscore[k] * clip(w[k] * target score, clip_score)
 //   score (ScoreCtrl, PIS / EulerDDS / DDS):
 //     u = clip(FourierMLP(s, x), clip_model) + sscore[k] * clip(target score,
 //                                                              clip_score)
@@ -54,7 +58,8 @@
 // start s = ts[k] is computed before the launch by the wrapper
 // (ops/rollout.py) as tables: the FourierMLP time-embedding row folded with
 // the input_embed bias (T, C), and six scalars per step (T, 6): drift
-// coefficient, diffusion, dt, lerp weight, sscore, ctrl scale for EM, or
+// coefficient, diffusion, dt, lerp weight (t / T for the lerp forms),
+// sscore, ctrl scale for EM, or
 // a, b2s2, sb, unused, sscore, unused for the exponential integrator.
 // sscore is scale_score * clip(score_net(s), clip_model) (0 for a
 // ClippedCtrl). xs[k] receives the state before step k (xs[0] = x0) and
@@ -95,7 +100,8 @@
 //
 // This header holds both bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
-// (rollout_lerp.cu, rollout_score.cu, rollout_clipped.cu, rollout_exp.cu),
+// (rollout_lerp.cu, rollout_lerp_target.cu, rollout_score.cu,
+// rollout_clipped.cu, rollout_exp.cu),
 // so that the build runs one nvcc per form side by side; rollout.cu holds
 // the C entry points.
 #pragma once
@@ -134,6 +140,7 @@ constexpr int kLerpEm = 0;     // kernel 1, LerpCtrl (DIS)
 constexpr int kScoreEm = 1;    // kernel 1, ScoreCtrl (PIS, EulerDDS)
 constexpr int kScoreExp = 2;   // kernel 2, ScoreCtrl (DDS)
 constexpr int kClippedEm = 3;  // kernel 1, ClippedCtrl (no score)
+constexpr int kLerpTargetEm = 4;  // kernel 1, LerpTargetCtrl (Bridge)
 
 // Target whose score an instance inlines.
 constexpr int kFunnel = 0;
@@ -262,6 +269,10 @@ __device__ __forceinline__ float step_update(float x, float net, float target,
   if constexpr (kForm == kLerpEm) {
     const float prior = (cs.prior_loc - x) / cs.prior_var;
     const float lerp = clip(prior + (target - prior) * w, cs.clip_score);
+    const float u = clip(net, cs.clip_model) * cscale + diff * (sscore * lerp);
+    return x + (drift * x + diff * u) * dt + diff * db;
+  } else if constexpr (kForm == kLerpTargetEm) {
+    const float lerp = clip(w * target, cs.clip_score);
     const float u = clip(net, cs.clip_model) * cscale + diff * (sscore * lerp);
     return x + (drift * x + diff * u) * dt + diff * db;
   } else if constexpr (kForm == kClippedEm) {
@@ -657,6 +668,7 @@ int launch_target(const Args& a, int body, int* used) {
 
 // The instances of one form, each compiled in its own source.
 int launch_lerp(const Args& a, int body, int* used);
+int launch_lerp_target(const Args& a, int body, int* used);
 int launch_score(const Args& a, int body, int* used);
 int launch_clipped(const Args& a, int body, int* used);
 int launch_exp(const Args& a, int body, int* used);

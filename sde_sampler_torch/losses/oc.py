@@ -1,25 +1,28 @@
-"""Trajectory losses: time reversal (DIS), reference SDE (PIS, EulerDDS)
-and the exponential integrator (DDS).
+"""Trajectory losses: time reversal (DIS, Bridge), reference SDE (PIS,
+EulerDDS) and the exponential integrator (DDS).
 
-Port of `BaseOCLoss`, `TimeReversalLoss`, `ReferenceSDELoss` and
-`ExponentialIntegratorSDELoss` from `sde_sampler_tpu/losses/oc.py` for a
-generative control without an inference control. Methods kl / kl_ito / lv
-/ lv_traj; the lv default is the two-phase loss (`_two_phase_loss`):
+Port of `BaseOCLoss`, `TimeReversalLoss`, `ReferenceSDELoss`,
+`ExponentialIntegratorSDELoss` and the divergence estimators `divx_exact`
+and `divx_hutchinson` from `sde_sampler_tpu/losses/oc.py`. Methods kl /
+kl_ito / lv / lv_traj; the lv default is the two-phase loss
+(`_two_phase_loss`):
 
 - phase 1: the value-only rollout recording every state, through the
   fused rollouts (`ops/rollout.py`: kernel 1 for the EM losses, kernel 2
   for the exponential integrator on the card, their plain twins on the
-  CPU);
+  CPU); it runs the generative control alone, which drives the SDE;
 - phase 2: one batched control evaluation over all (T, B) states, whose
-  running cost and Ito terms autograd differentiates.
+  running cost and Ito terms autograd differentiates; with a Bridge's
+  inference control v, also v and its divergence on all states in one
+  batched forward-mode call.
 
 `simulate` (evaluation, and kl training) is a plain torch loop that yields
 both log Z estimators from one rollout. Noise enters as an explicit
 (T, B, d) tensor `dbs` where a caller passes one (Brownian increments for
 the EM losses, standard normals for the exponential integrator), and is
-otherwise drawn from the given `torch.Generator`. Exploration noise,
-dropout, inference controls and Hutchinson estimators raise
-NotImplementedError here.
+otherwise drawn from the given `torch.Generator`; the probes of a
+Hutchinson estimator likewise (`probes`). Exploration noise and dropout
+raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -37,6 +40,66 @@ FAST_PATH_DEFAULT = True
 # (T, B, width) activations for autograd, so the noise buffer stays below a
 # tenth of the card (the main path needs 16 MB).
 PREGEN_MAX_BYTES = 8 * 1024**3
+
+
+# ---------------------------------------------------------------------------
+# Divergence estimators (forward-mode JVPs, as the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def divx_exact(fn: Callable, t, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact divergence of fn(t, .) at x (..., d) by d forward-mode JVPs;
+    returns (div (..., 1), fn(t, x)). Autograd differentiates both with
+    respect to the parameters fn captures (reverse over forward)."""
+    f = lambda xx: fn(t, xx)
+    d = x.shape[-1]
+    if d <= 64:
+        # one batched sweep over the basis vectors: a (d, ..., d) buffer
+        basis = torch.eye(d, dtype=x.dtype, device=x.device)
+        tangents = basis.reshape(d, *([1] * (x.dim() - 1)), d).expand(d, *x.shape)
+        value, jvs = torch.func.vmap(
+            lambda v: torch.func.jvp(f, (x,), (v,)), out_dims=(None, 0)
+        )(tangents)
+        div = torch.diagonal(jvs, dim1=0, dim2=-1).sum(dim=-1, keepdim=True)
+        return div, value
+
+    # high d: the Jacobian diagonal one coordinate at a time, O(d) live
+    # memory instead of O(d^2)
+    value = f(x)
+    div = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    for i in range(d):
+        e = torch.zeros(d, dtype=x.dtype, device=x.device)
+        e[i] = 1.0
+        _, jv = torch.func.jvp(f, (x,), (e.expand_as(x),))
+        div = div + jv[..., i : i + 1]
+    return div, value
+
+
+def divx_hutchinson(
+    fn: Callable, t, x: torch.Tensor, noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None, noise_type: str = "rademacher",
+    n_samples: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hutchinson estimator of the divergence of fn(t, .) at x; returns
+    (div (..., 1), fn(t, x)). The probes are `noise` (n_samples, *x.shape)
+    where given, else `n_samples` draws of `noise_type` from `generator`
+    (JAX threefry and torch streams never agree: parity tests pass JAX's)."""
+    f = lambda xx: fn(t, xx)
+    value = f(x)
+    if noise is None:
+        shape = (n_samples,) + tuple(x.shape)
+        kw = dict(generator=generator, device=x.device, dtype=x.dtype)
+        if noise_type == "rademacher":
+            noise = torch.randint(0, 2, shape, **kw) * 2 - 1.0
+        elif noise_type == "gauss":
+            noise = torch.randn(shape, **kw)
+        else:
+            raise NotImplementedError(f"Undefined noise type {noise_type}.")
+    div = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    for probe in noise:
+        _, jv = torch.func.jvp(f, (x,), (probe,))
+        div = div + (jv * probe).sum(dim=-1, keepdim=True)
+    return div / noise.shape[0], value
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -219,9 +282,13 @@ class BaseOCLoss:
 
 
 class TimeReversalLoss(BaseOCLoss):
-    """Time-reversal RND loss (DIS): running cost ½|u|²dt (KL) or
-    u·(ū−½u)dt (LV), Ito integral u·dW, eval-only −∫div(drift) and initial
-    log-prob, terminal −log ρ(X_T)."""
+    """Time-reversal RND loss (DIS; Bridge when inference_ctrl is given):
+    running cost ½|u+v|²dt (KL) or (u+v)·(ū−½(u−v))dt (LV) for the
+    generative control u and the inference control v (0 for DIS),
+    inference-divergence term σ·div(v)dt, Ito integral (u+v)·dW, eval-only
+    −∫div(drift) and initial log-prob, terminal −log ρ(X_T). The divergence
+    is exact (`div_estimator` None, and always at evaluation) or
+    Hutchinson's estimator with "rademacher" or "gauss" probes."""
 
     def __init__(
         self,
@@ -231,12 +298,25 @@ class TimeReversalLoss(BaseOCLoss):
         **kwargs,
     ):
         super().__init__(*args, **kwargs)
-        if inference_ctrl is not None or div_estimator is not None:
-            raise NotImplementedError(
-                "inference controls and divergence estimators are not ported yet"
+        if div_estimator not in (None, "rademacher", "gauss"):
+            raise ValueError(f"Unknown div_estimator {div_estimator}.")
+        self.inference_ctrl = inference_ctrl
+        self.div_estimator = div_estimator
+
+    def _inference_terms(self, gen, s, x, estimator, probes=None, generator=None):
+        """(u + v, u − v, div v) for the generative control's output `gen`
+        and the inference control v at (s, x); (u, u, None) without one.
+        `probes` (..., d) are the Hutchinson probes of these states."""
+        if self.inference_ctrl is None:
+            return gen, gen, None
+        if estimator is None:
+            div, inference = divx_exact(self.inference_ctrl, s, x)
+        else:
+            div, inference = divx_hutchinson(
+                self.inference_ctrl, s, x, noise=None if probes is None else probes[None],
+                generator=generator, noise_type=estimator,
             )
-        self.inference_ctrl = None
-        self.div_estimator = None
+        return gen + inference, gen - inference, div
 
     def simulate(
         self,
@@ -249,8 +329,11 @@ class TimeReversalLoss(BaseOCLoss):
         return_traj: bool = False,
         dbs: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        probes: torch.Tensor | None = None,
     ) -> RolloutResult:
-        """One EM rollout accumulating the RND with and without Ito term."""
+        """One EM rollout accumulating the RND with and without Ito term;
+        `probes` (T, B, d) feed a Hutchinson estimator in training."""
+        estimator = self.div_estimator if train else None
         if train and self.method in ["kl", "kl_ito"]:
             rnd = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
         else:
@@ -269,15 +352,21 @@ class TimeReversalLoss(BaseOCLoss):
             gen = self.generative_ctrl(s, x)
             sde_ctrl = gen.detach() if change_sde_ctrl else gen
             sde_diff = self.sde.diff(s, x)
+            gen_plus, gen_minus, div = self._inference_terms(
+                gen, s, x, estimator, None if probes is None else probes[k], generator
+            )
+            if div is not None:
+                # assumes the diffusion coefficient is independent of x
+                rnd = rnd + sde_diff * div * dt
             if change_sde_ctrl:
-                cost = gen * (sde_ctrl - 0.5 * gen)
+                cost = gen_plus * (sde_ctrl - 0.5 * gen_minus)
                 rnd = rnd + cost.sum(dim=-1, keepdim=True) * dt
             else:
-                rnd = rnd + 0.5 * (gen**2).sum(dim=-1, keepdim=True) * dt
+                rnd = rnd + 0.5 * (gen_plus**2).sum(dim=-1, keepdim=True) * dt
             if not train:
                 rnd = rnd - self.sde.drift_div_int(s, t, x)
             x = x + (self.sde.drift(s, x) + sde_diff * sde_ctrl) * dt + sde_diff * db
-            ito = ito + (gen * db).sum(dim=-1, keepdim=True)
+            ito = ito + (gen_plus * db).sum(dim=-1, keepdim=True)
             if return_traj:
                 traj.append(x)
         rnd = rnd - terminal_unnorm_log_prob(x)
@@ -293,9 +382,11 @@ class TimeReversalLoss(BaseOCLoss):
 
     def _two_phase_loss(
         self, ts, x, terminal_unnorm_log_prob, initial_log_prob,
-        dbs=None, generator=None,
+        dbs=None, generator=None, probes=None,
     ):
-        """lv/lv_traj loss with the trajectory rollout outside autograd."""
+        """lv/lv_traj loss with the trajectory rollout outside autograd.
+        Phase 1 needs no inference control: the generative one drives the
+        SDE."""
         rnd0 = initial_log_prob(x)
         if dbs is None:
             dbs = self.draw_noise(ts, x, generator)
@@ -305,21 +396,26 @@ class TimeReversalLoss(BaseOCLoss):
         s = ts[:-1].reshape(n, 1, 1)
         dt = (ts[1:] - ts[:-1]).reshape(n, 1, 1)
         gen = self.generative_ctrl(s, xs)  # (T, B, d), one batched call
-        cost = (gen * (gen.detach() - 0.5 * gen)).sum(dim=-1, keepdim=True) * dt
-        ito = (gen * dbs).sum(dim=-1, keepdim=True)
+        gen_plus, gen_minus, div = self._inference_terms(
+            gen, s, xs, self.div_estimator, probes, generator
+        )
+        cost = (gen_plus * (gen.detach() - 0.5 * gen_minus)).sum(dim=-1, keepdim=True) * dt
+        if div is not None:
+            cost = cost + self.sde.diff(s, xs) * div * dt
+        ito = (gen_plus * dbs).sum(dim=-1, keepdim=True)
         rnd_no_ito = rnd0 + cost.sum(0) - terminal_unnorm_log_prob(x_T)
         rnd = rnd_no_ito + ito.sum(0)
         return self.compute_loss(rnd, samples=x_T)
 
     def __call__(
         self, ts, x, terminal_unnorm_log_prob, initial_log_prob=None,
-        dbs=None, generator=None,
+        dbs=None, generator=None, probes=None,
     ):
         x = self._repeat_traj(x)
         if self.two_phase:
             return self._two_phase_loss(
                 ts, x, terminal_unnorm_log_prob, initial_log_prob,
-                dbs=dbs, generator=generator,
+                dbs=dbs, generator=generator, probes=probes,
             )
         result = self.simulate(
             ts, x,
@@ -329,6 +425,7 @@ class TimeReversalLoss(BaseOCLoss):
             change_sde_ctrl=self.method in ["lv", "lv_traj"],
             dbs=dbs,
             generator=generator,
+            probes=probes,
         )
         rnd = result.rnd if self.method != "kl" else result.rnd_no_ito
         return self.compute_loss(rnd, samples=result.samples)

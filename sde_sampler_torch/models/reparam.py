@@ -1,4 +1,5 @@
-"""Reparametrized controls: ClippedCtrl, ScoreCtrl and LerpCtrl.
+"""Reparametrized controls: ClippedCtrl, ScoreCtrl, LerpCtrl and its
+one-sided forms LerpPriorCtrl and LerpTargetCtrl.
 
 Port of `sde_sampler_tpu/models/reparam.py`. Every wrapper is an
 `nn.Module` called as `ctrl(t, x, clips=None)`. Clip thresholds may be
@@ -130,3 +131,27 @@ class LerpCtrl(ScoreCtrl):
                 score_model = self.constrain(score_model, t)
             score = score * score_model
         return ctrl + self.sde.diff(t, x) * score
+
+
+class LerpPriorCtrl(LerpCtrl):
+    """One-sided lerp toward the prior score (the Bridge's inference control)."""
+
+    def clipped_interpolated_score(self, t, x, clips=None):
+        x = x.detach() if self.detach_score else x
+        out = (1.0 - t / self.sde.terminal_t) * self.prior_score(x)
+        return _clip(out, _pick(clips, "clip_score", self.clip_score))
+
+    def constrain(self, output, t):
+        return 2 * output * t / self.sde.terminal_t
+
+
+class LerpTargetCtrl(LerpCtrl):
+    """One-sided lerp toward the target score (the Bridge's generative control)."""
+
+    def clipped_interpolated_score(self, t, x, clips=None):
+        x = x.detach() if self.detach_score else x
+        out = t / self.sde.terminal_t * self.target_score(x)
+        return _clip(out, _pick(clips, "clip_score", self.clip_score))
+
+    def constrain(self, output, t):
+        return 2 * output * (1.0 - t / self.sde.terminal_t)

@@ -15,6 +15,9 @@ specialised to control forms over a GELU `FourierMLP` with an optional
 `TimeEmbed` score net (one output):
 
 - "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
+- "lerp_target", a `LerpTargetCtrl` (the generative control of
+  `solver=bridge`), u = clip(net)·c + σ·sscore·clip(w·target score) with
+  no prior term, kernel 1 only;
 - "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2);
 - "clipped", a `ClippedCtrl`, u = clip(net, clip_model) with no score
   (`solver=dis_no_score`, `pis_no_score`), kernel 1 only;
@@ -56,12 +59,21 @@ from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, Gauss, IsotropicGauss
 from sde_sampler_torch.eq.sdes import OU
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl, _pick
+from sde_sampler_torch.models.reparam import (
+    ClippedCtrl,
+    LerpCtrl,
+    LerpTargetCtrl,
+    ScoreCtrl,
+    _pick,
+)
 from sde_sampler_torch.ops import build
 
 # kernel 1's control forms (kernel 2 has only the ScoreCtrl one)
-FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3}
-FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped"}
+FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3, "lerp_target": 4}
+FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped",
+         LerpTargetCtrl: "lerp_target"}
+# the forms that interpolate a score along t / T and roll out their own SDE
+LERP_FORMS = ("lerp", "lerp_target")
 # the targets whose score the kernels inline
 TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3}
 TARGETS = {Funnel: "funnel", GMM: "gmm", Gauss: "gmm", IsotropicGauss: "gmm",
@@ -84,15 +96,15 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
     """(form, sde, prior, target kind, target) of the specialised step;
     raises on any other.
 
-    `sde` is the SDE the EM update integrates (a LerpCtrl's own, and by
-    default a ClippedCtrl's); the exponential integrator (`update="exp"`)
-    takes none.
+    `sde` is the SDE the EM update integrates (a LerpCtrl's or
+    LerpTargetCtrl's own, and by default a ClippedCtrl's); the exponential
+    integrator (`update="exp"`) takes none.
     """
     form = FORMS.get(type(ctrl))
     if form is None:
         raise NotImplementedError(
-            "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, got "
-            f"{type(ctrl).__name__}"
+            "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, or a "
+            f"LerpTargetCtrl, got {type(ctrl).__name__}"
         )
     if form != "score" and update != "em":
         raise NotImplementedError("the exponential integrator needs a ScoreCtrl")
@@ -116,10 +128,11 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
             )
         kind = TARGETS[type(target)]
     prior = None
-    if form == "lerp":
+    if form in LERP_FORMS:
         if sde is not None and sde is not ctrl.sde:
-            raise NotImplementedError("a LerpCtrl rolls out its own SDE")
+            raise NotImplementedError(f"a {type(ctrl).__name__} rolls out its own SDE")
         sde = ctrl.sde
+    if form == "lerp":
         prior = _owner(ctrl.prior_score, (IsotropicGauss,))
         if prior is None:
             raise NotImplementedError("the rollout kernel needs an IsotropicGauss prior")
@@ -143,7 +156,8 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     """Per-step tables: the time-embedding rows (T, C) and six scalars per
     step (T, 6) in the column order of csrc/rollout.cuh. EM: drift
     coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
-    (0 for a ClippedCtrl) and the hard-constraint factor of the net output.
+    (0 for a ClippedCtrl) and the hard-constraint factor of the net output;
+    the lerp weight is t / T for the lerp forms and 0 for the others.
     Exponential integrator (`exp=(alpha, sigma)`): a, β²σ², σβ, 0,
     scale_score * clip(score net), 1."""
     s = ts[:-1]
@@ -167,7 +181,7 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     if exp is not None:
         columns = [*exp_coeffs(ts, *exp), torch.zeros_like(s), sscore, ones]
     else:
-        w = s / sde.terminal_t if type(ctrl) is LerpCtrl else torch.zeros_like(s)
+        w = s / sde.terminal_t if FORMS[type(ctrl)] in LERP_FORMS else torch.zeros_like(s)
         columns = [
             sde.drift_coeff_t(s) * ones,
             sde.diff_coeff_t(s) * ones,
@@ -291,6 +305,9 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
                 prior = (prior_loc - x) / prior_var
                 lerp = _clip(prior + (target - prior) * w, clip_score)
                 u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
+            elif form == "lerp_target":
+                lerp = _clip(w * target, clip_score)
+                u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
             else:
                 u = _clip(out, clip_model) + sscore * _clip(target, clip_score)
         if update == "em":
@@ -382,9 +399,10 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
     (xs, x_T). `dbs` holds the Brownian increments (T, B, d).
 
     A LerpCtrl integrates its own SDE and reads its prior and target from
-    its bound score methods; a ClippedCtrl integrates `sde`, by default its
-    own; a ScoreCtrl needs the `sde`. A CUDA tensor launches kernel 1, a CPU
-    tensor runs the plain twin.
+    its bound score methods, a LerpTargetCtrl likewise without a prior; a
+    ClippedCtrl integrates `sde`, by default its own; a ScoreCtrl needs the
+    `sde`. A CUDA tensor launches kernel 1, a CPU tensor runs the plain
+    twin.
     """
     _check_device(x0)
     prepared = _prepare(ctrl, x0, ts, dbs, clips, sde)

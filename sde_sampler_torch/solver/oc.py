@@ -1,10 +1,11 @@
 """Diffusion solvers: TrainableDiff, Bridge (DIS), PIS, DDS and EulerDDS.
 
 Port of `TrainableDiff`, `Bridge`, `PIS`, `DDS` and `EulerDDS` from
-`sde_sampler_tpu/solver/oc.py`; Bridge without an inference control.
-Evaluation computes both log Z estimators (with and without the Ito
-integral) from one rollout. DDS has no SDE (`sde` is None): its
-exponential integrator takes α and σ from the loss.
+`sde_sampler_tpu/solver/oc.py`; Bridge with or without a learned inference
+control (`solver=bridge_diff_init`, `bridge`; DIS). Evaluation computes
+both log Z estimators (with and without the Ito integral) from one
+rollout. DDS has no SDE (`sde` is None): its exponential integrator takes
+α and σ from the loss.
 """
 from __future__ import annotations
 
@@ -48,16 +49,21 @@ class TrainableDiff(Trainable):
         ).to(self.device)
         self.modules["generative_ctrl"] = self.generative_ctrl
         self.register_scheduled_clips("generative_ctrl", self.generative_ctrl)
+        self.inference_ctrl = None
 
     def bound_loss(self, clips) -> BaseOCLoss:
-        """The loss with the control (and its current clips) bound."""
+        """The loss with the controls (and their current clips) bound."""
         ctrl = self.generative_ctrl
         gen_clips = clips.get("generative_ctrl")
-        return self.loss.with_ctrls(
+        ctrls = dict(
             generative_ctrl=lambda t, x: ctrl(t, x, clips=gen_clips),
             ctrl_module=ctrl,
             ctrl_clips=gen_clips,
         )
+        if self.inference_ctrl is not None:
+            inference, inf_clips = self.inference_ctrl, clips.get("inference_ctrl")
+            ctrls["inference_ctrl"] = lambda t, x: inference(t, x, clips=inf_clips)
+        return self.loss.with_ctrls(**ctrls)
 
     def clipped_target_unnorm_log_prob(self, x):
         return clip_norm(self.target.unnorm_log_prob(x), self.clip_target)
@@ -105,6 +111,10 @@ class TrainableDiff(Trainable):
             "eval/n_nonfinite_rnd": float(stats["n_nonfinite_rnd"]),
             "eval/n_filtered_rnd": float(stats["n_filtered_rnd"]),
         }
+        # The JAX package adds here the plots of the inference SDE's
+        # trajectories from target samples (`_inference_plots`, controlled
+        # by a Bridge's inference control); they wait for eval/plots.py, as
+        # every plot does (plot_results=True raises in Solver).
         return Results(
             samples=result.samples,
             weights=stats["weights"],
@@ -114,14 +124,23 @@ class TrainableDiff(Trainable):
 
 
 class Bridge(TrainableDiff):
-    """Time-reversal solver: DIS (an inference control is not ported yet)."""
+    """Time-reversal solver: DIS without an inference control, the Bridge
+    with a learned one (trained beside the generative control, in its own
+    parameter group)."""
 
     def setup_models(self):
         super().setup_models()
         cfg = self.cfg
         if cfg.get("inference_ctrl"):
-            raise NotImplementedError("Bridge with an inference control is not ported yet")
-        if not isinstance(self.prior, Gauss):
+            self.inference_ctrl = instantiate(
+                cfg["inference_ctrl"],
+                sde=self.sde,
+                prior_score=self.prior.score,
+                target_score=self.target.score,
+            ).to(self.device)
+            self.modules["inference_ctrl"] = self.inference_ctrl
+            self.register_scheduled_clips("inference_ctrl", self.inference_ctrl)
+        elif not isinstance(self.prior, Gauss):
             raise ValueError("Can only be used with Gaussian prior.")
         self.loss: BaseOCLoss = instantiate(
             cfg["loss"],

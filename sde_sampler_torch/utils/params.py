@@ -3,7 +3,9 @@
 The inverse of `convert_state_dict` in `sde_sampler_tpu/utils/torch_import.py`
 (a copy of the naming map, not an import). It takes the JAX package's
 parameter tree for one control (for example `params["generative_ctrl"]`)
-as nested dicts of numpy arrays and returns a flat torch `state_dict`:
+as nested dicts of numpy arrays and returns a flat torch `state_dict`;
+`load_solver_params` carries a solver's whole tree, one subtree per control
+(`generative_ctrl`, and a Bridge's `inference_ctrl`), into its modules:
 
     flax path                          torch key
     ---------------------------------  --------------------------------
@@ -66,3 +68,15 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
 def load_flax_params(module: torch.nn.Module, tree: dict) -> None:
     """Load a JAX parameter tree into `module`, every key and shape checked."""
     module.load_state_dict(flax_to_state_dict(tree), strict=True)
+
+
+def load_solver_params(modules, params: dict) -> None:
+    """Load a JAX solver's parameter tree (`train_state.params`: one subtree
+    per control) into the port solver's `modules` of the same names; the
+    two must name the same controls."""
+    if set(params) != set(modules.keys()):
+        raise ValueError(
+            f"the JAX tree has controls {sorted(params)}, the port {sorted(modules.keys())}"
+        )
+    for name, tree in params.items():
+        load_flax_params(modules[name], tree)

@@ -33,7 +33,7 @@ from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, LerpTargetCtrl, ScoreCtrl
 from sde_sampler_torch.utils.common import get_timesteps
 
 pytestmark = pytest.mark.cuda
@@ -488,7 +488,8 @@ def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):
 # The (form, target) instances beyond the funnel's: form, target, d. The
 # mixtures: conf/target/gmm.yaml (grid, K = 9), the multi preset (K = 80)
 # and gauss_shift (K = 1, d = 1); the wells: mw (d = 5), dw_shift (d = 1)
-# and a MultiWell with Gaussian coordinates (d = 12).
+# and a MultiWell with Gaussian coordinates (d = 12). The LerpTargetCtrl
+# (solver=bridge) on the grid and on a three-component mixture at d = 5.
 TARGET_INSTANCES = {
     "lerp.gmm": ("lerp", lambda: GMM(name="grid"), 2),
     "lerp.gmm.multi": ("lerp", lambda: GMM(name="multi", domain_tol=None), 2),
@@ -498,6 +499,10 @@ TARGET_INSTANCES = {
     "score.wells.d1": ("score", lambda: DoubleWell(separation=2.0, shift=1.5), 1),
     "lerp.wells": ("lerp", lambda: MultiWell(dim=12, n_double_wells=5, separation=2.0), 12),
     "clipped.none": ("clipped", None, 2),
+    "lerp_target.gmm": ("lerp_target", lambda: GMM(name="grid"), 2),
+    "lerp_target.gmm.d5": ("lerp_target", lambda: GMM(
+        dim=5, loc=np.linspace(-3, 3, 15).reshape(3, 5), scale=np.full((3, 5), 0.8),
+        mixture_weights=np.array([0.2, 0.3, 0.5]), domain_tol=None), 5),
     "exp.gmm": ("exp", lambda: GMM(name="grid"), 2),
     "exp.wells": ("exp", lambda: MultiWell(dim=5, n_double_wells=5, separation=4.0), 5),
 }
@@ -506,27 +511,34 @@ TARGET_INSTANCES = {
 def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
     """The control of an instance with seeded weights, and its inputs: the
     last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl
-    and ClippedCtrl, the PIS scaled BM for the ScoreCtrl), a cosine grid
+    and ClippedCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
+    scaled BM of conf/sde/bm.yaml for the LerpTargetCtrl), a cosine grid
     with dt = 0 steps for kernel 2. Returns (prepare(x0, ts, noise), x0,
     ts, noise)."""
     from sde_sampler_torch.ops import rollout as ro
 
     form, make_target, d = spec or TARGET_INSTANCES[name]
-    sde = (ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0) if form == "score"
-           else VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0))
+    if form == "score":
+        sde = ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0)
+    elif form == "lerp_target":
+        sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
+    else:
+        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
     base = FourierMLP(dim=d)
     if form == "clipped":
         ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
     else:
         target = make_target().to(cuda)
         # the score nets' last bias of conf/model/lerp.yaml (1) and score.yaml (0.01)
-        bias = 1.0 if form == "lerp" else 0.01
+        bias = 1.0 if form in ("lerp", "lerp_target") else 0.01
         common = dict(base_model=base, target_score=target.score, clip_model=10.0,
                       clip_score=10.0,
                       score_model=TimeEmbed(dim_out=1, num_layers=4,
                                             last_bias_init={"constant": bias}))
         if form == "lerp":
             ctrl = LerpCtrl(sde=sde, prior_score=IsotropicGauss(dim=d).score, **common)
+        elif form == "lerp_target":
+            ctrl = LerpTargetCtrl(sde=sde, **common)
         else:
             ctrl = ScoreCtrl(**common)
     ctrl.reset_parameters(torch.Generator().manual_seed(0))

@@ -164,5 +164,11 @@ def test_masked_reductions_and_noise_buffer_guard():
         BaseOCLoss.draw_noise(ts, huge)
     with pytest.raises(NotImplementedError):
         TimeReversalLoss(generative_ctrl=None, method="lv", sde_ctrl_noise=0.1)
-    with pytest.raises(NotImplementedError):
-        TimeReversalLoss(generative_ctrl=None, method="lv", inference_ctrl=lambda t, x: x)
+    # an inference control (the Bridge) is accepted, an unknown divergence
+    # estimator is not
+    inference = lambda t, x: x
+    assert TimeReversalLoss(generative_ctrl=None, method="lv",
+                            inference_ctrl=inference).inference_ctrl is inference
+    with pytest.raises(ValueError, match="div_estimator"):
+        TimeReversalLoss(generative_ctrl=None, method="lv", inference_ctrl=inference,
+                         div_estimator="uniform")
