@@ -13,8 +13,9 @@ prints nvcc's register and spill report. Phases:
            its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
            grid, kernel 1's generic body (a 32-wide net), each instance of
-           the mixture, wells, ClippedCtrl and LerpTargetCtrl forms
-           (INSTANCES; the LerpTargetCtrl's in both bodies), softmin and
+           the mixture, wells, ClippedCtrl, LerpTargetCtrl and PotentialCtrl
+           forms (INSTANCES; the LerpTargetCtrl's and the PotentialCtrl's in
+           both bodies, the PotentialCtrl's also at d = 50), softmin and
            transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
            edges at 100k (a column split of -inf duals, rows that see only
            -inf) and transport's (a column split of -inf duals, every dual
@@ -35,14 +36,22 @@ prints nvcc's register and spill report. Phases:
                         learned inference control (a ClippedCtrl, its exact
                         divergence in phase 2 and at every evaluation step),
                         220 steps, 100k evaluation;
+             gmm_dis_subtraj  the mixture under SubtrajBridge with a
+                        PotentialCtrl (the net's backward pass in every EM
+                        step of kernel 1), half the steps on a subtrajectory
+                        that ends at T, 220 steps, 100k evaluation; it logs
+                        how many steps took a subtrajectory and their lengths;
              dds_euler, pis (funnel), mw_dds (d = 5, kernel 2),
              mw_50d_dis (d = 50, the generic body), dw_shift_pis (d = 1),
-             gmm_dis_no_score (the ClippedCtrl) and gmm_bridge (the
+             gmm_dis_no_score (the ClippedCtrl), gmm_bridge (the
              LerpTargetCtrl on the scaled BM, a LerpPriorCtrl inference
-             control): 20 steps, 10k eval;
+             control) and gmm_bridge_subtraj (PotentialCtrl generative and
+             inference controls, subtrajectories of any length): 20 steps,
+             10k eval;
   timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
-           steps (with a profiler breakdown; for the Bridge also the card
-           time of phase 2's divergence), each kernel and instance through its
+           steps and the mixture SubtrajBridge's, on the whole trajectory and
+           on a subtrajectory (with a profiler breakdown; for the Bridge also
+           the card time of phase 2's divergence), each kernel and instance through its
            wrapper, alone and as its plain version at its path's shapes
            (the funnel rollouts in each body), softmin and transport at
            100k for d = 2 and 50, and one full Sinkhorn evaluation, whose
@@ -158,13 +167,21 @@ PATHS = {
                                  steps=None, eval=None, log_z=LOG_Z_KEYS),
     "gmm_bridge": dict(target="gmm", solver="bridge", kernels=("rollout.lerp_target.gmm", *SINKHORN),
                        steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dis_subtraj": dict(target="gmm", solver="dis_subtraj",
+                            kernels=("rollout.potential.none", *SINKHORN),
+                            steps=None, eval=None, log_z=LOG_Z_KEYS, subtraj=True),
+    "gmm_bridge_subtraj": dict(target="gmm", solver="bridge_subtraj",
+                               kernels=("rollout.potential.none", *SINKHORN),
+                               steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                               subtraj=True),
 }
 # The rollout instances beyond the funnel's, each checked against its plain
 # twin and timed at the shapes of the path that runs it (gmm_dis,
-# gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis, gmm_bridge): label
-# (the kernels line's name) -> control form ("exp": kernel 2's) and target
-# (conf/target/*.yaml); `bodies`: also checked in the generic body, which
-# must give the fast body's bits.
+# gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis, gmm_bridge,
+# gmm_dis_subtraj): label (the kernels line's name) -> control form ("exp":
+# kernel 2's) and target (conf/target/*.yaml); `bodies`: also checked in the
+# generic body, which must give the fast body's bits; `source`: where the
+# form's kernels live, if not in rollout.cuh.
 INSTANCES = {
     "rollout.lerp.gmm": dict(form="lerp", target="gmm"),
     "rollout.clipped.none": dict(form="clipped", target="gmm"),
@@ -172,7 +189,10 @@ INSTANCES = {
     "rollout_exp.score.wells": dict(form="exp", target="mw"),
     "rollout.lerp.wells": dict(form="lerp", target="mw_50d"),
     "rollout.lerp_target.gmm": dict(form="lerp_target", target="gmm", bodies=True),
+    "rollout.potential.none": dict(form="potential", target="gmm", bodies=True,
+                                   source="sde_sampler_torch/csrc/rollout_potential.cu"),
 }
+WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
 
 
 def fail(msg: str):
@@ -211,7 +231,7 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rollout_work(B, T, d, C, H, per_coord=25, K=0):
+def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False):
     # multiply-adds of the net (2 flops each), GELU with erf (~10 flops per
     # activation) and `per_coord` flops of score and update per coordinate
     # (about 25 for the LerpCtrl EM step, 20 for the ScoreCtrl exponential
@@ -221,9 +241,16 @@ def rollout_work(B, T, d, C, H, per_coord=25, K=0):
     # 3d flops for the log-weight and about 10 for the softmax (exp 4, max,
     # sum, division), and 3K flops per coordinate for the score's sum; its
     # table, K (2d + 1) floats, is read once.
-    ops = T * B * (2 * C * (2 * d + H * C) + 10 * C * (H + 1) + per_coord * d
-                   + K * (3 * d + 10) + 3 * K * d)
-    nbytes = 4 * (B * d + T * B * d + T * (6 + C) + 2 * C * d + H * C * (C + 1) + d
+    # The PotentialCtrl's net has one output, and its backward pass runs the
+    # transposed products again (2C(HC + d) flops), the products with
+    # gelu' (C(H + 1)) and GELU's derivative beside GELU (about 8 more flops
+    # per activation: exp and four multiply-adds).
+    n_out = 1 if potential else d
+    net = 2 * C * (d + H * C + n_out) + 10 * C * (H + 1)
+    if potential:
+        net += 2 * C * (H * C + d) + C * (H + 1) + 8 * C * (H + 1)
+    ops = T * B * (net + per_coord * d + K * (3 * d + 10) + 3 * K * d)
+    nbytes = 4 * (B * d + T * B * d + T * (6 + C) + C * d + C * n_out + H * C * (C + 1) + n_out
                   + T * B * d + B * d + K * (2 * d + 1))
     return ops, nbytes
 
@@ -312,32 +339,41 @@ def conf_target(name: str, device):
 
 # flops of a form's control and update, and of a target's inline score, per
 # coordinate (rollout_work); a mixture's are counted by its K
-FORM_FLOPS = {"lerp": 17, "lerp_target": 13, "score": 12, "exp": 12, "clipped": 8}
+FORM_FLOPS = {"lerp": 17, "lerp_target": 13, "score": 12, "exp": 12, "clipped": 8,
+              "potential": 8}
 TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0}
 
 
-def seeded_instance(device, label, seed):
+def seeded_instance(device, label, seed, dim=None):
     """A rollout instance of INSTANCES at its path's shapes, with weights and
     inputs from a numpy seed: the path's control (conf/model/*.yaml, clips
     10/10), SDE (conf/sde/*.yaml) and grid, x0 from its prior (0 for the
     PIS Dirac). Returns (run, plain, prepare, x0, ts, noise, work), run,
     plain and prepare (the checked inputs and tables of a launch) taking
-    (x0, ts, noise)."""
+    (x0, ts, noise). `dim` replaces the target's dimension for a form
+    without a target (the PotentialCtrl)."""
     import numpy as np
     import torch
 
     from sde_sampler_torch.distr.gauss import IsotropicGauss
     from sde_sampler_torch.eq.sdes import VP, ScaledBM
     from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-    from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, LerpTargetCtrl, ScoreCtrl
+    from sde_sampler_torch.models.reparam import (
+        ClippedCtrl,
+        LerpCtrl,
+        LerpTargetCtrl,
+        PotentialCtrl,
+        ScoreCtrl,
+    )
     from sde_sampler_torch.ops import rollout as ro
     from sde_sampler_torch.utils.common import get_timesteps
 
     spec = INSTANCES[label]
     form = spec["form"]
     target = conf_target(spec["target"], device)
-    d = target.dim
-    base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH)
+    d = dim or target.dim
+    base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH,
+                      dim_out=1 if form == "potential" else None)
     score_net = lambda bias: TimeEmbed(dim_out=1, num_layers=4, channels=WIDTH,
                                        last_bias_init={"constant": bias})
     clips = {"clip_model": 10.0, "clip_score": 10.0}
@@ -351,9 +387,10 @@ def seeded_instance(device, label, seed):
         sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
         ctrl = LerpTargetCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
                               target_score=target.score, **clips)
-    elif form == "clipped":
+    elif form in ("clipped", "potential"):  # conf/model/{clipped,potential}.yaml
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
-        ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
+        cls = ClippedCtrl if form == "clipped" else PotentialCtrl
+        ctrl = cls(base_model=base, clip_model=10.0, sde=sde)
     else:
         if form == "score":  # PIS: the scaled BM of conf/sde/bm_pis.yaml
             sde = ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0)
@@ -387,7 +424,8 @@ def seeded_instance(device, label, seed):
     kind = prepared[1]["kind"]
     K = prepared[0][9].numel() // (2 * d + 1)
     work = rollout_work(BATCH, T, d, WIDTH, HIDDEN,
-                        per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K)
+                        per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K,
+                        potential=form == "potential")
     return run, plain, prepare, x0, ts, noise, work
 
 
@@ -548,6 +586,18 @@ def phase_kernels(device, report):
         if k["fast_vs_generic_body"] != 0.0:
             fail(f"{label}: the fast and generic bodies give different bits")
 
+    # the PotentialCtrl past the fast body's widths: the generic body by shape
+    label = "rollout.potential.none"
+    run, plain, _, x0i, tsi, noisei, _ = seeded_instance(
+        device, label, SEED + 40, dim=WIDE_POTENTIAL_DIM)
+    before = build.FORM_LAUNCHES["rollout.potential.generic"]
+    check_rollout(f"{label}.d{WIDE_POTENTIAL_DIM}", run, plain, x0i, tsi, noisei, "wide", report)
+    if build.FORM_LAUNCHES["rollout.potential.generic"] <= before:
+        fail(f"the PotentialCtrl at d = {WIDE_POTENTIAL_DIM} did not take the generic body")
+    k = report[label]
+    k[f"generic_d{WIDE_POTENTIAL_DIM}_max_abs_err"] = report.pop("wide")["max_abs_err"]
+    k["max_abs_err"] = max(k["max_abs_err"], k[f"generic_d{WIDE_POTENTIAL_DIM}_max_abs_err"])
+
     for name in ("softmin", "transport"):
         report[name] = {"max_abs_err": 0.0}
     # the new paths' evaluation widths at their 10k evaluation: gmm (2),
@@ -677,14 +727,29 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         # unless d > 16
         fail(f"the {path} path took the rollout kernels' generic body {generic}, "
              f"expected: {spec.get('generic', False)}")
-    for name in KERNELS:
-        if build.LAUNCHES[name]:
-            by_path = report[name].setdefault("launches_by_path", {})
-            by_path[path] = build.LAUNCHES[name]
-            report[name]["launches"] = report[name].get("launches", 0) + build.LAUNCHES[name]
-    for label in INSTANCES:
-        if build.FORM_LAUNCHES[label]:
-            report[label]["launches"] = report[label].get("launches", 0) + build.FORM_LAUNCHES[label]
+    counts = [(name, build.LAUNCHES[name]) for name in KERNELS]
+    counts += [(label, build.FORM_LAUNCHES[label]) for label in INSTANCES]
+    for name, count in counts:
+        if count:
+            report[name].setdefault("launches_by_path", {})[path] = count
+            report[name]["launches"] = report[name].get("launches", 0) + count
+    subtraj = None
+    if spec.get("subtraj"):
+        # every optimizer step launches kernel 1 once: on the whole grid or on
+        # its window (the evaluation's rollout is the plain loop)
+        lengths = sorted(end - start for start, end in solver_obj.windows)
+        subtraj = {"steps": len(lengths), "of": train_steps,
+                   "window_steps_min": lengths[0] if lengths else None,
+                   "window_steps_median": lengths[len(lengths) // 2] if lengths else None,
+                   "window_steps_max": lengths[-1] if lengths else None,
+                   "window_steps_mean": sum(lengths) / len(lengths) if lengths else None}
+        print(f"path {path}: {len(lengths)} of {train_steps} steps on a subtrajectory; "
+              f"window lengths in steps {json.dumps(subtraj)}", flush=True)
+        if not lengths:
+            fail(f"{path}: no step took the subtrajectory branch")
+        if build.FORM_LAUNCHES["rollout.potential.none"] != train_steps:
+            fail(f"{path}: {build.FORM_LAUNCHES['rollout.potential.none']} potential rollout "
+                 f"launches for {train_steps} optimizer steps")
 
     lines = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [l["train/loss"] for l in lines if "train/loss" in l]
@@ -705,7 +770,7 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         fail(f"{path}: the clip milestone at step 200 did not fire")
     report.setdefault("paths", {})[path] = {
         "seconds": seconds, **summary, "train_steps": train_steps,
-        "eval_batch_size": eval_batch, "launches": launches,
+        "eval_batch_size": eval_batch, "launches": launches, "subtraj": subtraj,
     }
     return solver_obj
 
@@ -823,6 +888,24 @@ def phase_timing(solvers, device, report):
         report["bridge_step"] = time_steps(bridge, STEPS, "GMM Bridge (diff init)")
         report["bridge_step"]["divergence"] = divergence_share(
             bridge, report["bridge_step"]["breakdown"]["device_busy_ms"])
+        # SubtrajBridge's step on the whole trajectory and on a window
+        # (ending at T, of a uniform start: about half the grid on average),
+        # and the Bridge form's (two potentials) on the whole trajectory
+        for path, key, forced, label in (
+                ("gmm_dis_subtraj", "subtraj_full_step", 0.0, "GMM DIS subtraj (whole trajectory)"),
+                ("gmm_dis_subtraj", "subtraj_window_step", 1.0, "GMM DIS subtraj (subtrajectory)"),
+                ("gmm_bridge_subtraj", "bridge_subtraj_full_step", 0.0,
+                 "GMM Bridge subtraj (whole trajectory)")):
+            subtraj = solvers[path]
+            prob, subtraj.subtraj_prob = subtraj.subtraj_prob, forced
+            n_windows = len(subtraj.windows)
+            report[key] = time_steps(subtraj, STEPS, label)
+            subtraj.subtraj_prob = prob
+            lengths = [e - i for i, e in subtraj.windows[n_windows:]]
+            if lengths:
+                report[key]["window_steps_mean"] = sum(lengths) / len(lengths)
+                print(f"{label}: the timed windows' mean length "
+                      f"{report[key]['window_steps_mean']:.1f} steps of {STEPS}", flush=True)
 
     ctrl, rng = seeded_ctrl(device)
     x0, ts, dbs = rollout_inputs(device, rng)
@@ -866,6 +949,21 @@ def phase_timing(solvers, device, report):
         print(f"time {label} (d {x0i.shape[1]}, T {tsi.shape[0] - 1}): {k['ms']:.3f} ms "
               f"through its wrapper, {k['kernel_ms']:.3f} ms alone (plain {k['plain_ms']:.3f} "
               f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+        if INSTANCES[label].get("bodies"):
+            k["generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=5)
+            print(f"time {label}: its generic body alone at the same shapes "
+                  f"{k['generic_body_ms']:.3f} ms", flush=True)
+    # the PotentialCtrl past the fast body's widths (the generic body by shape)
+    label = "rollout.potential.none"
+    _, _, prepare, x0i, tsi, noisei, work = seeded_instance(
+        device, label, SEED + 40, dim=WIDE_POTENTIAL_DIM)
+    prepared = prepare(x0i, tsi, noisei)
+    k = report[label]
+    k[f"generic_d{WIDE_POTENTIAL_DIM}_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=5)
+    k[f"generic_d{WIDE_POTENTIAL_DIM}_bound_ms"] = bound(*work)[0]
+    print(f"time {label} at d {WIDE_POTENTIAL_DIM} (generic body): "
+          f"{k[f'generic_d{WIDE_POTENTIAL_DIM}_ms']:.3f} ms alone (bound "
+          f"{k[f'generic_d{WIDE_POTENTIAL_DIM}_bound_ms']:.4f} ms)", flush=True)
 
     # softmin and transport at the mixture's and mw_50d's widths, 100k x 100k
     # (the kernels alone; the plain versions take tens of seconds there)
@@ -1034,7 +1132,8 @@ def main():
         k = report[name]
         kernel = name.split(".")[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[kernel],
+            "name": name, "route": "cuda",
+            "source": INSTANCES.get(name, {}).get("source", SOURCES[kernel]),
             "replaces": REPLACES[kernel], "launches": k.get("launches"),
             "launches_by_path": k.get("launches_by_path"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),

@@ -1,13 +1,14 @@
 // The C entry points of the rollout kernels (rollout.cuh): kernel 1, the
-// EM rollout, in its LerpCtrl, ScoreCtrl, ClippedCtrl and LerpTargetCtrl
-// forms, and kernel 2, the exponential integrator of a ScoreCtrl.
+// EM rollout, in its LerpCtrl, ScoreCtrl, ClippedCtrl, LerpTargetCtrl and
+// PotentialCtrl forms, and kernel 2, the exponential integrator of a ScoreCtrl.
 #include "rollout.cuh"
 
 using namespace sde_rollout;
 
 // Kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS) instance, 1 the
 // ScoreCtrl one, 3 the ClippedCtrl one (target kNoTarget), 4 the
-// LerpTargetCtrl one (Bridge; the prior arguments unused); target, K and
+// LerpTargetCtrl one (Bridge; the prior arguments unused), 5 the
+// PotentialCtrl one (target kNoTarget; w_out (C, 1), b_out (1)); target, K and
 // t0..t2 as in Consts, `gmm` the mixture's table; `body` and `used` as for
 // `launch`.
 extern "C" int rollout_launch(
@@ -26,6 +27,7 @@ extern "C" int rollout_launch(
   if (form == kScoreEm) return launch_score(a, body, used);
   if (form == kLerpTargetEm) return launch_lerp_target(a, body, used);
   if (form == kClippedEm && target == kNoTarget) return launch_clipped(a, body, used);
+  if (form == kPotentialEm && target == kNoTarget) return launch_potential(a, body, used);
   return (int)cudaErrorInvalidValue;
 }
 

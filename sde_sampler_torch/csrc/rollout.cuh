@@ -20,6 +20,9 @@
 //                                                              clip_score)
 //   clipped (ClippedCtrl, DIS and PIS without a score; kernel 1 only):
 //     u = clip(FourierMLP(s, x), clip_model)
+//   potential (PotentialCtrl over a one-output net, SubtrajBridge; kernel 1
+//   only; its own kernels, in rollout_potential.cu):
+//     u = diff[k] * grad_x clip(FourierMLP(s, x), clip_model)
 //
 // and the updates
 //
@@ -101,7 +104,8 @@
 // This header holds both bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
 // (rollout_lerp.cu, rollout_lerp_target.cu, rollout_score.cu,
-// rollout_clipped.cu, rollout_exp.cu),
+// rollout_clipped.cu, rollout_exp.cu; the potential form's two bodies, which
+// run the net's backward pass too, live whole in rollout_potential.cu),
 // so that the build runs one nvcc per form side by side; rollout.cu holds
 // the C entry points.
 #pragma once
@@ -141,6 +145,7 @@ constexpr int kScoreEm = 1;    // kernel 1, ScoreCtrl (PIS, EulerDDS)
 constexpr int kScoreExp = 2;   // kernel 2, ScoreCtrl (DDS)
 constexpr int kClippedEm = 3;  // kernel 1, ClippedCtrl (no score)
 constexpr int kLerpTargetEm = 4;  // kernel 1, LerpTargetCtrl (Bridge)
+constexpr int kPotentialEm = 5;   // kernel 1, PotentialCtrl (SubtrajBridge)
 
 // Target whose score an instance inlines.
 constexpr int kFunnel = 0;
@@ -671,6 +676,7 @@ int launch_lerp(const Args& a, int body, int* used);
 int launch_lerp_target(const Args& a, int body, int* used);
 int launch_score(const Args& a, int body, int* used);
 int launch_clipped(const Args& a, int body, int* used);
+int launch_potential(const Args& a, int body, int* used);
 int launch_exp(const Args& a, int body, int* used);
 
 }  // namespace sde_rollout

@@ -1,5 +1,5 @@
 """Reparametrized controls: ClippedCtrl, ScoreCtrl, LerpCtrl and its
-one-sided forms LerpPriorCtrl and LerpTargetCtrl.
+one-sided forms LerpPriorCtrl and LerpTargetCtrl, and PotentialCtrl.
 
 Port of `sde_sampler_tpu/models/reparam.py`. Every wrapper is an
 `nn.Module` called as `ctrl(t, x, clips=None)`. Clip thresholds may be
@@ -155,3 +155,22 @@ class LerpTargetCtrl(LerpCtrl):
 
     def constrain(self, output, t):
         return 2 * output * (1.0 - t / self.sde.terminal_t)
+
+
+class PotentialCtrl(ClippedCtrl):
+    """u = σ(t)·∇ₓΦ(t, x) for the learned scalar potential Φ = clip(net).
+
+    `unnorm_log_prob` exposes Φ, which the subtrajectory losses treat as an
+    unnormalised intermediate log-density. ∇ₓΦ is a `torch.func.grad` of
+    Φ's sum (the clamp's gradient is 0 where |net| > clip_model, as
+    `jnp.clip`'s), so it composes with the forward-mode divergence of
+    `losses.oc.divx_exact` (forward over reverse), runs under
+    `torch.no_grad`, and autograd still reaches the parameters through it.
+    """
+
+    def unnorm_log_prob(self, t, x, clips=None):
+        return self.clipped_base_model(t, x, clips)
+
+    def forward(self, t, x, clips=None):
+        grad = torch.func.grad(lambda xx: self.clipped_base_model(t, xx, clips).sum())(x)
+        return self.sde.diff(t, x) * grad

@@ -43,7 +43,8 @@ LAUNCHES: dict[str, int] = {
 }
 ROLLOUT_INSTANCES = {
     "rollout": {"lerp": ("funnel", "gmm", "wells"), "score": ("funnel", "gmm", "wells"),
-                "clipped": ("none",), "lerp_target": ("funnel", "gmm", "wells")},
+                "clipped": ("none",), "lerp_target": ("funnel", "gmm", "wells"),
+                "potential": ("none",)},
     "rollout_exp": {"score": ("funnel", "gmm", "wells")},
 }
 FORM_LAUNCHES: dict[str, int] = {

@@ -21,11 +21,16 @@ specialised to control forms over a GELU `FourierMLP` with an optional
 - "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2);
 - "clipped", a `ClippedCtrl`, u = clip(net, clip_model) with no score
   (`solver=dis_no_score`, `pis_no_score`), kernel 1 only;
+- "potential", a `PotentialCtrl` over a one-output net (`solver=dis_subtraj`,
+  `bridge_subtraj`), u = σ(s)·∇ₓclip(net, clip_model): every step runs the
+  net forward, keeping its pre-activations, then its backward pass to the
+  state, with the clip's gradient 0 where |net| > clip_model; kernel 1 only;
 
 and, for the forms with a score, to the targets whose score the kernel
 evaluates inline (`TARGET_CODES`): "funnel" (`Funnel`), "gmm" (`GMM`, and
 `Gauss` and `IsotropicGauss` as one-component mixtures) and "wells"
-(`DoubleWell`, `MultiWell`). A ClippedCtrl has no target ("none"). Each
+(`DoubleWell`, `MultiWell`). A ClippedCtrl and a PotentialCtrl have no
+target ("none"). Each
 target has a small float32 table: the mixture's loc (K, d), 1/scale²
 (K, d) and log w_k − Σ_j log scale_kj (K), built on the tensors' device
 per call; the funnel's first-coordinate variance, and the wells' number,
@@ -63,15 +68,18 @@ from sde_sampler_torch.models.reparam import (
     ClippedCtrl,
     LerpCtrl,
     LerpTargetCtrl,
+    PotentialCtrl,
     ScoreCtrl,
     _pick,
 )
 from sde_sampler_torch.ops import build
 
 # kernel 1's control forms (kernel 2 has only the ScoreCtrl one)
-FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3, "lerp_target": 4}
+FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3, "lerp_target": 4, "potential": 5}
 FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped",
-         LerpTargetCtrl: "lerp_target"}
+         LerpTargetCtrl: "lerp_target", PotentialCtrl: "potential"}
+# the forms without a score, whose control is the net alone
+NET_FORMS = ("clipped", "potential")
 # the forms that interpolate a score along t / T and roll out their own SDE
 LERP_FORMS = ("lerp", "lerp_target")
 # the targets whose score the kernels inline
@@ -97,20 +105,22 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
     raises on any other.
 
     `sde` is the SDE the EM update integrates (a LerpCtrl's or
-    LerpTargetCtrl's own, and by default a ClippedCtrl's); the exponential
-    integrator (`update="exp"`) takes none.
+    LerpTargetCtrl's own, and by default a ClippedCtrl's or a
+    PotentialCtrl's); the exponential integrator (`update="exp"`) takes none.
     """
     form = FORMS.get(type(ctrl))
     if form is None:
         raise NotImplementedError(
-            "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, or a "
-            f"LerpTargetCtrl, got {type(ctrl).__name__}"
+            "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, a "
+            f"LerpTargetCtrl or a PotentialCtrl, got {type(ctrl).__name__}"
         )
     if form != "score" and update != "em":
         raise NotImplementedError("the exponential integrator needs a ScoreCtrl")
     base = ctrl.base_model
     if not isinstance(base, FourierMLP) or base.activation != "gelu":
         raise NotImplementedError("the rollout kernels need a GELU FourierMLP")
+    if form == "potential" and base.out_layer.out_features != 1:
+        raise NotImplementedError("the rollout kernel needs a potential net with one output")
     score_model = getattr(ctrl, "score_model", None)
     if score_model is not None and (
         not isinstance(score_model, TimeEmbed) or score_model.dim_out != 1
@@ -119,7 +129,7 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
             "the rollout kernels need a TimeEmbed score net with one output"
         )
     kind, target = "none", None
-    if form != "clipped":
+    if form not in NET_FORMS:
         target = _owner(ctrl.target_score, TARGETS)
         if target is None:
             raise NotImplementedError(
@@ -136,7 +146,7 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
         prior = _owner(ctrl.prior_score, (IsotropicGauss,))
         if prior is None:
             raise NotImplementedError("the rollout kernel needs an IsotropicGauss prior")
-    elif form == "clipped" and sde is None:
+    elif form in NET_FORMS and sde is None:
         sde = ctrl.sde
     if update == "em" and (not isinstance(sde, OU) or type(sde).drift is not OU.drift):
         raise NotImplementedError("the rollout kernel needs an OU-family SDE")
@@ -156,7 +166,8 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     """Per-step tables: the time-embedding rows (T, C) and six scalars per
     step (T, 6) in the column order of csrc/rollout.cuh. EM: drift
     coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
-    (0 for a ClippedCtrl) and the hard-constraint factor of the net output;
+    (0 for a ClippedCtrl and a PotentialCtrl) and the hard-constraint factor
+    of the net output;
     the lerp weight is t / T for the lerp forms and 0 for the others.
     Exponential integrator (`exp=(alpha, sigma)`): a, β²σ², σβ, 0,
     scale_score * clip(score net), 1."""
@@ -167,7 +178,7 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     ones = torch.ones_like(s)
     hard = getattr(ctrl, "hard_constrain", False)
     ctrl_scale = ctrl.constrain(ones, s) if hard else ones
-    if type(ctrl) is ClippedCtrl:
+    if FORMS[type(ctrl)] in NET_FORMS:
         sscore = torch.zeros_like(s)
     else:
         sscore = ctrl.scale_score * ones
@@ -282,6 +293,28 @@ def _target_score(kind, x, table, scalars):
     return torch.cat([-4.0 * (xw * xw - sep) * xw, shift - x[:, n:]], dim=1)
 
 
+def gelu_grad(z):
+    """The exact GELU's derivative: ½(1 + erf(z/√2)) + z·exp(−z²/2)/√(2π)."""
+    return 0.5 * (1.0 + torch.erf(z * math.sqrt(0.5))) + z * torch.exp(
+        -0.5 * z * z) / math.sqrt(2.0 * math.pi)
+
+
+def _potential_grad(x, temb_k, weights, clip_model):
+    """∇ₓclip(net(x), clip_model) of a one-output net by its hand-written
+    backward pass (no autograd): the forward keeping the pre-activations
+    h_0..h_H, δ_H = w_out ⊙ gelu'(h_H), δ_l = (W_l^T δ_{l+1}) ⊙ gelu'(h_l),
+    ∇ₓnet = W_in^T δ_0, set to 0 on rows where |net| > clip_model."""
+    w_in, w_hid, b_hid, w_out, b_out = weights
+    pre = [x @ w_in + temb_k]
+    for l in range(w_hid.shape[0]):
+        pre.append(F.gelu(pre[-1]) @ w_hid[l] + b_hid[l])
+    net = F.gelu(pre[-1]) @ w_out + b_out  # (B, 1)
+    delta = w_out[:, 0] * gelu_grad(pre[-1])
+    for l in reversed(range(w_hid.shape[0])):
+        delta = (delta @ w_hid[l].T) * gelu_grad(pre[l])
+    return torch.where(net.abs() <= clip_model, delta @ w_in.T, 0.0)
+
+
 @torch.no_grad()
 def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
                 scalars, clip_model, clip_score, prior_loc, prior_var):
@@ -293,6 +326,10 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
     for k in range(T):
         drift, diff, dt, w, sscore, cscale = tab[k]
         xs[k] = x
+        if form == "potential":
+            u = diff * _potential_grad(x, temb[k], weights, clip_model)
+            x = x + (drift * x + diff * u) * dt + diff * dbs[k]
+            continue
         h = F.gelu(x @ w_in + temb[k])
         for l in range(w_hid.shape[0]):
             h = F.gelu(h @ w_hid[l] + b_hid[l])
@@ -330,6 +367,8 @@ def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
         )
     if target is not None and target.dim != d:
         raise ValueError(f"the target has dimension {target.dim}, the state {d}")
+    if ctrl.base_model.dim != d:
+        raise ValueError(f"the net takes dimension {ctrl.base_model.dim}, the state {d}")
     x0 = x0.detach().contiguous()
     dbs = dbs.detach().contiguous()
     tab, temb = step_tables(ctrl, sde, ts.detach(), clips, exp)
@@ -400,8 +439,8 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
 
     A LerpCtrl integrates its own SDE and reads its prior and target from
     its bound score methods, a LerpTargetCtrl likewise without a prior; a
-    ClippedCtrl integrates `sde`, by default its own; a ScoreCtrl needs the
-    `sde`. A CUDA tensor launches kernel 1, a CPU tensor runs the plain
+    ClippedCtrl or a PotentialCtrl integrates `sde`, by default its own; a
+    ScoreCtrl needs the `sde`. A CUDA tensor launches kernel 1, a CPU tensor runs the plain
     twin.
     """
     _check_device(x0)

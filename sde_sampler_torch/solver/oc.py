@@ -1,11 +1,22 @@
-"""Diffusion solvers: TrainableDiff, Bridge (DIS), PIS, DDS and EulerDDS.
+"""Diffusion solvers: TrainableDiff, Bridge (DIS), SubtrajBridge, PIS, DDS
+and EulerDDS.
 
-Port of `TrainableDiff`, `Bridge`, `PIS`, `DDS` and `EulerDDS` from
-`sde_sampler_tpu/solver/oc.py`; Bridge with or without a learned inference
-control (`solver=bridge_diff_init`, `bridge`; DIS). Evaluation computes
-both log Z estimators (with and without the Ito integral) from one
-rollout. DDS has no SDE (`sde` is None): its exponential integrator takes
-α and σ from the loss.
+Port of `TrainableDiff`, `Bridge`, `SubtrajBridge`, `PIS`, `DDS` and
+`EulerDDS` from `sde_sampler_tpu/solver/oc.py`; Bridge with or without a
+learned inference control (`solver=bridge_diff_init`, `bridge`; DIS), and
+its log-variance training over random subtrajectories (`solver=dis_subtraj`,
+`bridge_subtraj`). Evaluation computes both log Z estimators (with and
+without the Ito integral) from one rollout. DDS has no SDE (`sde` is None):
+its exponential integrator takes α and σ from the loss.
+
+The subtrajectory window. The JAX package runs a subtrajectory on a
+power-of-two bucket of the time grid, clipped to [ts[idx_init],
+ts[idx_end]] so that the steps outside the window have dt = 0; those no-op
+steps exist only for its compile cache (one trace per bucket length). A
+dt = 0 step adds nothing to the cost or the Ito sum and leaves the state
+as it is, so the port runs exactly the steps idx_init, ..., idx_end - 1 of
+the grid: one rollout of that length, one kernel launch on the card.
+`bucket_subtraj` is accepted and has no effect.
 """
 from __future__ import annotations
 
@@ -14,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from sde_sampler_torch.distr.base import Distribution
+from sde_sampler_torch.distr.base import Distribution, sample_uniform
 from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.gauss import Gauss
 from sde_sampler_torch.eq.sdes import OU, ControlledSDE
@@ -166,6 +177,113 @@ class Bridge(TrainableDiff):
             initial_log_prob=self.prior.log_prob,
             generator=self.generator,
         )
+
+
+class SubtrajBridge(Bridge):
+    """Log-variance training over random subtrajectories.
+
+    With probability `subtraj_prob` a step trains on the window [idx_init,
+    idx_end] of the grid (host-side draws from numpy's generator at seed + 1,
+    in the JAX package's order) and otherwise on the whole trajectory. A
+    window starts from uniform samples on the domain (lerped from the
+    prior's toward the target's at t_init / T with `lerp_domain`); its end
+    log-densities are the learned potentials (`PotentialCtrl.unnorm_log_prob`,
+    the generative and inference ones summed), the initial one with
+    gradients and the terminal one detached, except the prior at t = 0 and
+    the clipped target at t = T. The loss is scaled by the window's share
+    of the grid's points. The window is run exactly (module docstring).
+    """
+
+    def __init__(self, cfg: dict):
+        super().__init__(cfg=cfg)
+        if not hasattr(self.generative_ctrl, "unnorm_log_prob"):
+            raise ValueError("Needs an unnormalized log density.")
+        if self.loss.method not in ["lv", "lv_traj"]:
+            raise ValueError("Can only be used with log-variance loss.")
+        if self.target.domain is None:
+            raise ValueError("Need a domain for sampling.")
+        self.subtraj_prob = cfg.get("subtraj_prob", 0.5)
+        self.fix_terminal = cfg.get("fix_terminal", False)
+        self.subtraj_steps = cfg.get("subtraj_steps")
+        if self.fix_terminal and self.subtraj_steps is not None:
+            raise ValueError(
+                "Cannot fix subtrajectory steps with fixed terminal time."
+            )
+        self.lerp_domain = cfg.get("lerp_domain", True)
+        self._rng = np.random.default_rng(int(cfg.get("seed", 0)) + 1)
+        # the window of the step being taken (None: the whole trajectory),
+        # and every window taken so far
+        self._window: tuple[int, int] | None = None
+        self.windows: list[tuple[int, int]] = []
+
+    def _potential_log_prob(self, clips, t, x, detach: bool):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
+            out = self.generative_ctrl.unnorm_log_prob(
+                t, x, clips=clips.get("generative_ctrl"))
+            if self.inference_ctrl is not None:
+                out = out + self.inference_ctrl.unnorm_log_prob(
+                    t, x, clips=clips.get("inference_ctrl"))
+        return out
+
+    def draw_window(self) -> tuple[int, int] | None:
+        """The next step's window (idx_init, idx_end), or None for the whole
+        trajectory: the JAX package's draws in its order."""
+        if self._rng.random() > self.subtraj_prob:
+            return None
+        ts_len = self.train_ts.shape[0]
+        idx_init = int(self._rng.integers(0, ts_len - 1))
+        if self.fix_terminal:
+            idx_end = ts_len - 1
+        elif self.subtraj_steps is not None:
+            idx_end = min(idx_init + int(self.subtraj_steps), ts_len - 1)
+        else:
+            idx_end = int(self._rng.integers(idx_init + 1, ts_len))
+        return idx_init, idx_end
+
+    def compute_subtraj_loss(self, clips, idx_init: int, idx_end: int, x0=None, dbs=None):
+        """The loss of the window [idx_init, idx_end]; x0 and dbs (the
+        window's idx_end - idx_init increments) override the drawn ones."""
+        ts = self.train_ts
+        n = ts.shape[0]
+        t_init, t_end = ts[idx_init], ts[idx_end]
+        if x0 is None:
+            domain = self.target.domain
+            if self.lerp_domain:
+                w = t_init / self.sde.terminal_t
+                domain = self.prior.domain + (domain - self.prior.domain) * w
+            x0 = sample_uniform(domain, self.train_batch_size, generator=self.generator)
+
+        def initial_log_prob(x):
+            if idx_init == 0:
+                return self.prior.log_prob(x)
+            return self._potential_log_prob(clips, t_init, x, detach=False)
+
+        def terminal_log_prob(x):
+            if idx_end == n - 1:
+                return self.clipped_target_unnorm_log_prob(x)
+            return self._potential_log_prob(clips, t_end, x, detach=True)
+
+        loss, metrics = self.bound_loss(clips)(
+            ts[idx_init : idx_end + 1], x0, terminal_log_prob,
+            initial_log_prob=initial_log_prob, dbs=dbs, generator=self.generator,
+        )
+        return loss * (idx_end - idx_init + 1) / n, metrics
+
+    def compute_loss(self, clips, x0=None, dbs=None):
+        if self._window is None:
+            return super().compute_loss(clips, x0=x0, dbs=dbs)
+        return self.compute_subtraj_loss(clips, *self._window, x0=x0, dbs=dbs)
+
+    def step(self, x0=None, dbs=None) -> dict:
+        """One optimizer step (the base step's guard, EMA and schedulers) on
+        the whole trajectory or on a drawn window."""
+        self._window = self.draw_window()
+        if self._window is not None:
+            self.windows.append(self._window)
+        try:
+            return super().step(x0=x0, dbs=dbs)
+        finally:
+            self._window = None
 
 
 class PIS(TrainableDiff):

@@ -33,7 +33,13 @@ from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, LerpTargetCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import (
+    ClippedCtrl,
+    LerpCtrl,
+    LerpTargetCtrl,
+    PotentialCtrl,
+    ScoreCtrl,
+)
 from sde_sampler_torch.utils.common import get_timesteps
 
 pytestmark = pytest.mark.cuda
@@ -490,6 +496,9 @@ def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):
 # and gauss_shift (K = 1, d = 1); the wells: mw (d = 5), dw_shift (d = 1)
 # and a MultiWell with Gaussian coordinates (d = 12). The LerpTargetCtrl
 # (solver=bridge) on the grid and on a three-component mixture at d = 5.
+# The PotentialCtrl (solver=dis_subtraj, bridge_subtraj; the net's backward
+# pass in every step) at the mixture's d = 2 and at d = 16, the widest the
+# fast body holds.
 TARGET_INSTANCES = {
     "lerp.gmm": ("lerp", lambda: GMM(name="grid"), 2),
     "lerp.gmm.multi": ("lerp", lambda: GMM(name="multi", domain_tol=None), 2),
@@ -503,6 +512,8 @@ TARGET_INSTANCES = {
     "lerp_target.gmm.d5": ("lerp_target", lambda: GMM(
         dim=5, loc=np.linspace(-3, 3, 15).reshape(3, 5), scale=np.full((3, 5), 0.8),
         mixture_weights=np.array([0.2, 0.3, 0.5]), domain_tol=None), 5),
+    "potential.none": ("potential", None, 2),
+    "potential.none.d16": ("potential", None, 16),
     "exp.gmm": ("exp", lambda: GMM(name="grid"), 2),
     "exp.wells": ("exp", lambda: MultiWell(dim=5, n_double_wells=5, separation=4.0), 5),
 }
@@ -524,9 +535,11 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
         sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
     else:
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
-    base = FourierMLP(dim=d)
+    base = FourierMLP(dim=d, dim_out=1 if form == "potential" else None)
     if form == "clipped":
         ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
+    elif form == "potential":
+        ctrl = PotentialCtrl(base_model=base, clip_model=10.0, sde=sde)
     else:
         target = make_target().to(cuda)
         # the score nets' last bias of conf/model/lerp.yaml (1) and score.yaml (0.01)
@@ -610,6 +623,47 @@ def test_wide_wells_take_the_generic_body_by_shape(cuda):
     xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
     torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+
+
+def test_wide_potential_takes_the_generic_body_by_shape(cuda):
+    """The PotentialCtrl at d = 50: the generic body, by shape, at the
+    rollout's tolerance; asking for the fast body raises."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    spec = ("potential", None, 50)
+    prepare, x0, ts, noise = instance_setup(cuda, "potential.none.d50", spec=spec)
+    before = build.FORM_LAUNCHES["rollout.potential.generic"]
+    xs, x_T = ro._launch(prepare(x0, ts, noise))
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES["rollout.potential.generic"] == before + 1
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    with pytest.raises(RuntimeError):
+        ro._launch(prepare(x0, ts, noise), "fast")
+
+
+def test_potential_clip_zeroes_the_control_on_the_card(cuda):
+    """Rows whose |net| exceeds clip_model get no control: with a clip below
+    every row's |net| the kernel integrates the bare SDE, bit for bit the
+    plain twin's update with a zero gradient."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    prepare, x0, ts, noise = instance_setup(cuda, "potential.none")
+    prepared = prepare(x0, ts, noise)
+    prepared[1]["clip_model"] = 0.0
+    with torch.no_grad():  # every net output away from 0
+        prepared[0][8].fill_(1.0)
+    xs, x_T = ro._launch(prepared)
+    xs_p, xT_p = ro._run_plain(prepared)
+    torch.testing.assert_close(xs, xs_p, atol=1e-6, rtol=1e-6)
+    tab = prepared[0][2]
+    x = x0
+    for k in range(noise.shape[0]):  # the bare EM update, no control
+        drift, diff, dt = tab[k, 0], tab[k, 1], tab[k, 2]
+        x = x + (drift * x) * dt + diff * noise[k]
+    torch.testing.assert_close(x_T, x, atol=1e-6, rtol=1e-6)
 
 
 def test_unsupported_target_instances_raise_before_the_launch(cuda):

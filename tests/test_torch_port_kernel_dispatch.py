@@ -11,6 +11,7 @@ Sinkhorn kernels' splits themselves live in the library and are tested on
 the card. No JAX: the plain versions' parity with the JAX package is held
 in tests/test_torch_port_{rollout,dds,sinkhorn}.py.
 """
+import math
 import types
 
 import numpy as np
@@ -22,7 +23,7 @@ from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
 from sde_sampler_torch.eq.sdes import VP
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, PotentialCtrl, ScoreCtrl
 from sde_sampler_torch.ops import build
 from sde_sampler_torch.ops import rollout as ro
 from sde_sampler_torch.ops import sinkhorn as sk
@@ -194,6 +195,34 @@ def test_rollout_launch_passes_a_requested_body(fake_library, body):
     ro._launch(prepared_rollout("lerp"), body)
     (args,) = fake_library.calls
     assert args[-3] == ro.BODY_CODES[body]
+
+
+@pytest.mark.parametrize("reported", ["fast", "generic"])
+def test_potential_rollout_launch_passes_its_one_output_net(fake_library, reported):
+    """A PotentialCtrl launches kernel 1's form 5 with no target: the
+    out_layer goes as (C, 1), its bias as one float, and the clip_model by
+    value; the launch counts as rollout.potential.none."""
+    fake_library.body = reported
+    d = 3
+    x0, ts, dbs = rollout_inputs(d, T=6)
+    ctrl = PotentialCtrl(base_model=FourierMLP(dim=d, dim_out=1, channels=16), clip_model=4.0,
+                         sde=VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0))
+    ctrl.reset_parameters(torch.Generator().manual_seed(0))
+    prepared = ro._prepare(ctrl, x0, ts, dbs, {"clip_model": 2.5})
+    w_out, b_out = prepared[0][7], prepared[0][8]
+    assert w_out.shape == (16, 1) and b_out.shape == (1,)
+    before = dict(build.FORM_LAUNCHES)
+    ro._launch(prepared)
+    (args,) = fake_library.calls
+    assert args[7] == w_out.data_ptr() and args[8] == b_out.data_ptr()
+    assert args[12:18] == (5, d, 16, 2, 6, 0)
+    assert args[18] == 2.5 and math.isinf(args[19])
+    assert args[-5] == ro.FORM_CODES["potential"] == 5
+    assert args[-4] == ro.TARGET_CODES["none"]
+    for key in ("rollout.potential", "rollout.potential.none"):
+        assert build.FORM_LAUNCHES[key] == before[key] + 1
+    assert build.FORM_LAUNCHES["rollout.potential.generic"] == (
+        before["rollout.potential.generic"] + (reported == "generic"))
 
 
 def test_failed_rollout_launch_raises_and_counts_nothing(fake_library):
