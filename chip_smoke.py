@@ -13,9 +13,11 @@ prints nvcc's register and spill report. Phases:
            its LerpCtrl form on the DIS grid and its ScoreCtrl form on the VP
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
            grid, kernel 1's generic body (a 32-wide net), each instance of
-           the mixture, wells, ClippedCtrl, LerpTargetCtrl and PotentialCtrl
-           forms (INSTANCES; the LerpTargetCtrl's and the PotentialCtrl's in
-           both bodies, the PotentialCtrl's also at d = 50), softmin and
+           the mixture, wells, rings, Rosenbrock, ClippedCtrl, LerpTargetCtrl,
+           PotentialCtrl and CancelDriftCtrl forms (INSTANCES; the
+           LerpTargetCtrl's, the PotentialCtrl's, the rings', the
+           Rosenbrock's and the CancelDriftCtrl's in both bodies, the
+           PotentialCtrl's also at d = 50), softmin and
            transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
            edges at 100k (a column split of -inf duals, rows that see only
            -inf) and transport's (a column split of -inf duals, every dual
@@ -41,15 +43,27 @@ prints nvcc's register and spill report. Phases:
                         step of kernel 1), half the steps on a subtrajectory
                         that ends at T, 220 steps, 100k evaluation; it logs
                         how many steps took a subtrajectory and their lengths;
+             rings_dis  the rings (d = 2) under DIS, 220 steps, 100k
+                        evaluation (no sampler: no Sinkhorn);
+             gmm_langevin  the untrained Langevin solver at its full config
+                        (conf/solver/langevin.yaml: 6000 chains, 10000 Euler
+                        steps of dt 0.01, 1000 output steps, burn-in 500),
+                        plain torch on the card, then the Sinkhorn at 6000;
+             rings_langevin_heun  the adaptive Heun integrator on the
+                        port's Brownian tree, 500 chains over T = 1; it logs
+                        its accepted and rejected steps;
              dds_euler, pis (funnel), mw_dds (d = 5, kernel 2),
              mw_50d_dis (d = 50, the generic body), dw_shift_pis (d = 1),
              gmm_dis_no_score (the ClippedCtrl), gmm_bridge (the
              LerpTargetCtrl on the scaled BM, a LerpPriorCtrl inference
-             control) and gmm_bridge_subtraj (PotentialCtrl generative and
-             inference controls, subtrajectories of any length): 20 steps,
-             10k eval;
+             control), gmm_bridge_subtraj (PotentialCtrl generative and
+             inference controls, subtrajectories of any length),
+             rosenbrock_dis (d = 15, the objective metrics) and
+             gmm_dds_euler_langevin_init (the CancelDriftCtrl against the
+             VP drift): 20 steps, 10k eval;
   timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
-           steps and the mixture SubtrajBridge's, on the whole trajectory and
+           steps, the rings DIS, Rosenbrock DIS and langevin_init EulerDDS
+           steps, and the mixture SubtrajBridge's, on the whole trajectory and
            on a subtrajectory (with a profiler breakdown; for the Bridge also
            the card time of phase 2's divergence), each kernel and instance through its
            wrapper, alone and as its plain version at its path's shapes
@@ -174,14 +188,34 @@ PATHS = {
                                kernels=("rollout.potential.none", *SINKHORN),
                                steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
                                subtraj=True),
+    # the rings have no sampler (no Sinkhorn); their LB means are held to
+    # their finite means, as the short paths' are
+    "rings_dis": dict(target="rings", solver="dis", kernels=("rollout.lerp.rings",),
+                      steps=None, eval=None, log_z=FINITE_LOG_Z_KEYS, sinkhorn=False),
+    "rosenbrock_dis": dict(target="rosenbrock", solver="dis",
+                           kernels=("rollout.lerp.rosenbrock",), steps=SHORT_STEPS,
+                           eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, sinkhorn=False,
+                           extra_keys=["eval/obj_avg", "eval/avg_obj", "eval/min_obj"]),
+    "gmm_dds_euler_langevin_init": dict(
+        target="gmm", solver="dds_euler", overrides=["model@generative_ctrl=langevin_init"],
+        kernels=("rollout.cancel_drift.gmm", *SINKHORN), steps=SHORT_STEPS, eval=SHORT_EVAL,
+        log_z=FINITE_LOG_Z_KEYS),
+    # the untrained Langevin solver: no training, no log Z; its own config's
+    # chains (6000, the Sinkhorn's n) unless cut
+    "gmm_langevin": dict(target="gmm", solver="langevin", kernels=SINKHORN, langevin=True),
+    "rings_langevin_heun": dict(target="rings", solver="langevin", kernels=(), langevin=True,
+                                sinkhorn=False,
+                                overrides=["integrator=torchsde_heun", "eval_batch_size=500",
+                                           "sde.terminal_t=1"]),
 }
 # The rollout instances beyond the funnel's, each checked against its plain
 # twin and timed at the shapes of the path that runs it (gmm_dis,
 # gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis, gmm_bridge,
-# gmm_dis_subtraj): label (the kernels line's name) -> control form ("exp":
-# kernel 2's) and target (conf/target/*.yaml); `bodies`: also checked in the
-# generic body, which must give the fast body's bits; `source`: where the
-# form's kernels live, if not in rollout.cuh.
+# gmm_dis_subtraj, rings_dis, rosenbrock_dis, gmm_dds_euler_langevin_init):
+# label (the kernels line's name) -> control form ("exp": kernel 2's) and
+# target (conf/target/*.yaml); `bodies`: also checked in the generic body,
+# which must give the fast body's bits; `source`: where the form's kernels
+# live, if not in rollout.cuh.
 INSTANCES = {
     "rollout.lerp.gmm": dict(form="lerp", target="gmm"),
     "rollout.clipped.none": dict(form="clipped", target="gmm"),
@@ -191,6 +225,9 @@ INSTANCES = {
     "rollout.lerp_target.gmm": dict(form="lerp_target", target="gmm", bodies=True),
     "rollout.potential.none": dict(form="potential", target="gmm", bodies=True,
                                    source="sde_sampler_torch/csrc/rollout_potential.cu"),
+    "rollout.lerp.rings": dict(form="lerp", target="rings", bodies=True),
+    "rollout.lerp.rosenbrock": dict(form="lerp", target="rosenbrock", bodies=True),
+    "rollout.cancel_drift.gmm": dict(form="cancel_drift", target="gmm", bodies=True),
 }
 WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
 
@@ -340,8 +377,10 @@ def conf_target(name: str, device):
 # flops of a form's control and update, and of a target's inline score, per
 # coordinate (rollout_work); a mixture's are counted by its K
 FORM_FLOPS = {"lerp": 17, "lerp_target": 13, "score": 12, "exp": 12, "clipped": 8,
-              "potential": 8}
-TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0}
+              "potential": 8, "cancel_drift": 17}
+# the rings: |x|, the nearest of 3 radii and the score, about 12 a
+# coordinate at d = 2; the Rosenbrock's score of both neighbours, 14
+TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0, "rings": 12, "rosenbrock": 14}
 
 
 def seeded_instance(device, label, seed, dim=None):
@@ -359,6 +398,7 @@ def seeded_instance(device, label, seed, dim=None):
     from sde_sampler_torch.eq.sdes import VP, ScaledBM
     from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
     from sde_sampler_torch.models.reparam import (
+        CancelDriftCtrl,
         ClippedCtrl,
         LerpCtrl,
         LerpTargetCtrl,
@@ -391,6 +431,10 @@ def seeded_instance(device, label, seed, dim=None):
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
         cls = ClippedCtrl if form == "clipped" else PotentialCtrl
         ctrl = cls(base_model=base, clip_model=10.0, sde=sde)
+    elif form == "cancel_drift":  # dds_euler + conf/model/langevin_init.yaml on vp_10
+        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
+        ctrl = CancelDriftCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
+                               target_score=target.score, langevin_init=True, **clips)
     else:
         if form == "score":  # PIS: the scaled BM of conf/sde/bm_pis.yaml
             sde = ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0)
@@ -688,10 +732,14 @@ def phase_kernels(device, report):
 def main_overrides(path: str, run_dir: Path, train_steps: int, eval_batch: int) -> list[str]:
     spec = PATHS[path]
     overrides = [
-        f"target={spec['target']}", f"solver={spec['solver']}",
-        "plot_results=False", "eval_init=False", "store_last_ckpt=False",
-        f"train_steps={train_steps}", f"eval_batch_size={eval_batch}",
-        "log_interval=50", f"out_dir={run_dir}", f"seed={SEED}",
+        f"target={spec['target']}", f"solver={spec['solver']}", *spec.get("overrides", ()),
+        "plot_results=False", "store_last_ckpt=False", f"out_dir={run_dir}", f"seed={SEED}",
+    ]
+    if spec.get("langevin"):  # nothing to train; its own config's chains
+        return overrides
+    overrides += [
+        "eval_init=False", f"train_steps={train_steps}", f"eval_batch_size={eval_batch}",
+        "log_interval=50",
     ]
     if spec["solver"] == "dis":
         overrides.insert(2, "loss.method=lv")
@@ -715,6 +763,8 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
     solver_obj = entry.main(main_overrides(path, run_dir, train_steps, eval_batch))
     seconds = time.perf_counter() - start
     launches = {k: v for k, v in {**build.LAUNCHES, **build.FORM_LAUNCHES}.items() if v}
+    if spec.get("langevin"):
+        train_steps, eval_batch = 0, int(solver_obj.cfg["eval_batch_size"])
     print(f"path {path}: {train_steps} steps + final eval ({eval_batch} samples) in "
           f"{seconds:.1f} s; launches {launches}", flush=True)
     for key in spec["kernels"]:
@@ -751,10 +801,14 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
             fail(f"{path}: {build.FORM_LAUNCHES['rollout.potential.none']} potential rollout "
                  f"launches for {train_steps} optimizer steps")
 
+    if spec.get("langevin"):
+        return langevin_result(path, solver_obj, seconds, eval_batch, launches, report)
     lines = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [l["train/loss"] for l in lines if "train/loss" in l]
     final = solver_obj.last_metrics
-    keys = spec["log_z"] + ["eval/effective_sample_size", "error/sinkhorn"]
+    keys = spec["log_z"] + ["eval/effective_sample_size"] + spec.get("extra_keys", [])
+    if spec.get("sinkhorn", True):
+        keys.append("error/sinkhorn")
     summary = {k: final[k] for k in keys + ["eval/n_nonfinite_rnd", "eval/n_filtered_rnd"]}
     summary["train/loss_last"] = losses[-1] if losses else None
     summary["clip_model"] = solver_obj.scheduled_params["generative_ctrl.clip_model"]
@@ -765,13 +819,41 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"{path}: non-finite training loss")
     if not all(math.isfinite(final[k]) for k in keys):
-        fail(f"{path}: non-finite log Z, ESS or Sinkhorn value")
+        fail(f"{path}: non-finite log Z, ESS, objective or Sinkhorn value")
     if summary["clip_model"] == 10.0 and train_steps > 200:
         fail(f"{path}: the clip milestone at step 200 did not fire")
     report.setdefault("paths", {})[path] = {
         "seconds": seconds, **summary, "train_steps": train_steps,
         "eval_batch_size": eval_batch, "launches": launches, "subtraj": subtraj,
     }
+    return solver_obj
+
+
+def langevin_result(path, solver_obj, seconds, n_chains, launches, report):
+    """The Langevin paths' check: finite burn-in expectations and, with a
+    sampler, a finite Sinkhorn; their sampling time, and the adaptive
+    integrator's accepted and rejected steps."""
+    spec = PATHS[path]
+    final = solver_obj.last_metrics
+    keys = [f"eval/{name}_direct" for name in ("square", "abs", "sum", "square_minus_sum")]
+    if spec.get("sinkhorn", True):
+        keys.append("error/sinkhorn")
+    summary = {k: final[k] for k in keys}
+    summary["sample_seconds"] = final["eval/sample_time"]
+    summary["output_steps"] = int(solver_obj.eval_ts.shape[0] - 1)
+    integrator = solver_obj.integrator
+    summary["integrator"] = type(integrator).__name__
+    if hasattr(integrator, "n_accepted"):
+        summary["accepted_steps"] = integrator.n_accepted
+        summary["rejected_steps"] = integrator.n_rejected
+    print(f"path {path} result ({n_chains} chains, rollout {summary['sample_seconds']:.3f} s): "
+          + json.dumps(summary), flush=True)
+    if not all(math.isfinite(final[k]) for k in keys):
+        fail(f"{path}: non-finite expectation or Sinkhorn value")
+    if summary.get("accepted_steps") == 0:
+        fail(f"{path}: the adaptive integrator accepted no step")
+    report.setdefault("paths", {})[path] = {
+        "seconds": seconds, **summary, "chains": n_chains, "launches": launches}
     return solver_obj
 
 
@@ -782,7 +864,8 @@ def phase_main(args, report):
     solvers = {}
     for path, spec in PATHS.items():
         solvers[path] = drive_path(
-            path, spec["steps"] or args.train_steps, spec["eval"] or args.eval_batch, report)
+            path, spec.get("steps") or args.train_steps, spec.get("eval") or args.eval_batch,
+            report)
     return solvers
 
 
@@ -884,6 +967,10 @@ def phase_timing(solvers, device, report):
         dds = solvers["dds"]
         report["dds_step"] = time_steps(dds, dds.train_ts.shape[0] - 1, "DDS")
         report["gmm_step"] = time_steps(solvers["gmm_dis"], STEPS, "GMM DIS")
+        report["rings_step"] = time_steps(solvers["rings_dis"], STEPS, "Rings DIS")
+        report["rosenbrock_step"] = time_steps(solvers["rosenbrock_dis"], STEPS, "Rosenbrock DIS")
+        report["langevin_init_step"] = time_steps(
+            solvers["gmm_dds_euler_langevin_init"], STEPS, "GMM EulerDDS (langevin_init)")
         bridge = solvers["gmm_bridge_diff_init"]
         report["bridge_step"] = time_steps(bridge, STEPS, "GMM Bridge (diff init)")
         report["bridge_step"]["divergence"] = divergence_share(
@@ -1107,6 +1194,7 @@ def main():
     from sde_sampler_torch.ops import build
     from sde_sampler_torch.utils.device import resolve_device
 
+    run_start = time.perf_counter()
     device = resolve_device(None)
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1141,6 +1229,8 @@ def main():
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,
         })
+    report["seconds"] = time.perf_counter() - run_start
+    print(f"phases {args.phases} done in {report['seconds']:.1f} s", flush=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

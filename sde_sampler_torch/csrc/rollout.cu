@@ -1,16 +1,24 @@
 // The C entry points of the rollout kernels (rollout.cuh): kernel 1, the
-// EM rollout, in its LerpCtrl, ScoreCtrl, ClippedCtrl, LerpTargetCtrl and
-// PotentialCtrl forms, and kernel 2, the exponential integrator of a ScoreCtrl.
+// EM rollout, in its LerpCtrl, ScoreCtrl, ClippedCtrl, LerpTargetCtrl,
+// PotentialCtrl and CancelDriftCtrl forms, and kernel 2, the exponential
+// integrator of a ScoreCtrl.
 #include "rollout.cuh"
 
 using namespace sde_rollout;
 
+// Floats of the target's table: the mixture's loc, 1/scale^2 and
+// constants, or the rings' K radii.
+static int table_floats(int target, int K, int D) {
+  return target == kGmm ? K * (2 * D + 1) : (target == kRings ? K : 0);
+}
+
 // Kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS) instance, 1 the
 // ScoreCtrl one, 3 the ClippedCtrl one (target kNoTarget), 4 the
 // LerpTargetCtrl one (Bridge; the prior arguments unused), 5 the
-// PotentialCtrl one (target kNoTarget; w_out (C, 1), b_out (1)); target, K and
-// t0..t2 as in Consts, `gmm` the mixture's table; `body` and `used` as for
-// `launch`.
+// PotentialCtrl one (target kNoTarget; w_out (C, 1), b_out (1)), 6 the
+// CancelDriftCtrl one; target and t0..t2 as in Consts; `gmm` the target's
+// table (the mixture's, or the rings' radii), K its count (the mixture's
+// components, or the radii); `body` and `used` as for `launch`.
 extern "C" int rollout_launch(
     const float* x0, const float* dbs, const float* tab, const float* temb,
     const float* w_in, const float* w_hid, const float* b_hid,
@@ -21,13 +29,14 @@ extern "C" int rollout_launch(
   const Args a{x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, gmm, xs, x_T,
                B, D, C, H, T, target,
                {clip_model, clip_score, prior_loc, prior_var, t0, t1, t2,
-                target == kGmm ? K : 0},
+                target == kGmm ? K : 0, table_floats(target, K, D)},
                (cudaStream_t)stream};
   if (form == kLerpEm) return launch_lerp(a, body, used);
   if (form == kScoreEm) return launch_score(a, body, used);
   if (form == kLerpTargetEm) return launch_lerp_target(a, body, used);
   if (form == kClippedEm && target == kNoTarget) return launch_clipped(a, body, used);
   if (form == kPotentialEm && target == kNoTarget) return launch_potential(a, body, used);
+  if (form == kCancelDriftEm) return launch_cancel_drift(a, body, used);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -40,7 +49,8 @@ extern "C" int rollout_exp_launch(
     float t0, float t1, float t2, int target, int body, int* used, void* stream) {
   const Args a{x0, noise, tab, temb, w_in, w_hid, b_hid, w_out, b_out, gmm, xs, x_T,
                B, D, C, H, T, target,
-               {clip_model, clip_score, 0.0f, 1.0f, t0, t1, t2, target == kGmm ? K : 0},
+               {clip_model, clip_score, 0.0f, 1.0f, t0, t1, t2, target == kGmm ? K : 0,
+                table_floats(target, K, D)},
                (cudaStream_t)stream};
   return launch_exp(a, body, used);
 }

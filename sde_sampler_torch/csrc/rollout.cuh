@@ -23,6 +23,13 @@
 //   potential (PotentialCtrl over a one-output net, SubtrajBridge; kernel 1
 //   only; its own kernels, in rollout_potential.cu):
 //     u = diff[k] * grad_x clip(FourierMLP(s, x), clip_model)
+//   cancel_drift (CancelDriftCtrl, model=langevin_init; kernel 1 only):
+//     u = clip(FourierMLP(s, x), clip_model)
+//         + ((scale[k] * clip(target score, clip_score)) * sscore[k]
+//            - drift[k] * x) / diff[k]
+//     in the JAX package's order: the drift is subtracted inside u and
+//     added back by the EM update; scale[k] is diff[k]^2 / 2 with
+//     langevin_init, else scale_score (in the lerp weight's column);
 //
 // and the updates
 //
@@ -44,7 +51,20 @@
 //     sum_k e_k (loc_kj - x_j) / scale_kj^2 / sum_k e_k; the table (loc,
 //     1/scale^2, c) lies in shared memory;
 //   wells (DoubleWell, MultiWell): -4 ((x - shift)^2 - sep) (x - shift) on
-//     the first n coordinates, shift - x on the rest; elementwise.
+//     the first n coordinates, shift - x on the rest; elementwise;
+//   rings (Rings, d = 2 only): -2 scale (1 - c / (|x| + eps)) x with c the
+//     radius nearest |x| (the first on ties), from the row's |x| and c; the
+//     radii lie in shared memory;
+//   rosenbrock (Rosenbrock): -g_j / flatness with
+//     g_j = [j < d-1] (-400 x_j)(x_{j+1} - x_j^2) - 2 (1 - x_j)
+//         + [j > 0] 200 (x_j - x_{j-1}^2),
+//     which needs the row's neighbours: the row phase writes the whole
+//     score row, one (row, coordinate) pair a thread.
+//
+// The row reductions of the rings and Rosenbrock, and the cancel_drift
+// form's control, round every operation on its own (__fmul_rn and kin), so
+// that nvcc contracts none of them into an fma: the plain twin
+// (ops/rollout.py) computes the same roundings.
 //
 // The target is a template parameter, like the form and d: each instance
 // compiles only its own target's code. A runtime switch on a target code,
@@ -61,12 +81,13 @@
 // start s = ts[k] is computed before the launch by the wrapper
 // (ops/rollout.py) as tables: the FourierMLP time-embedding row folded with
 // the input_embed bias (T, C), and six scalars per step (T, 6): drift
-// coefficient, diffusion, dt, lerp weight (t / T for the lerp forms),
-// sscore, ctrl scale for EM, or
+// coefficient, diffusion, dt, lerp weight (t / T for the lerp forms; the
+// score's scale for cancel_drift), sscore, ctrl scale for EM, or
 // a, b2s2, sb, unused, sscore, unused for the exponential integrator.
 // sscore is scale_score * clip(score_net(s), clip_model) (0 for a
-// ClippedCtrl). xs[k] receives the state before step k (xs[0] = x0) and
-// x_T the state after the last step.
+// ClippedCtrl; clip(score_net(s), clip_model) alone for cancel_drift).
+// xs[k] receives the state before step k (xs[0] = x0) and x_T the state
+// after the last step.
 //
 // Bound on an H100: operations. Per step and row the net does
 // 2 * (d*C + H*C*C + C*d) flops (about 19k at d = 10, C = 64, H = 2) while
@@ -104,7 +125,8 @@
 // This header holds both bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
 // (rollout_lerp.cu, rollout_lerp_target.cu, rollout_score.cu,
-// rollout_clipped.cu, rollout_exp.cu; the potential form's two bodies, which
+// rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu; the
+// potential form's two bodies, which
 // run the net's backward pass too, live whole in rollout_potential.cu),
 // so that the build runs one nvcc per form side by side; rollout.cu holds
 // the C entry points.
@@ -146,25 +168,33 @@ constexpr int kScoreExp = 2;   // kernel 2, ScoreCtrl (DDS)
 constexpr int kClippedEm = 3;  // kernel 1, ClippedCtrl (no score)
 constexpr int kLerpTargetEm = 4;  // kernel 1, LerpTargetCtrl (Bridge)
 constexpr int kPotentialEm = 5;   // kernel 1, PotentialCtrl (SubtrajBridge)
+constexpr int kCancelDriftEm = 6;  // kernel 1, CancelDriftCtrl (langevin_init)
 
 // Target whose score an instance inlines.
 constexpr int kFunnel = 0;
 constexpr int kGmm = 1;       // GMM, Gauss and IsotropicGauss
 constexpr int kWells = 2;     // DoubleWell, MultiWell
 constexpr int kNoTarget = 3;  // the ClippedCtrl's
+constexpr int kRings = 4;     // Rings (d = 2)
+constexpr int kRosenbrock = 5;
 
 // t0..t2 are the target's scalars: the funnel's first-coordinate variance,
-// or the wells' number (as a float), separation and shift. K is the number
-// of mixture components (0 for the other targets).
+// the wells' number (as a float), separation and shift, the rings'
+// scale and eps, or the Rosenbrock's flatness. K is the number of
+// mixture components (0 for the other targets); n_tab the floats of the
+// target's table: the mixture's K (2 D + 1), the rings' radii, else 0.
 struct Consts {
   float clip_model, clip_score, prior_loc, prior_var;
   float t0, t1, t2;
-  int K;
+  int K, n_tab;
 };
 
-// Floats per row of the row reductions: the funnel's two, or the
-// mixture's K log-weights and K exponentials.
-__host__ __device__ constexpr int row_floats(int K) { return K > 0 ? 2 * K : 2; }
+// Floats per row of the row reductions: the mixture's K log-weights and K
+// exponentials, the Rosenbrock's D scores, else two (the funnel's, the
+// rings' |x| and nearest radius).
+__host__ __device__ constexpr int row_floats(int target, int K, int D) {
+  return target == kGmm ? 2 * K : (target == kRosenbrock ? D : 2);
+}
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
@@ -207,6 +237,11 @@ __device__ __forceinline__ float target_score(float x, int j, int D, const float
       return -4.0f * (xw * xw - cs.t1) * xw;
     }
     return cs.t2 - x;
+  } else if constexpr (kTarget == kRings) {
+    const float radius = row[0], c = row[1];
+    return ((-2.0f * cs.t0) * (1.0f - c / (radius + cs.t1))) * x;
+  } else if constexpr (kTarget == kRosenbrock) {
+    return row[j];
   } else {
     return 0.0f;
   }
@@ -214,9 +249,11 @@ __device__ __forceinline__ float target_score(float x, int j, int D, const float
 
 // The row reductions of a tile of `rows` rows (state x, (rows, D)) that the
 // target score needs, by threads tid = 0..nt-1 of the block: the funnel's
-// (x[:, 0], sum_{i>0} x[:, i]^2), or the mixture's K log-weights of each
+// (x[:, 0], sum_{i>0} x[:, i]^2), the mixture's K log-weights of each
 // (row, component) pair, log w_k - sum_j log scale_kj - 1/2 sum_j
-// (x_j - loc_kj)^2 / scale_kj^2. Into row (rows, row_floats(K)).
+// (x_j - loc_kj)^2 / scale_kj^2, the rings' (|x|, nearest radius), or the
+// Rosenbrock's score of each (row, coordinate) pair. Into row (rows,
+// row_floats). `gmm` is the target's table.
 template <int kTarget>
 __device__ __forceinline__ void row_phase(const float* x, float* row, const float* gmm,
                                           int rows, int D, int tid, int nt,
@@ -229,7 +266,7 @@ __device__ __forceinline__ void row_phase(const float* x, float* row, const floa
       row[2 * r + 1] = sq;
     }
   } else if constexpr (kTarget == kGmm) {
-    const int K = cs.K, RS = row_floats(K);
+    const int K = cs.K, RS = row_floats(kGmm, K, 0);
     const float* inv_var = gmm + K * D;
     const float* cst = gmm + 2 * K * D;
     for (int p = tid; p < rows * K; p += nt) {
@@ -241,6 +278,34 @@ __device__ __forceinline__ void row_phase(const float* x, float* row, const floa
       }
       row[r * RS + k] = fmaf(-0.5f, q, cst[k]);
     }
+  } else if constexpr (kTarget == kRings) {
+    for (int r = tid; r < rows; r += nt) {
+      float sq = 0.0f;
+      for (int j = 0; j < D; ++j) sq = __fadd_rn(sq, __fmul_rn(x[r * D + j], x[r * D + j]));
+      const float radius = sqrtf(sq);
+      float best = 0.0f, c = 0.0f;
+      for (int i = 0; i < cs.n_tab; ++i) {
+        const float dl = radius - gmm[i];
+        const float dd = __fmul_rn(dl, dl);
+        if (i == 0 || dd < best) best = dd, c = gmm[i];
+      }
+      row[2 * r] = radius;
+      row[2 * r + 1] = c;
+    }
+  } else if constexpr (kTarget == kRosenbrock) {
+    for (int p = tid; p < rows * D; p += nt) {
+      const int r = p / D, j = p - r * D;
+      const float* xr = x + r * D;
+      const float xj = xr[j];
+      float g = 0.0f;
+      if (j < D - 1) {
+        const float a = __fmul_rn(__fmul_rn(-400.0f, xj), __fsub_rn(xr[j + 1], __fmul_rn(xj, xj)));
+        g = __fsub_rn(a, __fmul_rn(2.0f, __fsub_rn(1.0f, xj)));
+      }
+      if (j > 0)
+        g = __fadd_rn(g, __fmul_rn(200.0f, __fsub_rn(xj, __fmul_rn(xr[j - 1], xr[j - 1]))));
+      row[p] = __fdiv_rn(-g, cs.t0);
+    }
   }
 }
 
@@ -251,7 +316,7 @@ template <int kTarget>
 __device__ __forceinline__ void exp_phase(float* row, int rows, int tid, int nt,
                                           const Consts& cs) {
   if constexpr (kTarget == kGmm) {
-    const int K = cs.K, RS = row_floats(K);
+    const int K = cs.K, RS = row_floats(kGmm, K, 0);
     for (int p = tid; p < rows * K; p += nt) {
       const int r = p / K, k = p - r * K;
       const float* lw = row + r * RS;
@@ -283,6 +348,12 @@ __device__ __forceinline__ float step_update(float x, float net, float target,
   } else if constexpr (kForm == kClippedEm) {
     const float u = clip(net, cs.clip_model);
     return x + (drift * x + diff * u) * dt + diff * db;
+  } else if constexpr (kForm == kCancelDriftEm) {
+    // w holds the score's scale, sscore the clipped score net
+    const float score = __fmul_rn(__fmul_rn(w, clip(target, cs.clip_score)), sscore);
+    const float u = clip(net, cs.clip_model) +
+                    __fdiv_rn(__fsub_rn(score, __fmul_rn(drift, x)), diff);
+    return x + (drift * x + diff * u) * dt + diff * db;
   } else {
     const float u = clip(net, cs.clip_model) + sscore * clip(target, cs.clip_score);
     if constexpr (kForm == kScoreEm) {
@@ -306,8 +377,8 @@ __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int C, int H, int T,
     Consts cs) {
   extern __shared__ float sm[];
-  const int RS = row_floats(cs.K);
-  const int n_gmm = cs.K * (2 * D + 1);
+  const int RS = row_floats(kTarget, cs.K, D);
+  const int n_gmm = cs.n_tab;
   float* s_win = sm;                   // (D, C)  input_embed weight, (in, out)
   float* s_whid = s_win + D * C;       // (H, C, C)
   float* s_bhid = s_whid + H * C * C;  // (H, C)
@@ -318,7 +389,7 @@ __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
   float* s_b = s_a + kRows * C;        // (kRows, C) activations, pong
   float* s_out = s_b + kRows * C;      // (kRows, D) net output
   float* s_row = s_out + kRows * D;    // (kRows, RS) the target's row reductions
-  float* s_gmm = s_row + kRows * RS;   // (K (2 D + 1)) the mixture's table
+  float* s_gmm = s_row + kRows * RS;   // (n_tab) the target's table
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRows;
@@ -413,12 +484,11 @@ __device__ __forceinline__ void copy_in(float* dst, const float* src, int n) {
   }
 }
 
-// Floats of shared memory the fast body needs at a given D, T and number
-// of mixture components K (0 for a target other than the mixture).
-__host__ __device__ constexpr size_t fast_smem_floats(int D, int T, int K) {
+// Floats of shared memory the fast body needs at a given D and T, with RS
+// floats of row reductions a row and a target table of n_tab floats.
+__host__ __device__ constexpr size_t fast_smem_floats(int D, int T, int RS, int n_tab) {
   return (size_t)T * kFastC + (size_t)T * kTab + 2 * kFastRows * kActStride + D +
-         3 * (size_t)kFastRows * D + (size_t)kFastRows * row_floats(K) +
-         (size_t)K * (2 * D + 1);
+         3 * (size_t)kFastRows * D + (size_t)kFastRows * RS + (size_t)n_tab;
 }
 
 template <int kForm, int kTarget, int D>
@@ -432,7 +502,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   constexpr int C = kFastC, H = kFastH, AS = kActStride, NT = kFastThreads;
   constexpr int RT = kFastRowsPerThread;
   constexpr int R = kFastRows;
-  const int RS = row_floats(cs.K);
+  const int RS = row_floats(kTarget, cs.K, D);
   extern __shared__ float4 sm4[];
   // float4-read arrays first, each at a multiple of 4 floats
   float* s_temb = reinterpret_cast<float*>(sm4);  // (T, C)
@@ -443,7 +513,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   float* s_x = s_bout + D;                        // (R, D) state tile
   float* s_db = s_x + R * D;                      // 2 x (R, D) noise
   float* s_row = s_db + 2 * R * D;                // (R, RS) the target's row reductions
-  float* s_gmm = s_row + R * RS;                  // (K (2 D + 1)) the mixture's table
+  float* s_gmm = s_row + R * RS;                  // (n_tab) the target's table
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * R;
@@ -472,7 +542,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   copy_in(s_temb, temb, T * C);
   copy_in(s_tab, tab, T * kTab);
   copy_in(s_bout, b_out, D);
-  copy_in(s_gmm, gmm, cs.K * (2 * D + 1));
+  copy_in(s_gmm, gmm, cs.n_tab);
   for (int i = tid; i < R * D; i += NT) {
     s_x[i] = i < nx ? x0[tile_off + i] : 0.0f;
     if (i >= nx) s_db[i] = s_db[R * D + i] = 0.0f;  // rows past B
@@ -586,7 +656,8 @@ struct Args {
 
 template <int kForm, int kTarget, int D>
 cudaError_t launch_fast(const Args& a) {
-  const size_t smem = sizeof(float) * fast_smem_floats(D, a.T, a.cs.K);  // fast_fits
+  const size_t smem =  // fast_fits
+      sizeof(float) * fast_smem_floats(D, a.T, row_floats(kTarget, a.cs.K, D), a.cs.n_tab);
   auto kernel = rollout_fast_kernel<kForm, kTarget, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -607,7 +678,7 @@ cudaError_t launch_generic(const Args& a) {
   const size_t smem =
       sizeof(float) * ((size_t)a.D * a.C + (size_t)a.H * a.C * a.C + (size_t)a.H * a.C +
                        (size_t)a.C * a.D + a.D + kRows * (2 * a.D + 2 * a.C) +
-                       (size_t)kRows * row_floats(a.cs.K) + (size_t)a.cs.K * (2 * a.D + 1));
+                       (size_t)kRows * row_floats(kTarget, a.cs.K, a.D) + (size_t)a.cs.n_tab);
   auto kernel = rollout_generic_kernel<kForm, kTarget>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -623,13 +694,15 @@ cudaError_t launch_generic(const Args& a) {
 // memory.
 inline bool fast_fits(const Args& a) {
   return a.C == kFastC && a.H == kFastH && a.D >= 1 && a.D <= 16 &&
-         sizeof(float) * fast_smem_floats(a.D, a.T, a.cs.K) <= kMaxSmem;
+         sizeof(float) * fast_smem_floats(a.D, a.T, row_floats(a.target, a.cs.K, a.D),
+                                          a.cs.n_tab) <= kMaxSmem;
 }
 
 // `body`: kByShape takes the fast body where it fits and the generic one
 // elsewhere; kFastBody or kGenericBody asks for one (the fast one fails on
-// a shape it does not take). *used receives the body launched.
-template <int kForm, int kTarget>
+// a shape it does not take). *used receives the body launched. kOnlyD > 0
+// instantiates the fast body at that D alone (a target of one dimension).
+template <int kForm, int kTarget, int kOnlyD = 0>
 int launch(const Args& a, int body, int* used) {
   if (a.B <= 0 || a.T <= 0 || used == nullptr) return (int)cudaErrorInvalidValue;
   if (body != kByShape && body != kFastBody && body != kGenericBody)
@@ -639,6 +712,10 @@ int launch(const Args& a, int body, int* used) {
   const bool fast = body == kFastBody || (body == kByShape && fits);
   *used = fast ? kFastBody : kGenericBody;
   if (!fast) return (int)launch_generic<kForm, kTarget>(a);
+  if constexpr (kOnlyD > 0) {
+    return a.D == kOnlyD ? (int)launch_fast<kForm, kTarget, kOnlyD>(a)
+                         : (int)cudaErrorInvalidValue;
+  }
   switch (a.D) {
 #define SDE_CASE(DD) \
   case DD:           \
@@ -653,7 +730,8 @@ int launch(const Args& a, int body, int* used) {
 }
 
 // The instance of a form with a score for the target of a launch: a
-// mixture needs its table (K >= 1); the wells' count must lie in 1..D.
+// mixture needs its table (K >= 1); the wells' count must lie in 1..D; the
+// rings need d = 2 and their radii.
 template <int kForm>
 int launch_target(const Args& a, int body, int* used) {
   const Consts& cs = a.cs;
@@ -666,6 +744,11 @@ int launch_target(const Args& a, int body, int* used) {
     case kWells:
       if (cs.t0 < 1.0f || cs.t0 > (float)a.D) return (int)cudaErrorInvalidValue;
       return launch<kForm, kWells>(a, body, used);
+    case kRings:
+      if (a.D != 2 || cs.n_tab < 1 || a.gmm == nullptr) return (int)cudaErrorInvalidValue;
+      return launch<kForm, kRings, 2>(a, body, used);
+    case kRosenbrock:
+      return launch<kForm, kRosenbrock>(a, body, used);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -677,6 +760,7 @@ int launch_lerp_target(const Args& a, int body, int* used);
 int launch_score(const Args& a, int body, int* used);
 int launch_clipped(const Args& a, int body, int* used);
 int launch_potential(const Args& a, int body, int* used);
+int launch_cancel_drift(const Args& a, int body, int* used);
 int launch_exp(const Args& a, int body, int* used);
 
 }  // namespace sde_rollout

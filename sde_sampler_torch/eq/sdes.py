@@ -1,4 +1,5 @@
-"""SDEs of the OU family (ConstOU, ScaledBM, VP) and controlled SDEs.
+"""SDEs: overdamped Langevin, the OU family (ConstOU, ScaledBM, VP) and
+controlled SDEs.
 
 Port of `sde_sampler_tpu/eq/sdes.py`. Coefficients are functions of time
 built from Python-float hyperparameters; `t` may be a Python float or a
@@ -13,6 +14,8 @@ import math
 from typing import Callable
 
 import torch
+
+from sde_sampler_torch.utils.common import clip_norm
 
 
 def _sqrt(v):
@@ -34,6 +37,30 @@ class SDE:
 
     def diff(self, t, x):
         raise NotImplementedError
+
+
+class LangevinSDE(SDE):
+    """dX = clip(σ²/2 · ∇log ρ(X)) dt + σ dW (overdamped Langevin); the
+    clip is elementwise."""
+
+    def __init__(
+        self,
+        target_score: Callable,
+        diff_coeff: float = 1.0,
+        clip_score: float | None = None,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        self.target_score = target_score
+        self.diff_coeff = float(diff_coeff)
+        self.clip_score = clip_score
+
+    def drift(self, t, x):
+        drift = self.target_score(x) * self.diff_coeff**2 / 2.0
+        return clip_norm(drift, self.clip_score)
+
+    def diff(self, t, x):
+        return self.diff_coeff
 
 
 class OU(SDE):

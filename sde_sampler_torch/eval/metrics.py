@@ -1,4 +1,5 @@
-"""Evaluation metrics: expectation/logZ/stddev errors, ESS, domain fraction.
+"""Evaluation metrics: expectation/logZ/stddev errors, ESS, domain fraction,
+and the objective of global-optimisation targets.
 
 Port of `sde_sampler_tpu/eval/metrics.py` (`get_metrics`). Reductions run
 on the samples' device; each metric is returned as a Python float.
@@ -64,6 +65,7 @@ def get_metrics(
     samples: torch.Tensor,
     weights: torch.Tensor | None = None,
     log_norm_const_preds: dict | None = None,
+    expectation_preds: dict | None = None,
     marginal_dims: list[int] | None = None,
     sample_losses: dict[str, Callable] | None = None,
     generator: torch.Generator | None = None,
@@ -77,9 +79,10 @@ def get_metrics(
         marginal_dims = [d for d in marginal_dims if d < distr.dim]
 
     metrics: dict[str, float] = {}
+    expectation_preds = expectation_preds or {}
     log_norm_const_preds = log_norm_const_preds or {}
 
-    # Expectations
+    # Expectations (and those a solver computed itself, as `<name>_direct`)
     for name, fn in EXPECTATION_FNS.items():
         target = distr.expectations.get(name)
         metrics.update(
@@ -87,6 +90,13 @@ def get_metrics(
                 prediction=fn(samples), target=target, name=name, weights=weights
             )
         )
+        if name in expectation_preds:
+            metrics.update(
+                compute_errors(
+                    prediction=expectation_preds[name], target=target,
+                    name=name + "_direct", weights=weights,
+                )
+            )
 
     # Log normalization constant
     for name, pred in log_norm_const_preds.items():
@@ -143,4 +153,11 @@ def get_metrics(
                 "Sampling not implemented for distribution %s.",
                 distr.__class__.__name__,
             )
+
+    # Objective (global-optimisation targets)
+    if hasattr(distr, "objective"):
+        metrics["eval/obj_avg"] = float(distr.objective(samples.mean(dim=0, keepdim=True)))
+        obj = distr.objective(samples)
+        metrics["eval/avg_obj"] = float(obj.mean())
+        metrics["eval/min_obj"] = float(obj.min())
     return metrics

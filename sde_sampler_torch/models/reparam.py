@@ -1,5 +1,6 @@
-"""Reparametrized controls: ClippedCtrl, ScoreCtrl, LerpCtrl and its
-one-sided forms LerpPriorCtrl and LerpTargetCtrl, and PotentialCtrl.
+"""Reparametrized controls: ClippedCtrl, ScoreCtrl, CancelDriftCtrl,
+LerpCtrl and its one-sided forms LerpPriorCtrl and LerpTargetCtrl, and
+PotentialCtrl.
 
 Port of `sde_sampler_tpu/models/reparam.py`. Every wrapper is an
 `nn.Module` called as `ctrl(t, x, clips=None)`. Clip thresholds may be
@@ -94,6 +95,25 @@ class ScoreCtrl(ClippedCtrl):
         if self.score_model is not None:
             score = score * self.clipped_score_model(t, x, clips)
         return ctrl + score
+
+
+class CancelDriftCtrl(ScoreCtrl):
+    """u = NN + (scale·score − drift)/σ; langevin_init ties scale to σ²/2,
+    so that the controlled SDE starts as the Langevin dynamics of the
+    target."""
+
+    def __init__(self, base_model: nn.Module, langevin_init: bool = False, **kwargs):
+        super().__init__(base_model, **kwargs)
+        self.langevin_init = langevin_init
+
+    def forward(self, t, x, clips=None):
+        ctrl = self.clipped_base_model(t, x, clips)
+        sde_diff = self.sde.diff(t, x)
+        scale = sde_diff**2 / 2 if self.langevin_init else self.scale_score
+        score = scale * self.clipped_target_score(t, x, clips)
+        if self.score_model is not None:
+            score = score * self.clipped_score_model(t, x, clips)
+        return ctrl + (score - self.sde.drift(t, x)) / sde_diff
 
 
 class LerpCtrl(ScoreCtrl):

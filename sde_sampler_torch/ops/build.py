@@ -41,11 +41,11 @@ NVCC_FLAGS = ARCH_FLAGS + [
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
+_SCORED = ("funnel", "gmm", "wells", "rings", "rosenbrock")  # targets with a score
 ROLLOUT_INSTANCES = {
-    "rollout": {"lerp": ("funnel", "gmm", "wells"), "score": ("funnel", "gmm", "wells"),
-                "clipped": ("none",), "lerp_target": ("funnel", "gmm", "wells"),
-                "potential": ("none",)},
-    "rollout_exp": {"score": ("funnel", "gmm", "wells")},
+    "rollout": {"lerp": _SCORED, "score": _SCORED, "clipped": ("none",),
+                "lerp_target": _SCORED, "potential": ("none",), "cancel_drift": _SCORED},
+    "rollout_exp": {"score": _SCORED},
 }
 FORM_LAUNCHES: dict[str, int] = {
     key: 0

@@ -25,16 +25,23 @@ specialised to control forms over a GELU `FourierMLP` with an optional
   `bridge_subtraj`), u = σ(s)·∇ₓclip(net, clip_model): every step runs the
   net forward, keeping its pre-activations, then its backward pass to the
   state, with the clip's gradient 0 where |net| > clip_model; kernel 1 only;
+- "cancel_drift", a `CancelDriftCtrl` (`model=langevin_init`),
+  u = clip(net) + ((scale·clip(score))·clip(score net) − c(s)·x)/σ(s) with
+  scale = σ(s)²/2 under langevin_init (else scale_score), in the JAX
+  package's order: the drift is subtracted inside u and added back by the
+  EM update; kernel 1 only, on the control's own SDE;
 
 and, for the forms with a score, to the targets whose score the kernel
 evaluates inline (`TARGET_CODES`): "funnel" (`Funnel`), "gmm" (`GMM`, and
-`Gauss` and `IsotropicGauss` as one-component mixtures) and "wells"
-(`DoubleWell`, `MultiWell`). A ClippedCtrl and a PotentialCtrl have no
-target ("none"). Each
-target has a small float32 table: the mixture's loc (K, d), 1/scale²
-(K, d) and log w_k − Σ_j log scale_kj (K), built on the tensors' device
-per call; the funnel's first-coordinate variance, and the wells' number,
-separation and shift, passed by value.
+`Gauss` and `IsotropicGauss` as one-component mixtures), "wells"
+(`DoubleWell`, `MultiWell`), "rings" (`Rings`, d = 2) and "rosenbrock"
+(`Rosenbrock`). A ClippedCtrl and a PotentialCtrl have no target
+("none"). Each target has a small float32 table, built on the tensors'
+device per call: the mixture's loc (K, d), 1/scale² (K, d) and
+log w_k − Σ_j log scale_kj (K), or the rings' radii; and up to three
+scalars passed by value: the funnel's first-coordinate variance, the
+wells' number, separation and shift, the rings' scale and eps, or the
+Rosenbrock's flatness.
 
 The wrappers raise on anything else. On the card, the kernel picks its
 body by shape (`csrc/rollout.cuh::fast_fits`): the fast body for the width,
@@ -62,9 +69,12 @@ import torch.nn.functional as F
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, Gauss, IsotropicGauss
+from sde_sampler_torch.distr.rings import Rings, rings_score
+from sde_sampler_torch.distr.rosenbrock import Rosenbrock, rosenbrock_score
 from sde_sampler_torch.eq.sdes import OU
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
 from sde_sampler_torch.models.reparam import (
+    CancelDriftCtrl,
     ClippedCtrl,
     LerpCtrl,
     LerpTargetCtrl,
@@ -75,17 +85,20 @@ from sde_sampler_torch.models.reparam import (
 from sde_sampler_torch.ops import build
 
 # kernel 1's control forms (kernel 2 has only the ScoreCtrl one)
-FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3, "lerp_target": 4, "potential": 5}
+FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3, "lerp_target": 4, "potential": 5,
+              "cancel_drift": 6}
 FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped",
-         LerpTargetCtrl: "lerp_target", PotentialCtrl: "potential"}
+         LerpTargetCtrl: "lerp_target", PotentialCtrl: "potential",
+         CancelDriftCtrl: "cancel_drift"}
 # the forms without a score, whose control is the net alone
 NET_FORMS = ("clipped", "potential")
 # the forms that interpolate a score along t / T and roll out their own SDE
 LERP_FORMS = ("lerp", "lerp_target")
 # the targets whose score the kernels inline
-TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3}
+TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3, "rings": 4, "rosenbrock": 5}
 TARGETS = {Funnel: "funnel", GMM: "gmm", Gauss: "gmm", IsotropicGauss: "gmm",
-           DoubleWell: "wells", MultiWell: "wells"}
+           DoubleWell: "wells", MultiWell: "wells", Rings: "rings",
+           Rosenbrock: "rosenbrock"}
 # the body a launch asks for (by shape, or one of the two) and reports
 BODY_CODES = {"shape": 0, "fast": 1, "generic": 2}
 
@@ -104,15 +117,16 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
     """(form, sde, prior, target kind, target) of the specialised step;
     raises on any other.
 
-    `sde` is the SDE the EM update integrates (a LerpCtrl's or
-    LerpTargetCtrl's own, and by default a ClippedCtrl's or a
-    PotentialCtrl's); the exponential integrator (`update="exp"`) takes none.
+    `sde` is the SDE the EM update integrates (a LerpCtrl's,
+    LerpTargetCtrl's or CancelDriftCtrl's own, and by default a
+    ClippedCtrl's or a PotentialCtrl's); the exponential integrator
+    (`update="exp"`) takes none.
     """
     form = FORMS.get(type(ctrl))
     if form is None:
         raise NotImplementedError(
             "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, a "
-            f"LerpTargetCtrl or a PotentialCtrl, got {type(ctrl).__name__}"
+            f"LerpTargetCtrl, a PotentialCtrl or a CancelDriftCtrl, got {type(ctrl).__name__}"
         )
     if form != "score" and update != "em":
         raise NotImplementedError("the exponential integrator needs a ScoreCtrl")
@@ -134,11 +148,11 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
         if target is None:
             raise NotImplementedError(
                 "the rollout kernels need a Funnel, GMM, Gauss, IsotropicGauss, "
-                "DoubleWell or MultiWell target"
+                "Rings, Rosenbrock, DoubleWell or MultiWell target"
             )
         kind = TARGETS[type(target)]
     prior = None
-    if form in LERP_FORMS:
+    if form in LERP_FORMS or form == "cancel_drift":
         if sde is not None and sde is not ctrl.sde:
             raise NotImplementedError(f"a {type(ctrl).__name__} rolls out its own SDE")
         sde = ctrl.sde
@@ -168,7 +182,10 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
     (0 for a ClippedCtrl and a PotentialCtrl) and the hard-constraint factor
     of the net output;
-    the lerp weight is t / T for the lerp forms and 0 for the others.
+    the lerp weight is t / T for the lerp forms and 0 for the others. A
+    CancelDriftCtrl takes the score's scale (σ(s)²/2 under langevin_init,
+    else scale_score) in the lerp weight's column and clip(score net) alone
+    in the next.
     Exponential integrator (`exp=(alpha, sigma)`): a, β²σ², σβ, 0,
     scale_score * clip(score net), 1."""
     s = ts[:-1]
@@ -178,8 +195,11 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     ones = torch.ones_like(s)
     hard = getattr(ctrl, "hard_constrain", False)
     ctrl_scale = ctrl.constrain(ones, s) if hard else ones
-    if FORMS[type(ctrl)] in NET_FORMS:
+    form = FORMS[type(ctrl)]
+    if form in NET_FORMS:
         sscore = torch.zeros_like(s)
+    elif form == "cancel_drift":
+        sscore = ones
     else:
         sscore = ctrl.scale_score * ones
     if getattr(ctrl, "score_model", None) is not None:
@@ -192,10 +212,16 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     if exp is not None:
         columns = [*exp_coeffs(ts, *exp), torch.zeros_like(s), sscore, ones]
     else:
-        w = s / sde.terminal_t if FORMS[type(ctrl)] in LERP_FORMS else torch.zeros_like(s)
+        diff = sde.diff_coeff_t(s) * ones
+        if form in LERP_FORMS:
+            w = s / sde.terminal_t
+        elif form == "cancel_drift":
+            w = diff**2 / 2 if ctrl.langevin_init else ctrl.scale_score * ones
+        else:
+            w = torch.zeros_like(s)
         columns = [
             sde.drift_coeff_t(s) * ones,
-            sde.diff_coeff_t(s) * ones,
+            diff,
             ts[1:] - s,
             w,
             sscore,
@@ -206,11 +232,12 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
 
 @torch.no_grad()
 def target_table(kind: str, target, device) -> tuple[torch.Tensor, tuple]:
-    """The target's table: (mixture table, three scalars). The mixture's
-    table lies on `device`: loc (K, d), 1/scale² (K, d) and the component
-    constants log w_k − Σ_j log scale_kj (K), flattened in that order. The
-    scalars are the funnel's first-coordinate variance, or the wells'
-    number, separation and shift."""
+    """The target's table on `device` and its three scalars: the mixture's
+    loc (K, d), 1/scale² (K, d) and component constants
+    log w_k − Σ_j log scale_kj (K), flattened in that order, or the rings'
+    radii; the funnel's first-coordinate variance, the wells' number,
+    separation and shift, the rings' scale and eps, or the Rosenbrock's
+    flatness."""
     empty = torch.zeros(0, device=device)
     if kind == "gmm":
         loc, scale = target.loc.to(device), target.scale.to(device)
@@ -225,6 +252,11 @@ def target_table(kind: str, target, device) -> tuple[torch.Tensor, tuple]:
         else:
             n, well = 1, target
         return empty, (float(n), well.separation, well.shift)
+    if kind == "rings":
+        radii = target.r_centers.to(device=device, dtype=torch.float32)
+        return radii.contiguous(), (target.scale, target.eps, 0.0)
+    if kind == "rosenbrock":
+        return empty, (target.flatness, 0.0, 0.0)
     return empty, (0.0, 0.0, 0.0)
 
 
@@ -287,6 +319,10 @@ def _target_score(kind, x, table, scalars):
         e = torch.exp(log_w - log_w.max(dim=1, keepdim=True).values)
         weighted = (e[:, :, None] * ((loc[None] - x[:, None, :]) * inv_var)).sum(dim=1)
         return weighted / e.sum(dim=1, keepdim=True)
+    if kind == "rings":
+        return rings_score(x, table, scalars[0], scalars[1])
+    if kind == "rosenbrock":
+        return rosenbrock_score(x, scalars[0])
     # wells: the first n coordinates in the quartic wells, the rest N(shift, 1)
     n, sep, shift = int(scalars[0]), scalars[1], scalars[2]
     xw = x[:, :n] - shift
@@ -345,6 +381,9 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
             elif form == "lerp_target":
                 lerp = _clip(w * target, clip_score)
                 u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
+            elif form == "cancel_drift":  # w holds the score's scale
+                score = (w * _clip(target, clip_score)) * sscore
+                u = _clip(out, clip_model) + (score - drift * x) / diff
             else:
                 u = _clip(out, clip_model) + sscore * _clip(target, clip_score)
         if update == "em":
@@ -409,7 +448,8 @@ def _launch(prepared, body: str = "shape"):
     tensors, c, form, update = prepared
     x0, dbs, temb, w_hid, target_tab = tensors[0], tensors[1], tensors[3], tensors[5], tensors[9]
     T, B, d = dbs.shape
-    K = target_tab.numel() // (2 * d + 1)
+    # the table's count: the mixture's components, or the rings' radii
+    K = target_tab.numel() // (2 * d + 1) if c["kind"] == "gmm" else target_tab.numel()
     lib = build.library()
     target = TARGET_CODES[c["kind"]]
     if update == "em":
@@ -438,10 +478,10 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
     (xs, x_T). `dbs` holds the Brownian increments (T, B, d).
 
     A LerpCtrl integrates its own SDE and reads its prior and target from
-    its bound score methods, a LerpTargetCtrl likewise without a prior; a
-    ClippedCtrl or a PotentialCtrl integrates `sde`, by default its own; a
-    ScoreCtrl needs the `sde`. A CUDA tensor launches kernel 1, a CPU tensor runs the plain
-    twin.
+    its bound score methods, a LerpTargetCtrl and a CancelDriftCtrl
+    likewise without a prior; a ClippedCtrl or a PotentialCtrl integrates
+    `sde`, by default its own; a ScoreCtrl needs the `sde`. A CUDA tensor
+    launches kernel 1, a CPU tensor runs the plain twin.
     """
     _check_device(x0)
     prepared = _prepare(ctrl, x0, ts, dbs, clips, sde)

@@ -325,6 +325,7 @@ class Solver:
                     samples=samples,
                     weights=results.weights,
                     log_norm_const_preds=results.log_norm_const_preds,
+                    expectation_preds=results.expectation_preds,
                     marginal_dims=self.eval_marginal_dims,
                     sample_losses=self.eval_sample_losses,
                     generator=self.generator,

@@ -9,9 +9,10 @@ Tolerances (float32 on the card, sums in another order):
 - rollouts (kernel 1 in both control forms, kernel 2), 12 steps: 1e-5
   absolute and relative, in the fast body (width 64, two hidden layers,
   d <= 16) and in the generic one (any other shape); each (form, target)
-  instance of the mixture, the wells and the score-free ClippedCtrl in
-  both bodies the same, for one step from the plain twin's state and over
-  12 steps of the configs' step size;
+  instance of the mixture, the wells, the rings, the Rosenbrock, the
+  score-free ClippedCtrl and the CancelDriftCtrl in both bodies the same,
+  for one step from the plain twin's state and over 12 steps of the
+  configs' step size;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
   (1e-4 at the evaluation's eps = 1e-3, and for a plan of one normal
   entry), exactly 0 when every dual is -inf or every plan entry lies below
@@ -31,9 +32,12 @@ from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.rings import Rings
+from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
 from sde_sampler_torch.models.reparam import (
+    CancelDriftCtrl,
     ClippedCtrl,
     LerpCtrl,
     LerpTargetCtrl,
@@ -498,7 +502,9 @@ def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):
 # (solver=bridge) on the grid and on a three-component mixture at d = 5.
 # The PotentialCtrl (solver=dis_subtraj, bridge_subtraj; the net's backward
 # pass in every step) at the mixture's d = 2 and at d = 16, the widest the
-# fast body holds.
+# fast body holds. The rings (d = 2 only) and the Rosenbrock (conf's d = 15,
+# and d = 5 under kernel 2); the CancelDriftCtrl of model=langevin_init on
+# the grid mixture and the rings.
 TARGET_INSTANCES = {
     "lerp.gmm": ("lerp", lambda: GMM(name="grid"), 2),
     "lerp.gmm.multi": ("lerp", lambda: GMM(name="multi", domain_tol=None), 2),
@@ -516,13 +522,18 @@ TARGET_INSTANCES = {
     "potential.none.d16": ("potential", None, 16),
     "exp.gmm": ("exp", lambda: GMM(name="grid"), 2),
     "exp.wells": ("exp", lambda: MultiWell(dim=5, n_double_wells=5, separation=4.0), 5),
+    "lerp.rings": ("lerp", lambda: Rings(), 2),
+    "lerp.rosenbrock": ("lerp", lambda: Rosenbrock(dim=15, flatness=10.0, scale=1e5), 15),
+    "exp.rosenbrock": ("exp", lambda: Rosenbrock(dim=5, flatness=10.0), 5),
+    "cancel_drift.gmm": ("cancel_drift", lambda: GMM(name="grid"), 2),
+    "cancel_drift.rings": ("cancel_drift", lambda: Rings(), 2),
 }
 
 
 def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
     """The control of an instance with seeded weights, and its inputs: the
-    last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl
-    and ClippedCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
+    last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl,
+    ClippedCtrl and CancelDriftCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
     scaled BM of conf/sde/bm.yaml for the LerpTargetCtrl), a cosine grid
     with dt = 0 steps for kernel 2. Returns (prepare(x0, ts, noise), x0,
     ts, noise)."""
@@ -542,8 +553,9 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
         ctrl = PotentialCtrl(base_model=base, clip_model=10.0, sde=sde)
     else:
         target = make_target().to(cuda)
-        # the score nets' last bias of conf/model/lerp.yaml (1) and score.yaml (0.01)
-        bias = 1.0 if form in ("lerp", "lerp_target") else 0.01
+        # the score nets' last bias of conf/model/lerp.yaml and
+        # langevin_init.yaml (1) and score.yaml (0.01)
+        bias = 1.0 if form in ("lerp", "lerp_target", "cancel_drift") else 0.01
         common = dict(base_model=base, target_score=target.score, clip_model=10.0,
                       clip_score=10.0,
                       score_model=TimeEmbed(dim_out=1, num_layers=4,
@@ -552,6 +564,8 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
             ctrl = LerpCtrl(sde=sde, prior_score=IsotropicGauss(dim=d).score, **common)
         elif form == "lerp_target":
             ctrl = LerpTargetCtrl(sde=sde, **common)
+        elif form == "cancel_drift":
+            ctrl = CancelDriftCtrl(sde=sde, langevin_init=True, **common)
         else:
             ctrl = ScoreCtrl(**common)
     ctrl.reset_parameters(torch.Generator().manual_seed(0))
@@ -559,7 +573,7 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
         base.out_layer.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
     ctrl = ctrl.to(cuda)
     rng = np.random.default_rng(seed)
-    scale = 3.0 if "gmm" in name and d > 1 else 1.0
+    scale = 3.0 if ("gmm" in name or "rings" in name) and d > 1 else 1.0
     x0 = torch.tensor(rng.normal(size=(batch, d)) * scale, dtype=torch.float32, device=cuda)
     noise = torch.tensor(rng.normal(size=(T, batch, d)), dtype=torch.float32, device=cuda)
     clips = {"clip_model": 5.0, "clip_score": 10.0}
@@ -679,3 +693,17 @@ def test_unsupported_target_instances_raise_before_the_launch(cuda):
                       target_score=Delta(dim=2).to(cuda).score)
     with pytest.raises(NotImplementedError, match="MultiWell target"):
         ro.fused_rollout(delta, x0, ts, noise, sde=VP())
+
+
+def test_brownian_tree_is_the_same_path_on_the_card(cuda):
+    """The tree's node noise is a counter-based hash: the same int64 bits on
+    the card as on the CPU, and W(t) equal up to the float rounding of log,
+    cos and the weighted sum (1e-5)."""
+    from sde_sampler_torch.eq.integrator import VirtualBrownianTree, splitmix64
+
+    z = torch.arange(-5000, 5000, dtype=torch.int64) * 0x9E3779B1
+    assert torch.equal(splitmix64(z.to(cuda)).cpu(), splitmix64(z))
+    cpu = VirtualBrownianTree(0.0, 2.0, 3, (256, 3))
+    card = VirtualBrownianTree(0.0, 2.0, 3, (256, 3), device=cuda)
+    for t in (0.0, 0.37, 1.5, 2.0):
+        torch.testing.assert_close(card(t).cpu(), cpu(t), atol=1e-5, rtol=1e-5)

@@ -215,3 +215,65 @@ def test_sample_uniform_covers_the_domain():
     assert x.shape == (10_000, 2)
     assert bool(((x >= domain[:, 0]) & (x <= domain[:, 1])).all())
     torch.testing.assert_close(x.mean(0), domain.mean(1), atol=0.02, rtol=0)
+
+
+def test_rings_match_jax():
+    """The rings (conf/target/rings.yaml): the domain, log-density and score
+    (the nearest radius, the first on ties) to 1e-5 relative, on points
+    that include exact ties between two radii; the 2001² Boole statistics
+    and a marginal to 1e-4 relative (4 million float32 terms, summed in
+    other chunks); the boundary check raises on a domain too small."""
+    from sde_sampler_tpu.distr.rings import Rings as JRings
+    from sde_sampler_torch.distr.rings import Rings
+
+    j, p = JRings(), Rings()
+    np.testing.assert_array_equal(p.domain.numpy(), np.asarray(j.domain))
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(64, 2)).astype(np.float32) * 3
+    x[:4] = [[2.0, 0.0], [0.0, -4.0], [0.6, 0.8], [-3.0, 4.0]]  # |x| = 2, 4 (ties), 1, 5
+    np.testing.assert_allclose(*both(j.unnorm_log_prob, p.unnorm_log_prob, x),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(*both(j.score, p.score, x), rtol=1e-5, atol=1e-4)
+    j.compute_stats()
+    p.compute_stats()
+    assert p.log_norm_const == pytest.approx(j.log_norm_const, rel=1e-4)
+    for name, value in j.expectations.items():
+        assert p.expectations[name] == pytest.approx(value, rel=1e-4, abs=1e-4), name
+    np.testing.assert_allclose(p.stddevs.numpy(), np.asarray(j.stddevs), rtol=1e-4)
+    np.testing.assert_allclose(*both(j.log_prob, p.log_prob, x), rtol=1e-4, atol=1e-4)
+    grid = np.linspace(-6, 6, 9, dtype=np.float32)
+    np.testing.assert_allclose(p.marginal(torch.from_numpy(grid), dim=1).numpy(),
+                               np.asarray(j.marginal(jnp.asarray(grid), dim=1)),
+                               rtol=1e-4, atol=1e-6)
+    with pytest.raises(ValueError, match="tolerance"):
+        # the box's corner (5, 1) lies 0.1 from the outer ring
+        Rings(domain=[[0.0, 5.0], [-1.0, 1.0]], grid_points=101**2).compute_stats()
+
+
+def test_rosenbrock_matches_jax():
+    """conf/target/rosenbrock.yaml (d = 15): the log-density to 1e-5
+    relative; the analytic score against the JAX package's `jax.grad` to
+    1e-5 relative (atol 1e-4 on values up to about 1e4); the objective
+    metrics of `get_metrics` to the JAX ones."""
+    from sde_sampler_tpu.distr.rosenbrock import Rosenbrock as JRosenbrock
+    from sde_sampler_tpu.eval.metrics import get_metrics as jget_metrics
+    from sde_sampler_torch.distr.rosenbrock import Rosenbrock
+    from sde_sampler_torch.eval.metrics import get_metrics
+
+    kw = dict(dim=15, flatness=10.0, scale=1e5)
+    j, p = JRosenbrock(**kw), Rosenbrock(**kw)
+    x = np.random.default_rng(6).normal(size=(64, 15)).astype(np.float32) * 1.5
+    np.testing.assert_allclose(*both(j.unnorm_log_prob, p.unnorm_log_prob, x),
+                               rtol=1e-5, atol=1e-4)
+    want, got = both(j.score, p.score, x)
+    assert np.abs(want).max() > 1e2
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    # the score of a (T, B, d) stack is that of each (B, d) slice
+    stack = torch.from_numpy(x).reshape(4, 16, 15)
+    torch.testing.assert_close(p.score(stack).reshape(64, 15), torch.from_numpy(got))
+    j.compute_stats()
+    p.compute_stats()
+    want = jget_metrics(j, jnp.asarray(x))
+    got = get_metrics(p, torch.from_numpy(x))
+    for key in ("eval/obj_avg", "eval/avg_obj", "eval/min_obj"):
+        assert got[key] == pytest.approx(want[key], rel=1e-5), key

@@ -21,9 +21,17 @@ import torch
 from sde_sampler_torch.distr.double_well import MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.rings import Rings
+from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, PotentialCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import (
+    CancelDriftCtrl,
+    ClippedCtrl,
+    LerpCtrl,
+    PotentialCtrl,
+    ScoreCtrl,
+)
 from sde_sampler_torch.ops import build
 from sde_sampler_torch.ops import rollout as ro
 from sde_sampler_torch.ops import sinkhorn as sk
@@ -138,11 +146,13 @@ def test_rollout_launch_counts_the_body_the_kernel_reports(fake_library, form, r
     assert build.FORM_LAUNCHES[f"{key}.generic"] == before[f"{key}.generic"] + (reported == "generic")
 
 
-@pytest.mark.parametrize("case", ["lerp.gmm", "score.wells", "exp.gmm", "clipped.none"])
+@pytest.mark.parametrize("case", ["lerp.gmm", "score.wells", "exp.gmm", "clipped.none",
+                                  "lerp.rings", "score.rosenbrock", "cancel_drift.gmm"])
 def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
     """The mixture's table (loc, 1/scale², log-weight constants) goes by
-    pointer with its K; the wells' count, separation and shift and the
-    funnel's variance by value; the launch counts under its target."""
+    pointer with its K, the rings' radii with their count; the wells'
+    count, separation and shift, the rings' scale and eps and the
+    Rosenbrock's flatness by value; the launch counts under its target."""
     form, target = case.split(".")
     d = 2
     x0, ts, dbs = rollout_inputs(d)
@@ -151,13 +161,18 @@ def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
                   scale=[[0.5, 1.0], [2.0, 1.0], [1.0, 1.0]],
                   mixture_weights=[1.0, 2.0, 1.0], domain_tol=None)
     wells = MultiWell(dim=d, n_double_wells=1, separation=3.0, shift=0.5)
-    distr = mixture if target == "gmm" else wells
+    distr = {"gmm": mixture, "wells": wells, "rings": Rings(scale=50.0),
+             "rosenbrock": Rosenbrock(dim=d, flatness=4.0)}.get(target)
     if form == "lerp":
         ctrl = lerp_ctrl(d)
         ctrl.target_score = distr.score
         prepared = ro._prepare(ctrl, x0, ts, dbs, None)
     elif form == "clipped":
         ctrl = ClippedCtrl(base_model=FourierMLP(dim=d), clip_model=3.0, sde=sde)
+        prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    elif form == "cancel_drift":
+        ctrl = CancelDriftCtrl(base_model=FourierMLP(dim=d), target_score=distr.score, sde=sde,
+                               langevin_init=True)
         prepared = ro._prepare(ctrl, x0, ts, dbs, None)
     else:
         ctrl = ScoreCtrl(base_model=FourierMLP(dim=d), target_score=distr.score)
@@ -171,7 +186,7 @@ def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
     (args,) = fake_library.calls
     table = prepared[0][9]
     assert args[9] == table.data_ptr()
-    K = 3 if target == "gmm" else 0
+    K = 3 if target in ("gmm", "rings") else 0
     assert args[17] == K
     assert args[-4] == ro.TARGET_CODES[target]
     if form != "exp":
@@ -184,6 +199,11 @@ def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
         torch.testing.assert_close(table, want)
     elif target == "wells":
         assert scalars == (1.0, 3.0, 0.5) and table.numel() == 0
+    elif target == "rings":
+        torch.testing.assert_close(table, torch.tensor([1.0, 3.0, 5.0]))
+        assert scalars == (50.0, 1e-8, 0.0)
+    elif target == "rosenbrock":
+        assert scalars == (4.0, 0.0, 0.0) and table.numel() == 0
     else:
         assert table.numel() == 0
     assert build.FORM_LAUNCHES[key] == before + 1

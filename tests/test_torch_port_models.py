@@ -211,33 +211,44 @@ def test_config_remaps_targets_into_the_port():
     assert type(target).__module__ == "sde_sampler_torch.distr.funnel"
     assert locate(cfg["solver"]["_target_"]).__module__ == "sde_sampler_torch.solver.oc"
     assert locate("sde_sampler_tpu.solver.oc.SubtrajBridge").__module__ == "sde_sampler_torch.solver.oc"
+    assert locate("sde_sampler_tpu.models.reparam.CancelDriftCtrl").__module__ == (
+        "sde_sampler_torch.models.reparam")
     # a target the port lacks names the missing module, never the JAX class
-    with pytest.raises(ConfigError, match="sde_sampler_torch.models.reparam"):
-        locate("sde_sampler_tpu.models.reparam.CancelDriftCtrl")
+    with pytest.raises(ConfigError, match="sde_sampler_torch.distr.cox"):
+        locate("sde_sampler_tpu.distr.cox.Cox")
     with pytest.raises(ConfigError, match="sde_sampler_torch.distr.nice"):
         locate("sde_sampler_tpu.distr.nice.Nice")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """Every module of the port, and the solvers of DIS, DDS, EulerDDS and
-    PIS and the subtrajectory solvers with their PotentialCtrls composed
-    from conf/ and built, load no JAX module."""
+    PIS, the subtrajectory solvers with their PotentialCtrls, the Langevin
+    solver under each integrator, DIS on the rings and the Rosenbrock and
+    EulerDDS with the langevin_init control composed from conf/ and built,
+    load no JAX module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sde_sampler_torch\n"
         "for m in pkgutil.walk_packages(sde_sampler_torch.__path__, 'sde_sampler_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from sde_sampler_torch import main\n"
-        "for target, solver in (('funnel', 'dis'), ('funnel', 'dds'), ('funnel', 'dds_euler'),\n"
-        "                       ('funnel', 'pis'), ('gmm', 'dis_subtraj'), ('gmm', 'bridge_subtraj')):\n"
+        "runs = [('funnel', 'dis', []), ('funnel', 'dds', []), ('funnel', 'dds_euler', []),\n"
+        "        ('funnel', 'pis', []), ('gmm', 'dis_subtraj', []), ('gmm', 'bridge_subtraj', []),\n"
+        "        ('rings', 'dis', []), ('rosenbrock', 'dis', []),\n"
+        "        ('gmm', 'dds_euler', ['model@generative_ctrl=langevin_init'])]\n"
+        "runs += [('gmm', 'langevin', [f'integrator={i}']) for i in\n"
+        "         ('euler', 'heun', 'euler_adjoint', 'torchsde_euler', 'torchsde_heun')]\n"
+        "for i, (target, solver, extra) in enumerate(runs):\n"
+        "    ref = ['target.n_reference_samples=100'] if target in ('funnel', 'gmm') else []\n"
         "    s = main.make_solver([f'target={target}', f'solver={solver}', 'device=cpu',\n"
-        "                          'target.n_reference_samples=100',\n"
-        "                          'plot_results=False', 'out_dir=' + sys.argv[1] + solver])\n"
-        "    assert type(s).__module__ == 'sde_sampler_torch.solver.oc', s\n"
+        "                          *ref, *extra, 'plot_results=False',\n"
+        "                          'out_dir=' + sys.argv[1] + str(i)])\n"
+        "    assert type(s).__module__.startswith('sde_sampler_torch.solver.'), s\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'sde_sampler_tpu')]\n"
         "assert not bad, bad\n"
-        "for m in ('solver.oc', 'distr.delta', 'losses.oc', 'ops.rollout', 'models.reparam'):\n"
+        "for m in ('solver.oc', 'distr.delta', 'losses.oc', 'ops.rollout', 'models.reparam',\n"
+        "          'solver.langevin', 'eq.integrator', 'distr.rings', 'distr.rosenbrock'):\n"
         "    assert 'sde_sampler_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )

@@ -7,7 +7,9 @@ the same numpy noise: the flagship stack (LerpCtrl over FourierMLP and a
 TimeEmbed score net, VP SDE, funnel target), and each other (form, target)
 case of the kernel: the LerpCtrl on the grid mixture (d = 2) and on a
 MultiWell with Gaussian coordinates (d = 6), the score-free ClippedCtrl,
-and at d = 1, where the JAX kernel refuses the shape and only its scan
+the LerpCtrl on the rings (d = 2) and on the Rosenbrock (d = 15, whose
+score the JAX package takes by `jax.grad`), the CancelDriftCtrl of
+`model=langevin_init` on the mixture and the rings, and at d = 1, where the JAX kernel refuses the shape and only its scan
 runs, the PIS ScoreCtrl on the shifted double well and the LerpCtrl on the
 shifted Gaussian. Float32 on both sides, summed in another order: atol
 2e-5 + rtol 1e-5, the tolerance of the JAX package's own kernel test
@@ -28,10 +30,13 @@ from sde_sampler_tpu.distr.double_well import DoubleWell as JDoubleWell
 from sde_sampler_tpu.distr.double_well import MultiWell as JMultiWell
 from sde_sampler_tpu.distr.gauss import GMM as JGMM
 from sde_sampler_tpu.distr.gauss import IsotropicGauss as JIsoGauss
+from sde_sampler_tpu.distr.rings import Rings as JRings
+from sde_sampler_tpu.distr.rosenbrock import Rosenbrock as JRosenbrock
 from sde_sampler_tpu.eq.sdes import VP as JVP
 from sde_sampler_tpu.eq.sdes import ScaledBM as JScaledBM
 from sde_sampler_tpu.models.mlp import FourierMLP as JFourierMLP
 from sde_sampler_tpu.models.mlp import TimeEmbed as JTimeEmbed
+from sde_sampler_tpu.models.reparam import CancelDriftCtrl as JCancelDriftCtrl
 from sde_sampler_tpu.models.reparam import ClippedCtrl as JClippedCtrl
 from sde_sampler_tpu.models.reparam import LerpCtrl as JLerpCtrl
 from sde_sampler_tpu.models.reparam import ScoreCtrl as JScoreCtrl
@@ -40,9 +45,11 @@ from sde_sampler_torch.distr.base import Distribution
 from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.rings import Rings
+from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
 from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
-from sde_sampler_torch.models.reparam import ClippedCtrl, LerpCtrl, ScoreCtrl
+from sde_sampler_torch.models.reparam import CancelDriftCtrl, ClippedCtrl, LerpCtrl, ScoreCtrl
 from sde_sampler_torch.ops.rollout import fused_rollout, fused_rollout_exp
 from sde_sampler_torch.utils.params import load_flax_params
 
@@ -59,6 +66,9 @@ TARGETS = {
                          DoubleWell(separation=2.0, shift=1.5), 1),
     "gauss_shift": lambda: (JIsoGauss(dim=1, loc=3.0, scale=1.0),
                             IsotropicGauss(dim=1, loc=3.0, scale=1.0), 1),
+    "rings": lambda: (JRings(), Rings(), 2),
+    "rosenbrock": lambda: (JRosenbrock(dim=15, flatness=10.0, scale=1e5),
+                           Rosenbrock(dim=15, flatness=10.0, scale=1e5), 15),
 }
 VP_KW = dict(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
 BM_KW = dict(diff_coeff=0.4472135954999579, terminal_t=5.0)
@@ -78,9 +88,12 @@ def ctrl_pair(form, target):
         j_ctrl = JClippedCtrl(base_model=JFourierMLP(dim=d, **nets), clip_model=10.0, sde=j_sde)
         ctrl = ClippedCtrl(base_model=FourierMLP(dim=d, **nets), clip_model=10.0, sde=sde)
     else:
-        cls, j_cls = (LerpCtrl, JLerpCtrl) if form == "lerp" else (ScoreCtrl, JScoreCtrl)
+        cls, j_cls = {"lerp": (LerpCtrl, JLerpCtrl), "score": (ScoreCtrl, JScoreCtrl),
+                      "cancel_drift": (CancelDriftCtrl, JCancelDriftCtrl)}[form]
         common = dict(clip_model=10.0, clip_score=10.0, detach_score=False)
         extra, j_extra = {}, {}
+        if form == "cancel_drift":  # conf/model/langevin_init.yaml
+            extra = j_extra = dict(langevin_init=True)
         if form == "lerp":
             extra = dict(prior_score=IsotropicGauss(dim=d).score)
             j_extra = dict(prior_score=JIsoGauss(dim=d).score)
@@ -142,6 +155,12 @@ CASES = [
     pytest.param("score", "dw_shift", {"clip_model": 5.0, "clip_score": 10.0},
                  id="score.wells.d1"),
     pytest.param("lerp", "gauss_shift", None, id="lerp.gmm.d1"),
+    pytest.param("lerp", "rings", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.rings"),
+    pytest.param("lerp", "rosenbrock", {"clip_model": 5.0, "clip_score": 10.0},
+                 id="lerp.rosenbrock"),
+    pytest.param("cancel_drift", "gmm", {"clip_model": 5.0, "clip_score": 10.0},
+                 id="cancel_drift.gmm"),
+    pytest.param("cancel_drift", "rings", None, id="cancel_drift.rings"),
 ]
 
 
@@ -155,8 +174,8 @@ def test_plain_rollout_matches_jax_kernel_and_scan(form, target, clips):
     # the mixture's states spread over its modes, 5 apart; the new cases
     # take the last T steps of the configs' 200-step grid
     start = 0.0 if target == "funnel" else terminal_t * (1 - T / 200)
-    x0, ts, dbs = inputs(d=d, terminal_t=terminal_t, scale=3.0 if target == "gmm" else 1.0,
-                         start=start)
+    x0, ts, dbs = inputs(d=d, terminal_t=terminal_t,
+                         scale=3.0 if target in ("gmm", "rings") else 1.0, start=start)
     wants = jax_rollouts(j_ctrl, params, x0, ts, dbs, clips, kernel=d > 1)
     xs, x_T = fused_rollout(
         ctrl, torch.from_numpy(x0), torch.from_numpy(ts), torch.from_numpy(dbs), clips,
