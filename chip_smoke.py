@@ -14,10 +14,13 @@ prints nvcc's register and spill report. Phases:
            grid, kernel 2 (exponential-integrator rollout) on the DDS cosine
            grid, kernel 1's generic body (a 32-wide net), each instance of
            the mixture, wells, rings, Rosenbrock, ClippedCtrl, LerpTargetCtrl,
-           PotentialCtrl and CancelDriftCtrl forms (INSTANCES; the
-           LerpTargetCtrl's, the PotentialCtrl's, the rings', the
-           Rosenbrock's and the CancelDriftCtrl's in both bodies, the
-           PotentialCtrl's also at d = 50), softmin and
+           PotentialCtrl and CancelDriftCtrl forms, the image and the
+           given-score form (INSTANCES; the LerpTargetCtrl's, the
+           PotentialCtrl's, the rings', the Rosenbrock's, the
+           CancelDriftCtrl's and the image's in both bodies, the
+           PotentialCtrl's also at d = 50; the given score at d = 196 in
+           the generic body and in the wide one, which must give its bits,
+           and at d = 1600 in the wide body), softmin and
            transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
            edges at 100k (a column split of -inf duals, rows that see only
            -inf) and transport's (a column split of -inf duals, every dual
@@ -45,6 +48,17 @@ prints nvcc's register and spill report. Phases:
                         how many steps took a subtrajectory and their lengths;
              rings_dis  the rings (d = 2) under DIS, 220 steps, 100k
                         evaluation (no sampler: no Sinkhorn);
+             img_dis    the image (d = 2) under DIS, 220 steps, 100k
+                        evaluation and its Sinkhorn;
+             cox_dis    the whitened Cox process (d = 1600) under DIS at its
+                        batch 2048, 20 steps, a 10k evaluation on the
+                        config's 800-step grid (no sampler: no Sinkhorn);
+                        kernel 1's given-score form in the wide body, 200
+                        launches a step;
+             nice_smooth_dis  the smooth NICE flow (d = 196) under DIS, 20
+                        steps, a 10k evaluation and its Sinkhorn through
+                        softmin's run-time-width path; the given-score form
+                        in the generic body, 200 launches a step;
              gmm_langevin  the untrained Langevin solver at its full config
                         (conf/solver/langevin.yaml: 6000 chains, 10000 Euler
                         steps of dt 0.01, 1000 output steps, burn-in 500),
@@ -63,10 +77,14 @@ prints nvcc's register and spill report. Phases:
              VP drift): 20 steps, 10k eval;
   timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
            steps, the rings DIS, Rosenbrock DIS and langevin_init EulerDDS
-           steps, and the mixture SubtrajBridge's, on the whole trajectory and
-           on a subtrajectory (with a profiler breakdown; for the Bridge also
-           the card time of phase 2's divergence), each kernel and instance through its
-           wrapper, alone and as its plain version at its path's shapes
+           steps, the image, Cox and NICE DIS steps (the latter two, 200
+           launches and scores a step, over three windows of three), and
+           the mixture SubtrajBridge's, on the whole trajectory and on a
+           subtrajectory (with a profiler breakdown; for the Bridge also
+           the card time of phase 2's divergence), each kernel and instance
+           through its wrapper (a given score's with the target's score
+           every step), alone (a given score's on one fixed score) and as
+           its plain version at its path's shapes
            (the funnel rollouts in each body), softmin and transport at
            100k for d = 2 and 50, and one full Sinkhorn evaluation, whose
            transport kernel must be no further from float64 than the plain
@@ -75,7 +93,8 @@ prints nvcc's register and spill report. Phases:
            conf/solver/oc_base.yaml. Without the main phase it times the
            kernels only.
 
-It prints the card's name and power limit, a `kernels` JSON line, and,
+Each path prints the card memory it peaked at. It prints the card's name
+and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
 Any failure exits non-zero before that line. Without a CUDA card, or without the port beside this
 file, it fails. Numbers are written to chiprun_out/chip_smoke.json.
@@ -192,6 +211,18 @@ PATHS = {
     # their finite means, as the short paths' are
     "rings_dis": dict(target="rings", solver="dis", kernels=("rollout.lerp.rings",),
                       steps=None, eval=None, log_z=FINITE_LOG_Z_KEYS, sinkhorn=False),
+    "img_dis": dict(target="img", solver="dis", kernels=("rollout.lerp.img", *SINKHORN),
+                    steps=None, eval=None, log_z=LOG_Z_KEYS),
+    # the given-score form: kernel 1 once per EM step (per_step), after the
+    # target's score; Cox has no sampler (no Sinkhorn)
+    "cox_dis": dict(target="cox", solver="dis",
+                    overrides=["target.use_whitened=True", "~eval_sample_losses"],
+                    kernels=("rollout.lerp.given.wide",), steps=SHORT_STEPS, eval=SHORT_EVAL,
+                    log_z=FINITE_LOG_Z_KEYS, sinkhorn=False, per_step="rollout.lerp.given"),
+    "nice_smooth_dis": dict(target="nice_smooth", solver="dis",
+                            kernels=("rollout.lerp.given", *SINKHORN), steps=SHORT_STEPS,
+                            eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, generic=True,
+                            per_step="rollout.lerp.given"),
     "rosenbrock_dis": dict(target="rosenbrock", solver="dis",
                            kernels=("rollout.lerp.rosenbrock",), steps=SHORT_STEPS,
                            eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, sinkhorn=False,
@@ -228,6 +259,17 @@ INSTANCES = {
     "rollout.lerp.rings": dict(form="lerp", target="rings", bodies=True),
     "rollout.lerp.rosenbrock": dict(form="lerp", target="rosenbrock", bodies=True),
     "rollout.cancel_drift.gmm": dict(form="cancel_drift", target="gmm", bodies=True),
+    "rollout.lerp.img": dict(form="lerp", target="img", bodies=True),
+    # the given-score form: at NICE's d = 196 the generic body by shape, and
+    # the wide body, which must give its bits; at Cox's d = 1600 the wide
+    # body by shape
+    "rollout.lerp.given": dict(form="lerp", target="nice_smooth", wide_bits=True),
+    # (the configs' last layers: small, the score net's bias 1; the seeded
+    # net's full-size last layers drive the states out of the posterior,
+    # where exp(latent) overflows float32 and both the kernel and its twin
+    # give NaN, within 110 of the 200 steps)
+    "rollout.lerp.given.wide": dict(form="lerp", target="cox",
+                                    target_kwargs={"use_whitened": True}, config_last=True),
 }
 WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
 
@@ -268,7 +310,7 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False):
+def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False, table=0, given=False):
     # multiply-adds of the net (2 flops each), GELU with erf (~10 flops per
     # activation) and `per_coord` flops of score and update per coordinate
     # (about 25 for the LerpCtrl EM step, 20 for the ScoreCtrl exponential
@@ -282,13 +324,15 @@ def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False):
     # transposed products again (2C(HC + d) flops), the products with
     # gelu' (C(H + 1)) and GELU's derivative beside GELU (about 8 more flops
     # per activation: exp and four multiply-adds).
+    # A target table of `table` floats (the image's energy) is read once; a
+    # given score, (B, d) a step, is an input of every step.
     n_out = 1 if potential else d
     net = 2 * C * (d + H * C + n_out) + 10 * C * (H + 1)
     if potential:
         net += 2 * C * (H * C + d) + C * (H + 1) + 8 * C * (H + 1)
     ops = T * B * (net + per_coord * d + K * (3 * d + 10) + 3 * K * d)
     nbytes = 4 * (B * d + T * B * d + T * (6 + C) + C * d + C * n_out + H * C * (C + 1) + n_out
-                  + T * B * d + B * d + K * (2 * d + 1))
+                  + T * B * d + B * d + K * (2 * d + 1) + table + (T * B * d if given else 0))
     return ops, nbytes
 
 
@@ -364,14 +408,16 @@ def dds_inputs(device, rng):
     return x0, ts, noise
 
 
-def conf_target(name: str, device):
-    """A target as conf/target/<name>.yaml configures it."""
+def conf_target(name: str, device, **kwargs):
+    """A target as conf/target/<name>.yaml configures it (its `target` node
+    where the file is a global package), with `kwargs` set."""
     import yaml
 
     from sde_sampler_torch.utils.config import instantiate
 
     cfg = yaml.safe_load((ROOT / "conf" / "target" / f"{name}.yaml").read_text())
-    return instantiate(cfg).to(device)
+    cfg = cfg.get("target", cfg)
+    return instantiate({**cfg, **kwargs}).to(device)
 
 
 # flops of a form's control and update, and of a target's inline score, per
@@ -379,8 +425,11 @@ def conf_target(name: str, device):
 FORM_FLOPS = {"lerp": 17, "lerp_target": 13, "score": 12, "exp": 12, "clipped": 8,
               "potential": 8, "cancel_drift": 17}
 # the rings: |x|, the nearest of 3 radii and the score, about 12 a
-# coordinate at d = 2; the Rosenbrock's score of both neighbours, 14
-TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0, "rings": 12, "rosenbrock": 14}
+# coordinate at d = 2; the Rosenbrock's score of both neighbours, 14; the
+# image: the pixel's multiply-add, cast and clips, two differences and
+# products, about 8 a coordinate; a given score is read, not computed
+TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0, "rings": 12, "rosenbrock": 14,
+                "img": 8, "given": 0}
 
 
 def seeded_instance(device, label, seed, dim=None):
@@ -410,7 +459,7 @@ def seeded_instance(device, label, seed, dim=None):
 
     spec = INSTANCES[label]
     form = spec["form"]
-    target = conf_target(spec["target"], device)
+    target = conf_target(spec["target"], device, **spec.get("target_kwargs", {}))
     d = dim or target.dim
     base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH,
                       dim_out=1 if form == "potential" else None)
@@ -445,6 +494,11 @@ def seeded_instance(device, label, seed, dim=None):
         for p in ctrl.parameters():
             b = 1.0 / math.sqrt(p.shape[-1]) if p.ndim == 2 else 0.1
             p.copy_(torch.from_numpy(rng.uniform(-b, b, p.shape).astype(np.float32)))
+        if spec.get("config_last"):  # near conf/model/lerp.yaml's initial control
+            for layer in (base.out_layer, ctrl.score_model.out_layer):
+                layer.weight.mul_(0.05)
+                layer.bias.mul_(0.05)
+            ctrl.score_model.out_layer.bias.fill_(1.0)
     ctrl = ctrl.to(device)
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
     if form == "exp":
@@ -466,10 +520,12 @@ def seeded_instance(device, label, seed, dim=None):
         prepare = lambda x, t, n: ro._prepare(ctrl, x, t, n, clips, pass_sde)
     prepared = prepare(x0, ts, noise)
     kind = prepared[1]["kind"]
-    K = prepared[0][9].numel() // (2 * d + 1)
+    table = prepared[0][9].numel()
+    K = table // (2 * d + 1) if kind == "gmm" else 0
     work = rollout_work(BATCH, T, d, WIDTH, HIDDEN,
                         per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K,
-                        potential=form == "potential")
+                        potential=form == "potential", table=table if kind == "img" else 0,
+                        given=kind == "given")
     return run, plain, prepare, x0, ts, noise, work
 
 
@@ -614,6 +670,23 @@ def phase_kernels(device, report):
     for i, label in enumerate(INSTANCES):
         run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
         check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
+        if INSTANCES[label].get("wide_bits"):
+            # the wide body where the generic one fits: against the plain
+            # twin, and the generic body's bits
+            check_rollout(f"{label}, wide body",
+                          lambda x, t, n: ro._launch(prepare(x, t, n), "wide"),
+                          plain, x0i, tsi, noisei, f"{label}.wide_body", report)
+            k = report[label]
+            k["wide_body_max_abs_err"] = report.pop(f"{label}.wide_body")["max_abs_err"]
+            k["max_abs_err"] = max(k["max_abs_err"], k["wide_body_max_abs_err"])
+            prepared = prepare(x0i, tsi, noisei)
+            wide, generic = ro._launch(prepared, "wide"), ro._launch(prepared, "generic")
+            k["wide_vs_generic_body"] = max(float((a - b).abs().max())
+                                            for a, b in zip(wide, generic))
+            print(f"kernel {label}: wide vs generic body at d {x0i.shape[1]}: max |diff| "
+                  f"{k['wide_vs_generic_body']:.3e}", flush=True)
+            if k["wide_vs_generic_body"] != 0.0:
+                fail(f"{label}: the wide and generic bodies give different bits")
         if not INSTANCES[label].get("bodies"):
             continue
         # the generic body against the plain twin, and the fast body's bits
@@ -752,25 +825,37 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
     from sde_sampler_torch import main as entry
     from sde_sampler_torch.ops import build
 
+    import torch
+
     spec = PATHS[path]
     run_dir = OUT_DIR / f"chip_smoke_{path}"
     if run_dir.exists():
         for f in run_dir.glob("*"):
             if f.is_file():
                 f.unlink()
+    torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     start = time.perf_counter()
     solver_obj = entry.main(main_overrides(path, run_dir, train_steps, eval_batch))
     seconds = time.perf_counter() - start
     launches = {k: v for k, v in {**build.LAUNCHES, **build.FORM_LAUNCHES}.items() if v}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if spec.get("langevin"):
         train_steps, eval_batch = 0, int(solver_obj.cfg["eval_batch_size"])
     print(f"path {path}: {train_steps} steps + final eval ({eval_batch} samples) in "
-          f"{seconds:.1f} s; launches {launches}", flush=True)
+          f"{seconds:.1f} s; card memory peak {peak_gib:.3f} GiB; launches {launches}",
+          flush=True)
     for key in spec["kernels"]:
         count = build.FORM_LAUNCHES[key] if "." in key else build.LAUNCHES[key]
         if count <= 0:
             fail(f"kernel {key} was not launched on the {path} path")
+    if not spec.get("langevin") and spec["solver"] == "dis":
+        # kernel 1 once per optimizer step, or, for a given score, once per
+        # EM step of it (the evaluation's rollout is the plain loop)
+        key = spec.get("per_step") or spec["kernels"][0]
+        want = train_steps * (int(solver_obj.train_ts.shape[0]) - 1 if "per_step" in spec else 1)
+        if build.FORM_LAUNCHES[key] != want:
+            fail(f"{path}: {build.FORM_LAUNCHES[key]} launches of {key}, expected {want}")
     generic = {k: v for k, v in build.FORM_LAUNCHES.items() if k.endswith(".generic") and v}
     if bool(generic) != spec.get("generic", False):
         # every path's net is 64 wide with two hidden layers: the fast body
@@ -825,6 +910,7 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
     report.setdefault("paths", {})[path] = {
         "seconds": seconds, **summary, "train_steps": train_steps,
         "eval_batch_size": eval_batch, "launches": launches, "subtraj": subtraj,
+        "peak_gib": peak_gib,
     }
     return solver_obj
 
@@ -930,27 +1016,29 @@ def divergence_share(solver, busy_ms: float) -> dict:
     return {"device_busy_ms": ms, "share_of_step_busy": share}
 
 
-def time_steps(solver, n_em_steps: int, label: str) -> dict:
-    """Median of five 20-step windows of the trained solver's optimizer step,
-    with its profiler breakdown."""
+def time_steps(solver, n_em_steps: int, label: str, windows: int = 5, per_window: int = 20,
+               profiled: int = 5) -> dict:
+    """Median of `windows` windows of `per_window` optimizer steps of the
+    trained solver, with its profiler breakdown over `profiled` steps."""
     import torch
 
     for _ in range(3):
         solver.step()
     torch.cuda.synchronize()
-    windows = []
-    for _ in range(5):  # five windows of 20 steps: the spread is reported
+    times = []
+    for _ in range(windows):  # the spread is reported
         start = time.perf_counter()
-        for _ in range(20):
+        for _ in range(per_window):
             solver.step()
         torch.cuda.synchronize()
-        windows.append((time.perf_counter() - start) / 20 * 1e3)
-    step_ms = sorted(windows)[2]
-    rate = n_em_steps * BATCH / (step_ms / 1e3)
-    print(f"{label} optimizer step: median {step_ms:.3f} ms of 5 windows "
-          f"{[round(w, 3) for w in windows]}; {rate:.4g} steps x batch / s", flush=True)
-    return {"ms": step_ms, "windows_ms": windows, "steps_x_batch_per_s": rate,
-            "breakdown": step_breakdown(solver, step_ms)}
+        times.append((time.perf_counter() - start) / per_window * 1e3)
+    step_ms = sorted(times)[windows // 2]
+    rate = n_em_steps * solver.train_batch_size / (step_ms / 1e3)
+    print(f"{label} optimizer step: median {step_ms:.3f} ms of {windows} windows of "
+          f"{per_window} {[round(w, 3) for w in times]}; {rate:.4g} steps x batch / s",
+          flush=True)
+    return {"ms": step_ms, "windows_ms": times, "steps_x_batch_per_s": rate,
+            "breakdown": step_breakdown(solver, step_ms, profiled)}
 
 
 def phase_timing(solvers, device, report):
@@ -969,6 +1057,13 @@ def phase_timing(solvers, device, report):
         report["gmm_step"] = time_steps(solvers["gmm_dis"], STEPS, "GMM DIS")
         report["rings_step"] = time_steps(solvers["rings_dis"], STEPS, "Rings DIS")
         report["rosenbrock_step"] = time_steps(solvers["rosenbrock_dis"], STEPS, "Rosenbrock DIS")
+        report["img_step"] = time_steps(solvers["img_dis"], STEPS, "Image DIS")
+        # the given-score paths: 200 launches and scores a step, seconds a window
+        report["cox_step"] = time_steps(solvers["cox_dis"], STEPS, "Cox DIS (whitened, d 1600)",
+                                        windows=3, per_window=3, profiled=2)
+        report["nice_step"] = time_steps(solvers["nice_smooth_dis"], STEPS,
+                                         "NICE smooth DIS (d 196)", windows=3, per_window=3,
+                                         profiled=2)
         report["langevin_init_step"] = time_steps(
             solvers["gmm_dds_euler_langevin_init"], STEPS, "GMM EulerDDS (langevin_init)")
         bridge = solvers["gmm_bridge_diff_init"]
@@ -1029,8 +1124,20 @@ def phase_timing(solvers, device, report):
             device, label, SEED + 10 + i)
         prepared = prepare(x0i, tsi, noisei)
         k = report[label]
-        k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=20, warmup=2)
-        k["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=20, warmup=2)
+        if prepared[1]["kind"] == "given":
+            # through the wrapper: a score and a launch a step; alone: the
+            # same launches on one fixed score
+            score = prepared[1]["score_fn"](x0i).contiguous()
+            fixed = (prepared[0], {**prepared[1], "score_fn": lambda x: score}, *prepared[2:])
+            k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=5, warmup=1)
+            k["kernel_ms"] = cuda_ms(lambda: ro._launch(fixed), reps=5)
+            if INSTANCES[label].get("wide_bits"):
+                k["wide_body_ms"] = cuda_ms(lambda: ro._launch(fixed, "wide"), reps=5)
+                print(f"time {label}: the wide body alone at the same shapes "
+                      f"{k['wide_body_ms']:.3f} ms", flush=True)
+        else:
+            k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=20, warmup=2)
+            k["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=20, warmup=2)
         k["plain_ms"] = cuda_ms(lambda: plain(x0i, tsi, noisei), reps=1, warmup=0)
         k["bound_ms"], k["bound_by"] = bound(*work)
         print(f"time {label} (d {x0i.shape[1]}, T {tsi.shape[0] - 1}): {k['ms']:.3f} ms "
@@ -1132,7 +1239,8 @@ def phase_timing(solvers, device, report):
     smoke = {name: report[name].get("launches") for name in KERNELS}
     print("launches per paper-scale DIS run, computed from conf/solver/oc_base.yaml "
           f"({sinkhorn.n_iters} Sinkhorn iterations each): {json.dumps(per_run)}; "
-          f"in this smoke run: {json.dumps(smoke)}", flush=True)
+          f"in this smoke run: {json.dumps(smoke)}; kernel 1 of a given score once per "
+          f"EM step: {per_run['rollout'] * STEPS} a run", flush=True)
     report["paper_scale_dis_launches_computed"] = per_run
 
 

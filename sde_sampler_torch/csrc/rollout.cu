@@ -6,8 +6,9 @@
 
 using namespace sde_rollout;
 
-// Floats of the target's table: the mixture's loc, 1/scale^2 and
-// constants, or the rings' K radii.
+// Floats of the target's table that the bodies stage in shared memory: the
+// mixture's loc, 1/scale^2 and constants, or the rings' K radii (the
+// image's energy table and a given score stay in device memory).
 static int table_floats(int target, int K, int D) {
   return target == kGmm ? K * (2 * D + 1) : (target == kRings ? K : 0);
 }
@@ -16,20 +17,23 @@ static int table_floats(int target, int K, int D) {
 // ScoreCtrl one, 3 the ClippedCtrl one (target kNoTarget), 4 the
 // LerpTargetCtrl one (Bridge; the prior arguments unused), 5 the
 // PotentialCtrl one (target kNoTarget; w_out (C, 1), b_out (1)), 6 the
-// CancelDriftCtrl one; target and t0..t2 as in Consts; `gmm` the target's
-// table (the mixture's, or the rings' radii), K its count (the mixture's
-// components, or the radii); `body` and `used` as for `launch`.
+// CancelDriftCtrl one; target and t0..t3 as in Consts; `gmm` the target's
+// table (the mixture's, the rings' radii, the image's energy table of
+// tab_h rows of tab_w pixels) or a given score (B, D), K its count (the
+// mixture's components, or the radii); `body` and `used` as for `launch`.
+// A given score's launch runs one step (T = 1); where xs is x0, the state
+// before the step is not written again.
 extern "C" int rollout_launch(
     const float* x0, const float* dbs, const float* tab, const float* temb,
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, const float* gmm, float* xs, float* x_T,
-    int B, int D, int C, int H, int T, int K, float clip_model, float clip_score,
-    float prior_loc, float prior_var, float t0, float t1, float t2, int form,
-    int target, int body, int* used, void* stream) {
+    int B, int D, int C, int H, int T, int K, int tab_w, int tab_h, float clip_model,
+    float clip_score, float prior_loc, float prior_var, float t0, float t1, float t2,
+    float t3, int form, int target, int body, int* used, void* stream) {
   const Args a{x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, gmm, xs, x_T,
                B, D, C, H, T, target,
-               {clip_model, clip_score, prior_loc, prior_var, t0, t1, t2,
-                target == kGmm ? K : 0, table_floats(target, K, D)},
+               {clip_model, clip_score, prior_loc, prior_var, t0, t1, t2, t3,
+                target == kGmm ? K : 0, table_floats(target, K, D), tab_w, tab_h},
                (cudaStream_t)stream};
   if (form == kLerpEm) return launch_lerp(a, body, used);
   if (form == kScoreEm) return launch_score(a, body, used);
@@ -45,12 +49,13 @@ extern "C" int rollout_exp_launch(
     const float* x0, const float* noise, const float* tab, const float* temb,
     const float* w_in, const float* w_hid, const float* b_hid,
     const float* w_out, const float* b_out, const float* gmm, float* xs, float* x_T,
-    int B, int D, int C, int H, int T, int K, float clip_model, float clip_score,
-    float t0, float t1, float t2, int target, int body, int* used, void* stream) {
+    int B, int D, int C, int H, int T, int K, int tab_w, int tab_h, float clip_model,
+    float clip_score, float t0, float t1, float t2, float t3, int target, int body,
+    int* used, void* stream) {
   const Args a{x0, noise, tab, temb, w_in, w_hid, b_hid, w_out, b_out, gmm, xs, x_T,
                B, D, C, H, T, target,
-               {clip_model, clip_score, 0.0f, 1.0f, t0, t1, t2, target == kGmm ? K : 0,
-                table_floats(target, K, D)},
+               {clip_model, clip_score, 0.0f, 1.0f, t0, t1, t2, t3, target == kGmm ? K : 0,
+                table_floats(target, K, D), tab_w, tab_h},
                (cudaStream_t)stream};
   return launch_exp(a, body, used);
 }

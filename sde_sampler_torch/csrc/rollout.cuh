@@ -59,7 +59,16 @@
 //     g_j = [j < d-1] (-400 x_j)(x_{j+1} - x_j^2) - 2 (1 - x_j)
 //         + [j > 0] 200 (x_j - x_{j-1}^2),
 //     which needs the row's neighbours: the row phase writes the whole
-//     score row, one (row, coordinate) pair a thread.
+//     score row, one (row, coordinate) pair a thread;
+//   img (Img, d = 2 only): -(dE/dx, dE/dy) * scale at the pixel
+//     p = x * scale + mean, cast to int32 saturating (NaN to 0) and clipped
+//     to the inner pixels, by centred differences of the energy table:
+//     four gathers into its 700 x 700 floats (1.96 MB), which stay in
+//     device memory (L2-resident), read through the read-only cache;
+//   given (any target whose score no kernel inlines: Cox, NICE): the score
+//     of this step's state, computed before the launch (ops/rollout.py runs
+//     one launch per step, T = 1, after the target's own score) and read
+//     from device memory.
 //
 // The row reductions of the rings and Rosenbrock, and the cancel_drift
 // form's control, round every operation on its own (__fmul_rn and kin), so
@@ -118,9 +127,15 @@
 //   reads them with the out_layer. Each output keeps the generic body's
 //   sum order (acc = bias, then fmaf over j = 0..C-1) and both bodies share
 //   the target and update code, so they give the same bits.
-// - rollout_generic_kernel, any (C, H, d): one block per 16 rows, threads
-//   over (row, channel) pairs, one dependent chain per output, tables read
-//   from device memory each step.
+// - rollout_generic_kernel<form, target, false>, any (C, H, d) whose
+//   weights fit shared memory: one block per 16 rows, threads over (row,
+//   channel) pairs, one dependent chain per output, tables read from device
+//   memory each step.
+// - rollout_generic_kernel<form, target, true>, the wide body, for a given
+//   score too wide for that (d = 1600: the input and output layers alone
+//   are 2 d C floats, 819 KB): 8 rows a block, the input and output
+//   layers' weights read from device memory. It computes every output as
+//   the generic body does and gives its bits.
 //
 // This header holds both bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
@@ -140,6 +155,7 @@
 namespace sde_rollout {
 
 constexpr int kRows = 16;  // batch rows per block of the generic body
+constexpr int kWideRows = 8;  // batch rows per block of the wide body
 constexpr int kTab = 6;    // per-step scalars, see the header
 
 constexpr int kGenericThreads = 256;
@@ -160,6 +176,7 @@ static_assert(kFastThreads == 16 * kFastRows,
 constexpr int kByShape = 0;
 constexpr int kFastBody = 1;
 constexpr int kGenericBody = 2;
+constexpr int kWideBody = 3;
 
 // Control form and update of one instance.
 constexpr int kLerpEm = 0;     // kernel 1, LerpCtrl (DIS)
@@ -177,24 +194,35 @@ constexpr int kWells = 2;     // DoubleWell, MultiWell
 constexpr int kNoTarget = 3;  // the ClippedCtrl's
 constexpr int kRings = 4;     // Rings (d = 2)
 constexpr int kRosenbrock = 5;
+constexpr int kImg = 6;       // Img (d = 2), its energy table in device memory
+constexpr int kGiven = 7;     // any target: its score of this step, given as a tensor
 
-// t0..t2 are the target's scalars: the funnel's first-coordinate variance,
+// t0..t3 are the target's scalars: the funnel's first-coordinate variance,
 // the wells' number (as a float), separation and shift, the rings'
-// scale and eps, or the Rosenbrock's flatness. K is the number of
-// mixture components (0 for the other targets); n_tab the floats of the
-// target's table: the mixture's K (2 D + 1), the rings' radii, else 0.
+// scale and eps, the Rosenbrock's flatness, or the image's mean (t0, t1)
+// and scale (t2, t3). K is the number of mixture components (0 for the
+// other targets); n_tab the floats of the target's table that the bodies
+// stage in shared memory: the mixture's K (2 D + 1), the rings' radii,
+// else 0 (the image's energy table, tab_h rows of tab_w pixels, is read
+// from device memory).
 struct Consts {
   float clip_model, clip_score, prior_loc, prior_var;
-  float t0, t1, t2;
-  int K, n_tab;
+  float t0, t1, t2, t3;
+  int K, n_tab, tab_w, tab_h;
 };
 
-// Floats per row of the row reductions: the mixture's K log-weights and K
-// exponentials, the Rosenbrock's D scores, else two (the funnel's, the
-// rings' |x| and nearest radius).
+// Floats per row of the row reductions in shared memory: the mixture's K
+// log-weights and K exponentials, the Rosenbrock's D scores, none for a
+// given score (read from device memory), else two (the funnel's, the
+// rings' |x| and nearest radius, the image's score).
 __host__ __device__ constexpr int row_floats(int target, int K, int D) {
-  return target == kGmm ? 2 * K : (target == kRosenbrock ? D : 2);
+  return target == kGmm ? 2 * K
+                        : (target == kRosenbrock ? D : (target == kGiven ? 0 : 2));
 }
+
+// Saturating float -> int32 conversion, rounding towards zero, NaN to 0
+// (cvt.rzi.s32.f32), as XLA converts.
+__device__ __forceinline__ int to_int_saturating(float v) { return __float2int_rz(v); }
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
@@ -240,7 +268,7 @@ __device__ __forceinline__ float target_score(float x, int j, int D, const float
   } else if constexpr (kTarget == kRings) {
     const float radius = row[0], c = row[1];
     return ((-2.0f * cs.t0) * (1.0f - c / (radius + cs.t1))) * x;
-  } else if constexpr (kTarget == kRosenbrock) {
+  } else if constexpr (kTarget == kRosenbrock || kTarget == kImg || kTarget == kGiven) {
     return row[j];
   } else {
     return 0.0f;
@@ -251,9 +279,10 @@ __device__ __forceinline__ float target_score(float x, int j, int D, const float
 // target score needs, by threads tid = 0..nt-1 of the block: the funnel's
 // (x[:, 0], sum_{i>0} x[:, i]^2), the mixture's K log-weights of each
 // (row, component) pair, log w_k - sum_j log scale_kj - 1/2 sum_j
-// (x_j - loc_kj)^2 / scale_kj^2, the rings' (|x|, nearest radius), or the
-// Rosenbrock's score of each (row, coordinate) pair. Into row (rows,
-// row_floats). `gmm` is the target's table.
+// (x_j - loc_kj)^2 / scale_kj^2, the rings' (|x|, nearest radius), the
+// Rosenbrock's score of each (row, coordinate) pair, or the image's score.
+// Into row (rows, row_floats). `gmm` is the target's table: in shared
+// memory, or for the image its energy table in device memory.
 template <int kTarget>
 __device__ __forceinline__ void row_phase(const float* x, float* row, const float* gmm,
                                           int rows, int D, int tid, int nt,
@@ -305,6 +334,22 @@ __device__ __forceinline__ void row_phase(const float* x, float* row, const floa
       if (j > 0)
         g = __fadd_rn(g, __fmul_rn(200.0f, __fsub_rn(xj, __fmul_rn(xr[j - 1], xr[j - 1]))));
       row[p] = __fdiv_rn(-g, cs.t0);
+    }
+  } else if constexpr (kTarget == kImg) {
+    // the pixel p = x * scale + mean, cast saturating to int and clipped to
+    // the inner pixels; the score is -(dE/dx, dE/dy) * scale from centred
+    // differences of the energy table there (L2-resident: four gathers)
+    const int W = cs.tab_w;
+    for (int r = tid; r < rows; r += nt) {
+      const float px = __fadd_rn(__fmul_rn(x[r * D], cs.t2), cs.t0);
+      const float py = __fadd_rn(__fmul_rn(x[r * D + 1], cs.t3), cs.t1);
+      const int ix = min(max(to_int_saturating(px), 1), W - 2);
+      const int iy = min(max(to_int_saturating(py), 1), cs.tab_h - 2);
+      const float* e = gmm + (size_t)iy * W + ix;
+      const float dedx = 0.5f * (__ldg(e + 1) - __ldg(e - 1));
+      const float dedy = 0.5f * (__ldg(e + W) - __ldg(e - W));
+      row[2 * r] = -dedx * cs.t2;
+      row[2 * r + 1] = -dedy * cs.t3;
     }
   }
 }
@@ -367,7 +412,37 @@ __device__ __forceinline__ float step_update(float x, float net, float target,
 
 // ---------------------------------------------------------------- generic
 
-template <int kForm, int kTarget>
+// Floats of shared memory the generic body (wide = false) or the wide body
+// (wide = true) needs: the weights (the wide body keeps the input and output
+// layers' in device memory), and per row of its tile the state, net output,
+// two activation rows and the target's row reductions.
+__host__ __device__ constexpr size_t generic_smem_floats(int D, int C, int H, int RS, int n_tab,
+                                                         bool wide) {
+  return (wide ? 0 : (size_t)D * C + (size_t)C * D + D) + (size_t)H * C * C + (size_t)H * C +
+         (size_t)(wide ? kWideRows : kRows) * (2 * D + 2 * C + RS) + (size_t)n_tab;
+}
+
+// A weight of the generic (kGlobal = false: shared memory) or the wide body
+// (kGlobal = true: device memory, read through the read-only cache).
+template <bool kGlobal>
+__device__ __forceinline__ float ldw(const float* p) {
+  if constexpr (kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
+// kWide = false, the generic body: kRows rows a block, every weight staged
+// in shared memory. kWide = true, the wide body, for a state too wide for
+// that (the given-score targets at d = 1600: the input and output layers
+// alone take 2 d C floats): kWideRows rows a block, the input and output
+// layers' weights read from device memory, where they stay L2-resident.
+// Both compute every output the same way (acc = bias, then fmaf over j in
+// order), so they give the same bits. A given score (kGiven) is read from
+// device memory at the tile's rows: `gmm` is the score (B, D) of this
+// step's state.
+template <int kForm, int kTarget, bool kWide>
 __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     const float* __restrict__ x0, const float* __restrict__ dbs,
     const float* __restrict__ tab, const float* __restrict__ temb,
@@ -376,50 +451,65 @@ __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     const float* __restrict__ b_out, const float* __restrict__ gmm,
     float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int C, int H, int T,
     Consts cs) {
+  constexpr int R = kWide ? kWideRows : kRows;
   extern __shared__ float sm[];
   const int RS = row_floats(kTarget, cs.K, D);
   const int n_gmm = cs.n_tab;
-  float* s_win = sm;                   // (D, C)  input_embed weight, (in, out)
-  float* s_whid = s_win + D * C;       // (H, C, C)
-  float* s_bhid = s_whid + H * C * C;  // (H, C)
-  float* s_wout = s_bhid + H * C;      // (C, D)
-  float* s_bout = s_wout + C * D;      // (D)
-  float* s_x = s_bout + D;             // (kRows, D) state tile
-  float* s_a = s_x + kRows * D;        // (kRows, C) activations, ping
-  float* s_b = s_a + kRows * C;        // (kRows, C) activations, pong
-  float* s_out = s_b + kRows * C;      // (kRows, D) net output
-  float* s_row = s_out + kRows * D;    // (kRows, RS) the target's row reductions
-  float* s_gmm = s_row + kRows * RS;   // (n_tab) the target's table
+  float* s_win = sm;                                    // (D, C) input_embed weight, (in, out)
+  float* s_whid = s_win + (kWide ? 0 : D * C);          // (H, C, C)
+  float* s_bhid = s_whid + H * C * C;                   // (H, C)
+  float* s_wout = s_bhid + H * C;                       // (C, D)
+  float* s_bout = s_wout + (kWide ? 0 : C * D);         // (D)
+  float* s_x = s_bout + (kWide ? 0 : D);                // (R, D) state tile
+  float* s_a = s_x + R * D;                             // (R, C) activations, ping
+  float* s_b = s_a + R * C;                             // (R, C) activations, pong
+  float* s_out = s_b + R * C;                           // (R, D) net output
+  float* s_row = s_out + R * D;                         // (R, RS) the target's row reductions
+  float* s_gmm = s_row + R * RS;                        // (n_tab) the target's table
+  const float* win = kWide ? w_in : s_win;
+  const float* wout = kWide ? w_out : s_wout;
+  const float* bout = kWide ? b_out : s_bout;
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, B - row0);
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, B - row0);
   const size_t step_stride = (size_t)B * D;
   const size_t tile_off = (size_t)row0 * D;
+  // the image's energy table stays in device memory; a given score is read
+  // at this tile's rows, D floats a row
+  const float* table = kTarget == kImg ? gmm : s_gmm;
+  const float* rows = kTarget == kGiven ? gmm + tile_off : s_row;
+  const int row_stride = kTarget == kGiven ? D : RS;
+  // a launch of one step of a given score writes its state before the step
+  // where it already lies (xs[k] is x0) only once
+  const bool write_xs = xs != x0;
 
-  for (int i = tid; i < D * C; i += kGenericThreads) s_win[i] = w_in[i];
+  if constexpr (!kWide) {
+    for (int i = tid; i < D * C; i += kGenericThreads) s_win[i] = w_in[i];
+    for (int i = tid; i < C * D; i += kGenericThreads) s_wout[i] = w_out[i];
+    for (int i = tid; i < D; i += kGenericThreads) s_bout[i] = b_out[i];
+  }
   for (int i = tid; i < H * C * C; i += kGenericThreads) s_whid[i] = w_hid[i];
   for (int i = tid; i < H * C; i += kGenericThreads) s_bhid[i] = b_hid[i];
-  for (int i = tid; i < C * D; i += kGenericThreads) s_wout[i] = w_out[i];
-  for (int i = tid; i < D; i += kGenericThreads) s_bout[i] = b_out[i];
   for (int i = tid; i < n_gmm; i += kGenericThreads) s_gmm[i] = gmm[i];
-  for (int i = tid; i < kRows * D; i += kGenericThreads)
+  for (int i = tid; i < R * D; i += kGenericThreads)
     s_x[i] = i < nrows * D ? x0[tile_off + i] : 0.0f;
   __syncthreads();
 
   for (int k = 0; k < T; ++k) {
     float* xs_k = xs + (size_t)k * step_stride + tile_off;
-    for (int i = tid; i < nrows * D; i += kGenericThreads) xs_k[i] = s_x[i];
+    if (write_xs)
+      for (int i = tid; i < nrows * D; i += kGenericThreads) xs_k[i] = s_x[i];
 
     // the target's row reductions of this step's state
-    row_phase<kTarget>(s_x, s_row, s_gmm, kRows, D, tid, kGenericThreads, cs);
+    row_phase<kTarget>(s_x, s_row, table, R, D, tid, kGenericThreads, cs);
 
     // input_embed(x) + timestep_embed(s) (bias folded into temb), then GELU
     const float* temb_k = temb + (size_t)k * C;
-    for (int i = tid; i < kRows * C; i += kGenericThreads) {
+    for (int i = tid; i < R * C; i += kGenericThreads) {
       const int r = i / C, c = i - r * C;
       float acc = temb_k[c];
-      for (int j = 0; j < D; ++j) acc = fmaf(s_win[j * C + c], s_x[r * D + j], acc);
+      for (int j = 0; j < D; ++j) acc = fmaf(ldw<kWide>(win + j * C + c), s_x[r * D + j], acc);
       s_a[i] = gelu_exact(acc);
     }
     __syncthreads();
@@ -429,7 +519,7 @@ __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     for (int l = 0; l < H; ++l) {
       const float* W = s_whid + (size_t)l * C * C;
       const float* bias = s_bhid + l * C;
-      for (int i = tid; i < kRows * C; i += kGenericThreads) {
+      for (int i = tid; i < R * C; i += kGenericThreads) {
         const int r = i / C, c = i - r * C;
         const float* a = in + r * C;
         float acc = bias[c];
@@ -442,21 +532,22 @@ __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
       out = tmp;
     }
 
-    for (int i = tid; i < kRows * D; i += kGenericThreads) {
+    for (int i = tid; i < R * D; i += kGenericThreads) {
       const int r = i / D, c = i - r * D;
       const float* a = in + r * C;
-      float acc = s_bout[c];
-      for (int j = 0; j < C; ++j) acc = fmaf(s_wout[j * D + c], a[j], acc);
+      float acc = ldw<kWide>(bout + c);
+      for (int j = 0; j < C; ++j) acc = fmaf(ldw<kWide>(wout + j * D + c), a[j], acc);
       s_out[i] = acc;
     }
-    exp_phase<kTarget>(s_row, kRows, tid, kGenericThreads, cs);
+    exp_phase<kTarget>(s_row, R, tid, kGenericThreads, cs);
     __syncthreads();
 
     const float* db_k = dbs + (size_t)k * step_stride + tile_off;
     const float* st = tab + k * kTab;
     for (int i = tid; i < nrows * D; i += kGenericThreads) {
       const int r = i / D, j = i - r * D;
-      const float target = target_score<kTarget>(s_x[i], j, D, s_row + r * RS, s_gmm, cs);
+      const float target =
+          target_score<kTarget>(s_x[i], j, D, rows + r * row_stride, table, cs);
       s_x[i] = step_update<kForm>(s_x[i], s_out[i], target, st, db_k[i], cs);
     }
     __syncthreads();
@@ -514,6 +605,9 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   float* s_db = s_x + R * D;                      // 2 x (R, D) noise
   float* s_row = s_db + 2 * R * D;                // (R, RS) the target's row reductions
   float* s_gmm = s_row + R * RS;                  // (n_tab) the target's table
+  // the image's energy table stays in device memory
+  const float* table = kTarget == kImg ? gmm : s_gmm;
+  static_assert(kTarget != kGiven, "a given score takes the generic or wide body");
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * R;
@@ -573,7 +667,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
     cp_async_commit();  // one group per step, empty on the last
 
     // the target's row reductions of this step's state
-    row_phase<kTarget>(s_x, s_row, s_gmm, R, D, tid, NT, cs);
+    row_phase<kTarget>(s_x, s_row, table, R, D, tid, NT, cs);
 
     // input_embed(x) + timestep_embed(s) (bias folded into temb), then GELU
     float acc[RT];
@@ -635,7 +729,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
       const int i = o_row * D + o_col;
       if (o_valid && i < nx) {
         const float target =
-            target_score<kTarget>(s_x[i], o_col, D, s_row + o_row * RS, s_gmm, cs);
+            target_score<kTarget>(s_x[i], o_col, D, s_row + o_row * RS, table, cs);
         s_x[i] = step_update<kForm>(s_x[i], o, target, s_tab + k * kTab,
                                     s_db[(k & 1) * R * D + i], cs);
       }
@@ -673,17 +767,16 @@ cudaError_t launch_fast(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int kForm, int kTarget>
+template <int kForm, int kTarget, bool kWide>
 cudaError_t launch_generic(const Args& a) {
-  const size_t smem =
-      sizeof(float) * ((size_t)a.D * a.C + (size_t)a.H * a.C * a.C + (size_t)a.H * a.C +
-                       (size_t)a.C * a.D + a.D + kRows * (2 * a.D + 2 * a.C) +
-                       (size_t)kRows * row_floats(kTarget, a.cs.K, a.D) + (size_t)a.cs.n_tab);
-  auto kernel = rollout_generic_kernel<kForm, kTarget>;
+  const size_t smem = sizeof(float) * generic_smem_floats(
+      a.D, a.C, a.H, row_floats(kTarget, a.cs.K, a.D), a.cs.n_tab, kWide);
+  auto kernel = rollout_generic_kernel<kForm, kTarget, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (a.B + kRows - 1) / kRows;
+  const int rows = kWide ? kWideRows : kRows;
+  const int blocks = (a.B + rows - 1) / rows;
   kernel<<<blocks, kGenericThreads, smem, a.stream>>>(
       a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out, a.b_out, a.gmm,
       a.xs, a.x_T, a.B, a.D, a.C, a.H, a.T, a.cs);
@@ -691,47 +784,64 @@ cudaError_t launch_generic(const Args& a) {
 }
 
 // The fast body takes C = 64, H = 2, D = 1..16 and tables that fit shared
-// memory.
+// memory; never a given score.
 inline bool fast_fits(const Args& a) {
-  return a.C == kFastC && a.H == kFastH && a.D >= 1 && a.D <= 16 &&
+  return a.C == kFastC && a.H == kFastH && a.D >= 1 && a.D <= 16 && a.target != kGiven &&
          sizeof(float) * fast_smem_floats(a.D, a.T, row_floats(a.target, a.cs.K, a.D),
                                           a.cs.n_tab) <= kMaxSmem;
 }
 
-// `body`: kByShape takes the fast body where it fits and the generic one
-// elsewhere; kFastBody or kGenericBody asks for one (the fast one fails on
-// a shape it does not take). *used receives the body launched. kOnlyD > 0
-// instantiates the fast body at that D alone (a target of one dimension).
+// The generic (wide = false) or wide body's shared memory fits a block.
+inline bool generic_fits(const Args& a, bool wide) {
+  return sizeof(float) * generic_smem_floats(a.D, a.C, a.H, row_floats(a.target, a.cs.K, a.D),
+                                             a.cs.n_tab, wide) <= kMaxSmem;
+}
+
+// `body`: kByShape takes the fast body where it fits, else the generic one
+// where it fits, else the wide one; kFastBody, kGenericBody or kWideBody
+// asks for one (each fails on a shape it does not take). *used receives the
+// body launched. kOnlyD > 0 instantiates the fast body at that D alone (a
+// target of one dimension) and no wide body; kOnlyD < 0 instantiates no
+// fast body (a given score) and the wide one.
 template <int kForm, int kTarget, int kOnlyD = 0>
 int launch(const Args& a, int body, int* used) {
   if (a.B <= 0 || a.T <= 0 || used == nullptr) return (int)cudaErrorInvalidValue;
-  if (body != kByShape && body != kFastBody && body != kGenericBody)
+  if (body != kByShape && body != kFastBody && body != kGenericBody && body != kWideBody)
     return (int)cudaErrorInvalidValue;
-  const bool fits = fast_fits(a);
-  if (body == kFastBody && !fits) return (int)cudaErrorInvalidValue;
-  const bool fast = body == kFastBody || (body == kByShape && fits);
-  *used = fast ? kFastBody : kGenericBody;
-  if (!fast) return (int)launch_generic<kForm, kTarget>(a);
-  if constexpr (kOnlyD > 0) {
+  const bool fits = kOnlyD >= 0 && fast_fits(a);
+  const bool wide_ok = kOnlyD < 0 && generic_fits(a, true);
+  if ((body == kFastBody && !fits) || (body == kWideBody && !wide_ok))
+    return (int)cudaErrorInvalidValue;
+  int chosen = body;
+  if (body == kByShape)
+    chosen = fits ? kFastBody
+                  : (generic_fits(a, false) || !wide_ok ? kGenericBody : kWideBody);
+  *used = chosen;
+  if (chosen == kGenericBody) return (int)launch_generic<kForm, kTarget, false>(a);
+  if constexpr (kOnlyD < 0) {
+    return (int)launch_generic<kForm, kTarget, true>(a);
+  } else if constexpr (kOnlyD > 0) {
     return a.D == kOnlyD ? (int)launch_fast<kForm, kTarget, kOnlyD>(a)
                          : (int)cudaErrorInvalidValue;
-  }
-  switch (a.D) {
+  } else {
+    switch (a.D) {
 #define SDE_CASE(DD) \
   case DD:           \
     return (int)launch_fast<kForm, kTarget, DD>(a);
-    SDE_CASE(1) SDE_CASE(2) SDE_CASE(3) SDE_CASE(4) SDE_CASE(5) SDE_CASE(6)
-    SDE_CASE(7) SDE_CASE(8) SDE_CASE(9) SDE_CASE(10) SDE_CASE(11)
-    SDE_CASE(12) SDE_CASE(13) SDE_CASE(14) SDE_CASE(15) SDE_CASE(16)
+      SDE_CASE(1) SDE_CASE(2) SDE_CASE(3) SDE_CASE(4) SDE_CASE(5) SDE_CASE(6)
+      SDE_CASE(7) SDE_CASE(8) SDE_CASE(9) SDE_CASE(10) SDE_CASE(11)
+      SDE_CASE(12) SDE_CASE(13) SDE_CASE(14) SDE_CASE(15) SDE_CASE(16)
 #undef SDE_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
 // The instance of a form with a score for the target of a launch: a
 // mixture needs its table (K >= 1); the wells' count must lie in 1..D; the
-// rings need d = 2 and their radii.
+// rings need d = 2 and their radii; the image d = 2 and its energy table
+// (at least 3 x 3 pixels); a given score its tensor.
 template <int kForm>
 int launch_target(const Args& a, int body, int* used) {
   const Consts& cs = a.cs;
@@ -749,6 +859,13 @@ int launch_target(const Args& a, int body, int* used) {
       return launch<kForm, kRings, 2>(a, body, used);
     case kRosenbrock:
       return launch<kForm, kRosenbrock>(a, body, used);
+    case kImg:
+      if (a.D != 2 || cs.tab_w < 3 || cs.tab_h < 3 || cs.n_tab != 0 || a.gmm == nullptr)
+        return (int)cudaErrorInvalidValue;
+      return launch<kForm, kImg, 2>(a, body, used);
+    case kGiven:
+      if (a.gmm == nullptr || cs.n_tab != 0) return (int)cudaErrorInvalidValue;
+      return launch<kForm, kGiven, -1>(a, body, used);
     default:
       return (int)cudaErrorInvalidValue;
   }

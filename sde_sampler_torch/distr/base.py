@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import logging
 import math
+from pathlib import Path
 from typing import Callable
 
 import torch
@@ -20,6 +21,10 @@ EXPECTATION_FNS: dict[str, Callable] = {
     "sum": lambda x: x.sum(dim=-1, keepdim=True),
     "square_minus_sum": lambda x: (x**2 - x).sum(dim=-1, keepdim=True),
 }
+
+# the port's own copies of the targets' data files (the repo's data/ is the
+# JAX package's; tests/test_torch_port_img.py holds the copies equal to it)
+DATA_DIR = Path(__file__).parents[1] / "data"
 
 
 class Distribution:

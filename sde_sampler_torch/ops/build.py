@@ -36,12 +36,15 @@ NVCC_FLAGS = ARCH_FLAGS + [
 # launches its kernel, and nowhere else. The rollout kernels also count by
 # control form ("<kernel>.<form>") and by form and target
 # ("<kernel>.<form>.<target>"), and launches of the any-shape generic body
-# once more under "<kernel>.<form>.generic", so a run shows which instance
-# it took.
+# once more under "<kernel>.<form>.generic", those of the wide body (a given
+# score too wide for the generic one) under "<kernel>.<form>.<target>.wide",
+# so a run shows which instance it took.
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
-_SCORED = ("funnel", "gmm", "wells", "rings", "rosenbrock")  # targets with a score
+# the targets of the forms with a score ("given": a score computed before
+# each one-step launch)
+_SCORED = ("funnel", "gmm", "wells", "rings", "rosenbrock", "img", "given")
 ROLLOUT_INSTANCES = {
     "rollout": {"lerp": _SCORED, "score": _SCORED, "clipped": ("none",),
                 "lerp_target": _SCORED, "potential": ("none",), "cancel_drift": _SCORED},
@@ -52,7 +55,8 @@ FORM_LAUNCHES: dict[str, int] = {
     for kernel, forms in ROLLOUT_INSTANCES.items()
     for form, targets in forms.items()
     for key in (f"{kernel}.{form}", f"{kernel}.{form}.generic",
-                *(f"{kernel}.{form}.{target}" for target in targets))
+                *(f"{kernel}.{form}.{target}" for target in targets),
+                *((f"{kernel}.{form}.given.wide",) if "given" in targets else ()))
 }
 
 
@@ -63,14 +67,18 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, form: str | None = None, target: str | None = None,
-                 generic: bool = False) -> None:
+                 body: str = "fast") -> None:
+    """One launch of kernel `name`, of its `form` and `target`, in `body`
+    ("fast", "generic" or "wide")."""
     LAUNCHES[name] += 1
     if form is not None:
         FORM_LAUNCHES[f"{name}.{form}"] += 1
         if target is not None:
             FORM_LAUNCHES[f"{name}.{form}.{target}"] += 1
-        if generic:
+        if body == "generic":
             FORM_LAUNCHES[f"{name}.{form}.generic"] += 1
+        elif body == "wide":
+            FORM_LAUNCHES[f"{name}.{form}.{target}.wide"] += 1
 
 
 # The C entry points' arguments (pointers and the stream as void*, so that
@@ -78,12 +86,14 @@ def count_launch(name: str, form: str | None = None, target: str | None = None,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _OUT = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    # tensors and the mixture table, xs, x_T; B, d, C, H, T, K; clips,
-    # prior, target scalars; form, target, body; used body; stream
-    "rollout_launch": [_PTR] * 12 + [_I32] * 6 + [_F32] * 7 + [_I32] * 3 + [_OUT, _PTR],
-    # tensors and the mixture table, xs, x_T; B, d, C, H, T, K; clips,
-    # target scalars; target, body; used body; stream
-    "rollout_exp_launch": [_PTR] * 12 + [_I32] * 6 + [_F32] * 5 + [_I32] * 2 + [_OUT, _PTR],
+    # tensors and the target's table (or given score), xs, x_T; B, d, C, H,
+    # T, K, the table's width and height; clips, prior, four target
+    # scalars; form, target, body; used body; stream
+    "rollout_launch": [_PTR] * 12 + [_I32] * 8 + [_F32] * 8 + [_I32] * 3 + [_OUT, _PTR],
+    # tensors and the target's table (or given score), xs, x_T; B, d, C, H,
+    # T, K, the table's width and height; clips, four target scalars;
+    # target, body; used body; stream
+    "rollout_exp_launch": [_PTR] * 12 + [_I32] * 8 + [_F32] * 6 + [_I32] * 2 + [_OUT, _PTR],
     # n, m, d; splits, cols (out)
     "softmin_scratch": [_I32] * 3 + [_OUT, _OUT],
     # x, y, dual, out, scratch; n, m, d; eps; stream

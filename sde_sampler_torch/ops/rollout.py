@@ -34,29 +34,39 @@ specialised to control forms over a GELU `FourierMLP` with an optional
 and, for the forms with a score, to the targets whose score the kernel
 evaluates inline (`TARGET_CODES`): "funnel" (`Funnel`), "gmm" (`GMM`, and
 `Gauss` and `IsotropicGauss` as one-component mixtures), "wells"
-(`DoubleWell`, `MultiWell`), "rings" (`Rings`, d = 2) and "rosenbrock"
-(`Rosenbrock`). A ClippedCtrl and a PotentialCtrl have no target
-("none"). Each target has a small float32 table, built on the tensors'
-device per call: the mixture's loc (K, d), 1/scale² (K, d) and
-log w_k − Σ_j log scale_kj (K), or the rings' radii; and up to three
-scalars passed by value: the funnel's first-coordinate variance, the
-wells' number, separation and shift, the rings' scale and eps, or the
-Rosenbrock's flatness.
+(`DoubleWell`, `MultiWell`), "rings" (`Rings`, d = 2), "rosenbrock"
+(`Rosenbrock`) and "img" (`Img`, d = 2). A ClippedCtrl and a PotentialCtrl
+have no target ("none"). Each target has a float32 table, built on the
+tensors' device per call: the mixture's loc (K, d), 1/scale² (K, d) and
+log w_k − Σ_j log scale_kj (K), the rings' radii, or the image's energy
+table (its width and height by value); and up to four scalars passed by
+value: the funnel's first-coordinate variance, the wells' number,
+separation and shift, the rings' scale and eps, the Rosenbrock's
+flatness, or the image's mean and scale.
+
+Every other target takes the "given" form: its score has no inline form
+(Cox's two (B, d) x (d, d) products, NICE's backward pass through the
+flow), so the wrapper computes `ctrl.target_score` of each step's state
+with torch on the tensors' device and launches the kernel for that one
+step (T = 1), which reads the score as a tensor: T launches a rollout.
 
 The wrappers raise on anything else. On the card, the kernel picks its
 body by shape (`csrc/rollout.cuh::fast_fits`): the fast body for the width,
 depth and dimensions of every model config of the repo (64 channels, 2
-hidden layers, d <= 16, tables that fit shared memory), the generic body
-for any other. It reports the body it took, and the wrapper counts the
-launch (`build.count_launch`: by kernel, by "<kernel>.<form>", by
-"<kernel>.<form>.<target>", and once more under "<kernel>.<form>.generic"
-for the generic body). Everything that depends only on the
-step start s = ts[k] is computed here, by plain torch on the tensors'
-device, as per-step tables; the kernel (`csrc/rollout.cuh`) or, for a CPU
-tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`) then runs the
-whole loop. All return `xs` (T, B, d), the state before every step
-(xs[0] = x0), and `x_T`, the state after the last one. The rollouts are
-value-only: nothing here records a gradient.
+hidden layers, d <= 16, tables that fit shared memory; never a given
+score), the generic body for any other whose weights fit shared memory,
+and the wide body, which reads the input and output layers from device
+memory, for a given score wider than that (d = 1600). It reports the body
+it took, and the wrapper counts the launch (`build.count_launch`: by
+kernel, by "<kernel>.<form>", by "<kernel>.<form>.<target>", and once more
+under "<kernel>.<form>.generic" for the generic body or
+"<kernel>.<form>.given.wide" for the wide one). Everything that depends
+only on the step start s = ts[k] is computed here, by plain torch on the
+tensors' device, as per-step tables; the kernel (`csrc/rollout.cuh`) or,
+for a CPU tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`)
+then runs the whole loop. All return `xs` (T, B, d), the state before
+every step (xs[0] = x0), and `x_T`, the state after the last one. The
+rollouts are value-only: nothing here records a gradient.
 """
 from __future__ import annotations
 
@@ -68,7 +78,9 @@ import torch.nn.functional as F
 
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
+from sde_sampler_torch.distr.base import Distribution
 from sde_sampler_torch.distr.gauss import GMM, Gauss, IsotropicGauss
+from sde_sampler_torch.distr.img import Img, img_score
 from sde_sampler_torch.distr.rings import Rings, rings_score
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock, rosenbrock_score
 from sde_sampler_torch.eq.sdes import OU
@@ -94,13 +106,15 @@ FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped",
 NET_FORMS = ("clipped", "potential")
 # the forms that interpolate a score along t / T and roll out their own SDE
 LERP_FORMS = ("lerp", "lerp_target")
-# the targets whose score the kernels inline
-TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3, "rings": 4, "rosenbrock": 5}
+# the targets whose score the kernels inline; "given" takes any other score
+TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3, "rings": 4, "rosenbrock": 5,
+                "img": 6, "given": 7}
 TARGETS = {Funnel: "funnel", GMM: "gmm", Gauss: "gmm", IsotropicGauss: "gmm",
            DoubleWell: "wells", MultiWell: "wells", Rings: "rings",
-           Rosenbrock: "rosenbrock"}
-# the body a launch asks for (by shape, or one of the two) and reports
-BODY_CODES = {"shape": 0, "fast": 1, "generic": 2}
+           Rosenbrock: "rosenbrock", Img: "img"}
+# the body a launch asks for (by shape, or one of the three) and reports
+BODY_CODES = {"shape": 0, "fast": 1, "generic": 2, "wide": 3}
+BODY_NAMES = {code: name for name, code in BODY_CODES.items()}
 
 
 def _owner(method, classes):
@@ -145,12 +159,12 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
     kind, target = "none", None
     if form not in NET_FORMS:
         target = _owner(ctrl.target_score, TARGETS)
-        if target is None:
-            raise NotImplementedError(
-                "the rollout kernels need a Funnel, GMM, Gauss, IsotropicGauss, "
-                "Rings, Rosenbrock, DoubleWell or MultiWell target"
-            )
-        kind = TARGETS[type(target)]
+        if target is not None:
+            kind = TARGETS[type(target)]
+        else:  # the score of each step is computed before its launch
+            kind = "given"
+            owner = getattr(ctrl.target_score, "__self__", None)
+            target = owner if isinstance(owner, Distribution) else None
     prior = None
     if form in LERP_FORMS or form == "cancel_drift":
         if sde is not None and sde is not ctrl.sde:
@@ -231,33 +245,40 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
 
 
 @torch.no_grad()
-def target_table(kind: str, target, device) -> tuple[torch.Tensor, tuple]:
-    """The target's table on `device` and its three scalars: the mixture's
-    loc (K, d), 1/scale² (K, d) and component constants
-    log w_k − Σ_j log scale_kj (K), flattened in that order, or the rings'
-    radii; the funnel's first-coordinate variance, the wells' number,
-    separation and shift, the rings' scale and eps, or the Rosenbrock's
-    flatness."""
+def target_table(kind: str, target, device) -> tuple[torch.Tensor, tuple, tuple]:
+    """The target's table on `device`, its four scalars and the table's
+    (width, height): the mixture's loc (K, d), 1/scale² (K, d) and component
+    constants log w_k − Σ_j log scale_kj (K), flattened in that order, the
+    rings' radii, or the image's energy table (height, width) flattened; the
+    funnel's first-coordinate variance, the wells' number, separation and
+    shift, the rings' scale and eps, the Rosenbrock's flatness, or the
+    image's mean and scale (x, then y)."""
     empty = torch.zeros(0, device=device)
+    none = (0.0, 0.0, 0.0, 0.0)
     if kind == "gmm":
         loc, scale = target.loc.to(device), target.scale.to(device)
         const = target.log_mix_weights.to(device) - torch.log(scale).sum(dim=-1)
         table = torch.cat([loc.reshape(-1), (1.0 / scale**2).reshape(-1), const])
-        return table.contiguous(), (0.0, 0.0, 0.0)
+        return table.contiguous(), none, (0, 0)
     if kind == "funnel":
-        return empty, (target.distr_first.scale0**2, 0.0, 0.0)
+        return empty, (target.distr_first.scale0**2, 0.0, 0.0, 0.0), (0, 0)
     if kind == "wells":
         if isinstance(target, MultiWell):
             n, well = target.n_double_wells, target.double_well
         else:
             n, well = 1, target
-        return empty, (float(n), well.separation, well.shift)
+        return empty, (float(n), well.separation, well.shift, 0.0), (0, 0)
     if kind == "rings":
         radii = target.r_centers.to(device=device, dtype=torch.float32)
-        return radii.contiguous(), (target.scale, target.eps, 0.0)
+        return radii.contiguous(), (target.scale, target.eps, 0.0, 0.0), (0, 0)
     if kind == "rosenbrock":
-        return empty, (target.flatness, 0.0, 0.0)
-    return empty, (0.0, 0.0, 0.0)
+        return empty, (target.flatness, 0.0, 0.0, 0.0), (0, 0)
+    if kind == "img":
+        energy = target.pixel_energy.to(device)
+        mean, scale = target.mean.tolist(), target.scale.tolist()
+        height, width = energy.shape
+        return energy.reshape(-1).contiguous(), (*mean, *scale), (width, height)
+    return empty, none, (0, 0)
 
 
 def _weights(base: FourierMLP):
@@ -295,9 +316,16 @@ def _clip(v, c):
     return v if math.isinf(c) else v.clamp(-c, c)
 
 
-def _target_score(kind, x, table, scalars):
-    """The target score of the kernel's inline device functions."""
+def _target_score(kind, x, table, scalars, dims=(0, 0), score_fn=None):
+    """The target score of the kernel's inline device functions, or the
+    given score's."""
     d = x.shape[1]
+    if kind == "given":
+        return score_fn(x)
+    if kind == "img":
+        energy = table.reshape(dims[1], dims[0])
+        pair = lambda a, b: torch.tensor([a, b], dtype=torch.float32, device=x.device)
+        return img_score(x, energy, pair(*scalars[:2]), pair(*scalars[2:]))
     if kind == "funnel":
         first = x[:, :1]
         inv_var_other = torch.exp(-first)
@@ -353,7 +381,7 @@ def _potential_grad(x, temb_k, weights, clip_model):
 
 @torch.no_grad()
 def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
-                scalars, clip_model, clip_score, prior_loc, prior_var):
+                scalars, dims, score_fn, clip_model, clip_score, prior_loc, prior_var):
     """The kernel's arithmetic in plain PyTorch: the same step, the same tables."""
     w_in, w_hid, b_hid, w_out, b_out = weights
     T = dbs.shape[0]
@@ -373,7 +401,7 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
         if form == "clipped":
             u = _clip(out, clip_model)
         else:
-            target = _target_score(kind, x, target_tab, scalars)
+            target = _target_score(kind, x, target_tab, scalars, dims, score_fn)
             if form == "lerp":
                 prior = (prior_loc - x) / prior_var
                 lerp = _clip(prior + (target - prior) * w, clip_score)
@@ -412,11 +440,13 @@ def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
     dbs = dbs.detach().contiguous()
     tab, temb = step_tables(ctrl, sde, ts.detach(), clips, exp)
     weights = _weights(ctrl.base_model)
-    target_tab, scalars = target_table(kind, target, x0.device)
+    target_tab, scalars, dims = target_table(kind, target, x0.device)
     tensors = [x0, dbs, tab, temb, *weights, target_tab]
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
         raise TypeError("rollout inputs must be float32 on one device")
-    consts = dict(_consts(ctrl, prior, clips), kind=kind, scalars=scalars)
+    score_fn = ctrl.target_score if kind == "given" else None
+    consts = dict(_consts(ctrl, prior, clips), kind=kind, scalars=scalars, dims=dims,
+                  score_fn=score_fn)
     return tensors, consts, form, update
 
 
@@ -443,13 +473,39 @@ def rollout_exp_plain(ctrl, x0, ts, noise, alpha, sigma, clips=None):
 def _launch(prepared, body: str = "shape"):
     """Launch the rollout kernel of `prepared` on the inputs' stream: kernel
     1 for an EM update, kernel 2 for the exponential integrator, in the body
-    asked for ("shape": the kernel picks); counts the launch under the body
-    the kernel reports and returns (xs, x_T)."""
-    tensors, c, form, update = prepared
+    asked for ("shape": the kernel picks); counts each launch under the body
+    the kernel reports and returns (xs, x_T). A given score takes one launch
+    a step, after its score."""
+    tensors, c, _, _ = prepared
+    x0, dbs, tab, temb, *weights, _ = tensors
+    xs, x_T = torch.empty_like(dbs), torch.empty_like(x0)
+    if c["kind"] != "given":
+        _launch_steps(prepared, tensors, xs, x_T, body)
+        return xs, x_T
+    T = dbs.shape[0]
+    x = x0
+    for k in range(T):
+        score = c["score_fn"](x).to(torch.float32).contiguous()
+        if score.shape != x.shape or score.device != x.device:
+            raise ValueError(f"the target score has shape {tuple(score.shape)} on "
+                             f"{score.device}, the state {tuple(x.shape)} on {x.device}")
+        out = x_T if k == T - 1 else xs[k + 1]
+        # xs[k] is x itself after the first step: the kernel leaves it
+        _launch_steps(prepared, [x, dbs[k : k + 1], tab[k : k + 1], temb[k : k + 1],
+                                 *weights, score], xs[k : k + 1], out, body)
+        x = out
+    return xs, x_T
+
+
+def _launch_steps(prepared, tensors, xs, x_T, body):
+    """One launch over the steps of `tensors` (in the order of `_prepare`),
+    writing xs and x_T."""
+    _, c, form, update = prepared
     x0, dbs, temb, w_hid, target_tab = tensors[0], tensors[1], tensors[3], tensors[5], tensors[9]
     T, B, d = dbs.shape
     # the table's count: the mixture's components, or the rings' radii
-    K = target_tab.numel() // (2 * d + 1) if c["kind"] == "gmm" else target_tab.numel()
+    K = target_tab.numel() // (2 * d + 1) if c["kind"] == "gmm" else (
+        target_tab.numel() if c["kind"] == "rings" else 0)
     lib = build.library()
     target = TARGET_CODES[c["kind"]]
     if update == "em":
@@ -459,17 +515,14 @@ def _launch(prepared, body: str = "shape"):
     else:
         name, launch_fn = "rollout_exp", lib.rollout_exp_launch
         scalars = (c["clip_model"], c["clip_score"], *c["scalars"], target)
-    xs = torch.empty_like(dbs)
-    x_T = torch.empty_like(x0)
     used = ctypes.c_int(0)
     code = launch_fn(
         *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, temb.shape[1], w_hid.shape[0], T, K, *scalars, BODY_CODES[body],
+        B, d, temb.shape[1], w_hid.shape[0], T, K, *c["dims"], *scalars, BODY_CODES[body],
         ctypes.byref(used), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     build.check(code, name)
-    build.count_launch(name, form, c["kind"], generic=used.value == BODY_CODES["generic"])
-    return xs, x_T
+    build.count_launch(name, form, c["kind"], body=BODY_NAMES[used.value])
 
 
 @torch.no_grad()
@@ -481,7 +534,8 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
     its bound score methods, a LerpTargetCtrl and a CancelDriftCtrl
     likewise without a prior; a ClippedCtrl or a PotentialCtrl integrates
     `sde`, by default its own; a ScoreCtrl needs the `sde`. A CUDA tensor
-    launches kernel 1, a CPU tensor runs the plain twin.
+    launches kernel 1 (once a step for a given score), a CPU tensor runs
+    the plain twin.
     """
     _check_device(x0)
     prepared = _prepare(ctrl, x0, ts, dbs, clips, sde)

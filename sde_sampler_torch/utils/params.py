@@ -5,7 +5,9 @@ The inverse of `convert_state_dict` in `sde_sampler_tpu/utils/torch_import.py`
 parameter tree for one control (for example `params["generative_ctrl"]`)
 as nested dicts of numpy arrays and returns a flat torch `state_dict`;
 `load_solver_params` carries a solver's whole tree, one subtree per control
-(`generative_ctrl`, and a Bridge's `inference_ctrl`), into its modules:
+(`generative_ctrl`, and a Bridge's `inference_ctrl`), into its modules;
+`nice_params_from_tree` carries a NICE flow's parameter tree (the JAX
+package's `init_nice_params` layout, as `distr/nice.py` keeps it):
 
     flax path                          torch key
     ---------------------------------  --------------------------------
@@ -80,3 +82,20 @@ def load_solver_params(modules, params: dict) -> None:
         )
     for name, tree in params.items():
         load_flax_params(modules[name], tree)
+
+
+def nice_params_from_tree(tree: dict) -> dict:
+    """A NICE flow's JAX parameter tree, `{"couplings": [[{"w": (in, out),
+    "b": (out,)}, ...], ...], "scale": (1, d)}` with numpy (or array-like)
+    leaves, as float32 torch tensors in the same layout."""
+    def tensor(value):
+        return torch.from_numpy(np.array(value, dtype=np.float32))
+
+    couplings = [[{"w": tensor(layer["w"]), "b": tensor(layer["b"])} for layer in mlp]
+                 for mlp in tree["couplings"]]
+    for mlp in couplings:
+        for layer in mlp:
+            if layer["w"].ndim != 2 or layer["b"].shape != layer["w"].shape[1:]:
+                raise ValueError(
+                    f"a NICE layer has w {tuple(layer['w'].shape)}, b {tuple(layer['b'].shape)}")
+    return {"couplings": couplings, "scale": tensor(tree["scale"])}

@@ -10,9 +10,12 @@ Tolerances (float32 on the card, sums in another order):
   absolute and relative, in the fast body (width 64, two hidden layers,
   d <= 16) and in the generic one (any other shape); each (form, target)
   instance of the mixture, the wells, the rings, the Rosenbrock, the
-  score-free ClippedCtrl and the CancelDriftCtrl in both bodies the same,
-  for one step from the plain twin's state and over 12 steps of the
-  configs' step size;
+  score-free ClippedCtrl, the CancelDriftCtrl and the image in both
+  bodies the same, for one step from the plain twin's state and over 12
+  steps of the configs' step size; the given-score form (one launch a
+  step after the target's own score: Cox) the same at d = 196 in the
+  generic and the wide body, which give the same bits, and at d = 1600 in
+  the wide body;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
   (1e-4 at the evaluation's eps = 1e-3, and for a plan of one normal
   entry), exactly 0 when every dual is -inf or every plan entry lies below
@@ -28,10 +31,11 @@ import numpy as np
 import pytest
 import torch
 
-from sde_sampler_torch.distr.delta import Delta
+from sde_sampler_torch.distr.cox import Cox
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.img import Img
 from sde_sampler_torch.distr.rings import Rings
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
@@ -527,6 +531,8 @@ TARGET_INSTANCES = {
     "exp.rosenbrock": ("exp", lambda: Rosenbrock(dim=5, flatness=10.0), 5),
     "cancel_drift.gmm": ("cancel_drift", lambda: GMM(name="grid"), 2),
     "cancel_drift.rings": ("cancel_drift", lambda: Rings(), 2),
+    "lerp.img": ("lerp", lambda: Img(n_reference_samples=None), 2),
+    "exp.img": ("exp", lambda: Img(n_reference_samples=None), 2),
 }
 
 
@@ -595,7 +601,13 @@ def test_target_instances_match_plain_twin(cuda, name, body):
     fast body gives the generic body's bits. The nets are those of the
     configs (a ScoreCtrl's score net starts near 0.01): with a score net
     near 1, kernel 2's 12-step grid on mw's stiff wells (slope up to about
-    80) multiplies rounding differences by more than 2 a step."""
+    80) multiplies rounding differences by more than 2 a step. The image's
+    score is constant on each pixel and jumps at its edges, so a rounding
+    difference that puts a state on the other side of an edge changes the
+    next step by a pixel's gradient (exp.img on the card: 12 of 696
+    elements moved by up to 2.2e-3 over 12 steps): it is held one step
+    from the twin's state at every step instead of over the whole
+    rollout."""
     from sde_sampler_torch.ops import build
     from sde_sampler_torch.ops import rollout as ro
 
@@ -610,13 +622,15 @@ def test_target_instances_match_plain_twin(cuda, name, body):
     assert build.FORM_LAUNCHES[key] == before + 1
     xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
     assert bool(torch.isfinite(xs_p).all())
-    for k in (0, T // 2, T - 1):
+    pixels = "img" in name
+    for k in range(T) if pixels else (0, T // 2, T - 1):
         _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
         want = xT_p if k == T - 1 else xs_p[k + 1]
         torch.testing.assert_close(x1, want, atol=1e-5, rtol=1e-5)
     assert torch.equal(xs[0], x0)
-    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    if not pixels:
+        torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
     if body == "fast":
         xs_g, xT_g = ro._launch(prepare(x0, ts, noise), "generic")
         assert torch.equal(xs, xs_g) and torch.equal(x_T, xT_g)
@@ -682,17 +696,97 @@ def test_potential_clip_zeroes_the_control_on_the_card(cuda):
 
 def test_unsupported_target_instances_raise_before_the_launch(cuda):
     """No quiet fallback on the card: a ClippedCtrl under kernel 2 and a
-    target without an inline score raise."""
+    score net with two outputs raise (a target without an inline score
+    takes the given-score form, test_given_score_instances_match_plain_twin),
+    and so does the fast body asked for a given score."""
     from sde_sampler_torch.ops import rollout as ro
 
     prepare, x0, ts, noise = instance_setup(cuda, "clipped.none")
     ctrl = ClippedCtrl(base_model=FourierMLP(dim=2), sde=VP()).to(cuda)
     with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
         ro.fused_rollout_exp(ctrl, x0, ts, noise, 1.0, 1.0)
-    delta = ScoreCtrl(base_model=FourierMLP(dim=2).to(cuda),
-                      target_score=Delta(dim=2).to(cuda).score)
-    with pytest.raises(NotImplementedError, match="MultiWell target"):
-        ro.fused_rollout(delta, x0, ts, noise, sde=VP())
+    two = ScoreCtrl(base_model=FourierMLP(dim=2), target_score=GMM(name="grid").to(cuda).score,
+                    score_model=TimeEmbed(dim_out=2)).to(cuda)
+    with pytest.raises(NotImplementedError, match="score net with one output"):
+        ro.fused_rollout(two, x0, ts, noise, sde=VP())
+    prepare, x0, ts, noise = instance_setup(cuda, "lerp.given", spec=GIVEN["lerp.d196"][:3])
+    with pytest.raises(RuntimeError):
+        ro._launch(prepare(x0, ts, noise), "fast")
+
+
+# The given-score form (kernel 1 once a step, after the target's own score
+# on the card) on the whitened Cox target: at d = 196 (a 14 x 14 grid,
+# NICE's d) in the generic body that its shape takes and in the wide one,
+# at the configs' d = 1600 in the wide body by shape; every form with a
+# score. (form, Cox's d, body asked for, body expected)
+GIVEN = {
+    "lerp.d196": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "generic"),
+    "lerp.d196.wide": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, "wide", "wide"),
+    "lerp.d1600": ("lerp", lambda: Cox(dim=1600, use_whitened=True), 1600, "shape", "wide"),
+    "score.d196": ("score", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "generic"),
+    "lerp_target.d196": ("lerp_target", lambda: Cox(dim=196), 196, "shape", "generic"),
+    "cancel_drift.d196": ("cancel_drift", lambda: Cox(dim=196, use_whitened=True), 196,
+                          "shape", "generic"),
+    "exp.d196": ("exp", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "generic"),
+}
+
+
+@pytest.mark.parametrize("case", list(GIVEN))
+def test_given_score_instances_match_plain_twin(cuda, case):
+    """One launch a step, counted under "<kernel>.<form>.given" (and
+    ".given.wide" in the wide body): one step from the plain twin's own
+    states, then the whole rollout, within the rollouts' tolerance; the
+    wide body gives the generic body's bits."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    form, make_target, d, body, want = GIVEN[case]
+    prepare, x0, ts, noise = instance_setup(cuda, f"{form}.given", spec=(form, make_target, d))
+    kernel = "rollout_exp" if form == "exp" else "rollout"
+    key = f"{kernel}.{'score' if form == 'exp' else form}"
+    T = noise.shape[0]
+    before = dict(build.FORM_LAUNCHES)
+    xs, x_T = ro._launch(prepare(x0, ts, noise), body)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[f"{key}.given"] == before[f"{key}.given"] + T
+    assert build.FORM_LAUNCHES[f"{key}.given.wide"] == (
+        before[f"{key}.given.wide"] + T * (want == "wide"))
+    assert build.FORM_LAUNCHES[f"{key}.generic"] == (
+        before[f"{key}.generic"] + T * (want == "generic"))
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    assert bool(torch.isfinite(xs_p).all())
+    for k in (0, T // 2, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
+        want_x = xT_p if k == T - 1 else xs_p[k + 1]
+        torch.testing.assert_close(x1, want_x, atol=1e-5, rtol=1e-5)
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    if want == "wide" and d == 196:
+        xs_g, xT_g = ro._launch(prepare(x0, ts, noise), "generic")
+        assert torch.equal(xs, xs_g) and torch.equal(x_T, xT_g)
+
+
+def test_image_score_casts_saturating_on_the_card(cuda):
+    """Far outside the image, at +-inf and NaN the kernel's pixel cast
+    saturates (NaN to 0) as the plain twin's: one step of lerp.img from
+    such states gives the twin's bits where the twin is finite."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    prepare, x0, ts, noise = instance_setup(cuda, "lerp.img")
+    rows = torch.tensor([[1e8, -1e8], [-3e7, 2e9], [math.inf, 0.5], [-math.inf, -math.inf],
+                         [math.nan, 0.1], [0.3, math.nan], [1e30, -1e30], [0.0, 0.0]],
+                        device=cuda)
+    x = x0.clone()
+    x[: rows.shape[0]] = rows
+    prepared = prepare(x, ts[:2], noise[:1])
+    _, got = ro._launch(prepared, "fast")
+    _, got_g = ro._launch(prepared, "generic")
+    _, want = ro._run_plain(prepared)
+    torch.testing.assert_close(got, got_g, atol=0.0, rtol=0.0, equal_nan=True)
+    finite = torch.isfinite(want)
+    torch.testing.assert_close(got[finite], want[finite], atol=1e-5, rtol=1e-5)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
 
 
 def test_brownian_tree_is_the_same_path_on_the_card(cuda):

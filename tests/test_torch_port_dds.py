@@ -165,10 +165,18 @@ def test_rollouts_raise_on_unsupported_controls_and_targets():
                     target_score=Funnel(dim=D, n_reference_samples=10).score)
     with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
         fused_rollout_exp(lerp, x0, ts, noise, ALPHA, SIGMA)
-    # a target without an inline score: a bare function
+    # a target without an inline score (a bare function) takes the
+    # given-score form: its twin runs the generic exponential-integrator loop
     bare = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=lambda x: -x)
-    with pytest.raises(NotImplementedError, match="MultiWell target"):
-        fused_rollout_exp(bare, x0, ts, noise, ALPHA, SIGMA)
+    xs, x_T = fused_rollout_exp(bare, x0, ts, noise, ALPHA, SIGMA)
+    x = x0
+    with torch.no_grad():
+        for k in range(T):
+            torch.testing.assert_close(xs[k], x, atol=2e-5, rtol=1e-5)
+            beta = (ALPHA * torch.sqrt(ts[k + 1] - ts[k])).clamp(0.0, 1.0)
+            u = bare(ts[k], x)
+            x = x * torch.sqrt(1 - beta**2) + beta**2 * SIGMA**2 * u + SIGMA * beta * noise[k]
+    torch.testing.assert_close(x_T, x, atol=2e-5, rtol=1e-5)
     wide = ScoreCtrl(base_model=FourierMLP(dim=D), score_model=TimeEmbed(dim_out=D),
                      target_score=ctrl.target_score)
     with pytest.raises(NotImplementedError, match="one output"):

@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from sde_sampler_torch.distr.cox import Cox
 from sde_sampler_torch.distr.double_well import MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.img import Img
 from sde_sampler_torch.distr.rings import Rings
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP
@@ -147,12 +149,14 @@ def test_rollout_launch_counts_the_body_the_kernel_reports(fake_library, form, r
 
 
 @pytest.mark.parametrize("case", ["lerp.gmm", "score.wells", "exp.gmm", "clipped.none",
-                                  "lerp.rings", "score.rosenbrock", "cancel_drift.gmm"])
+                                  "lerp.rings", "score.rosenbrock", "cancel_drift.gmm",
+                                  "lerp.img", "exp.img"])
 def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
     """The mixture's table (loc, 1/scale², log-weight constants) goes by
-    pointer with its K, the rings' radii with their count; the wells'
-    count, separation and shift, the rings' scale and eps and the
-    Rosenbrock's flatness by value; the launch counts under its target."""
+    pointer with its K, the rings' radii with their count, the image's
+    energy table with its width and height; the wells' count, separation
+    and shift, the rings' scale and eps, the Rosenbrock's flatness and the
+    image's mean and scale by value; the launch counts under its target."""
     form, target = case.split(".")
     d = 2
     x0, ts, dbs = rollout_inputs(d)
@@ -162,7 +166,8 @@ def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
                   mixture_weights=[1.0, 2.0, 1.0], domain_tol=None)
     wells = MultiWell(dim=d, n_double_wells=1, separation=3.0, shift=0.5)
     distr = {"gmm": mixture, "wells": wells, "rings": Rings(scale=50.0),
-             "rosenbrock": Rosenbrock(dim=d, flatness=4.0)}.get(target)
+             "rosenbrock": Rosenbrock(dim=d, flatness=4.0),
+             "img": Img(mean=(300, 400), scale=(90, 110))}.get(target)
     if form == "lerp":
         ctrl = lerp_ctrl(d)
         ctrl.target_score = distr.score
@@ -188,25 +193,70 @@ def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
     assert args[9] == table.data_ptr()
     K = 3 if target in ("gmm", "rings") else 0
     assert args[17] == K
+    assert args[18:20] == ((700, 700) if target == "img" else (0, 0))
     assert args[-4] == ro.TARGET_CODES[target]
     if form != "exp":
         assert args[-5] == ro.FORM_CODES[form]
-    scalars = args[-8:-5] if form != "exp" else args[-7:-4]
+    scalars = args[-9:-5] if form != "exp" else args[-8:-4]
     if target == "gmm":
         want = torch.cat([mixture.loc.reshape(-1), (1 / mixture.scale**2).reshape(-1),
                           torch.log(torch.tensor([0.25, 0.5, 0.25]))
                           - torch.log(mixture.scale).sum(-1)])
         torch.testing.assert_close(table, want)
     elif target == "wells":
-        assert scalars == (1.0, 3.0, 0.5) and table.numel() == 0
+        assert scalars == (1.0, 3.0, 0.5, 0.0) and table.numel() == 0
     elif target == "rings":
         torch.testing.assert_close(table, torch.tensor([1.0, 3.0, 5.0]))
-        assert scalars == (50.0, 1e-8, 0.0)
+        assert scalars == (50.0, 1e-8, 0.0, 0.0)
     elif target == "rosenbrock":
-        assert scalars == (4.0, 0.0, 0.0) and table.numel() == 0
+        assert scalars == (4.0, 0.0, 0.0, 0.0) and table.numel() == 0
+    elif target == "img":
+        assert torch.equal(table, distr.pixel_energy.reshape(-1))
+        assert scalars == (300.0, 400.0, 90.0, 110.0)
     else:
         assert table.numel() == 0
     assert build.FORM_LAUNCHES[key] == before + 1
+
+
+@pytest.mark.parametrize("reported", ["generic", "wide"])
+def test_given_score_launches_once_per_step(fake_library, reported):
+    """A target without an inline score (Cox) takes the given form: before
+    each step the wrapper computes the target's score of the step's state
+    and launches one step (T = 1) that reads it from the table's slot, with
+    the step's noise, table row and time embedding; the state comes from
+    x0, then from xs[k], where the previous launch wrote it, and goes to
+    xs[k + 1], the last to x_T. Each launch counts under "given", and under
+    "given.wide" in the wide body."""
+    fake_library.body = reported
+    d, T = 16, 5
+    x0, ts, dbs = rollout_inputs(d, T=T)
+    target = Cox(dim=d, use_whitened=True)
+    seen = []
+
+    def score(x):
+        seen.append(x.data_ptr())
+        return target.score(x)
+
+    ctrl = ScoreCtrl(base_model=FourierMLP(dim=d), target_score=score)
+    prepared = ro._prepare(ctrl, x0, ts, dbs, None, VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0))
+    assert prepared[1]["kind"] == "given" and prepared[0][9].numel() == 0
+    before = dict(build.FORM_LAUNCHES)
+    xs, x_T = ro._launch(prepared)
+    assert len(fake_library.calls) == T
+    tab, temb = prepared[0][2], prepared[0][3]
+    for k, args in enumerate(fake_library.calls):
+        state = x0 if k == 0 else xs[k]
+        assert seen[k] == state.data_ptr() == args[0]
+        assert args[1:4] == (dbs[k].data_ptr(), tab[k].data_ptr(), temb[k].data_ptr())
+        assert args[10] == xs[k].data_ptr()
+        assert args[11] == (x_T if k == T - 1 else xs[k + 1]).data_ptr()
+        assert args[12:18] == (5, d, 64, 2, 1, 0)
+        assert args[-4] == ro.TARGET_CODES["given"] and args[-5] == ro.FORM_CODES["score"]
+    assert build.FORM_LAUNCHES["rollout.score.given"] == before["rollout.score.given"] + T
+    assert build.FORM_LAUNCHES["rollout.score.given.wide"] == (
+        before["rollout.score.given.wide"] + T * (reported == "wide"))
+    assert build.FORM_LAUNCHES["rollout.score.generic"] == (
+        before["rollout.score.generic"] + T * (reported == "generic"))
 
 
 @pytest.mark.parametrize("body", ["fast", "generic"])
@@ -235,8 +285,8 @@ def test_potential_rollout_launch_passes_its_one_output_net(fake_library, report
     ro._launch(prepared)
     (args,) = fake_library.calls
     assert args[7] == w_out.data_ptr() and args[8] == b_out.data_ptr()
-    assert args[12:18] == (5, d, 16, 2, 6, 0)
-    assert args[18] == 2.5 and math.isinf(args[19])
+    assert args[12:20] == (5, d, 16, 2, 6, 0, 0, 0)
+    assert args[20] == 2.5 and math.isinf(args[21])
     assert args[-5] == ro.FORM_CODES["potential"] == 5
     assert args[-4] == ro.TARGET_CODES["none"]
     for key in ("rollout.potential", "rollout.potential.none"):

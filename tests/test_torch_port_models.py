@@ -213,19 +213,20 @@ def test_config_remaps_targets_into_the_port():
     assert locate("sde_sampler_tpu.solver.oc.SubtrajBridge").__module__ == "sde_sampler_torch.solver.oc"
     assert locate("sde_sampler_tpu.models.reparam.CancelDriftCtrl").__module__ == (
         "sde_sampler_torch.models.reparam")
+    for module in ("cox.Cox", "img.Img", "nice.Nice"):
+        assert locate(f"sde_sampler_tpu.distr.{module}").__module__ == (
+            "sde_sampler_torch.distr." + module.split(".")[0])
     # a target the port lacks names the missing module, never the JAX class
-    with pytest.raises(ConfigError, match="sde_sampler_torch.distr.cox"):
-        locate("sde_sampler_tpu.distr.cox.Cox")
-    with pytest.raises(ConfigError, match="sde_sampler_torch.distr.nice"):
-        locate("sde_sampler_tpu.distr.nice.Nice")
+    with pytest.raises(ConfigError, match="sde_sampler_torch.distr.aladip"):
+        locate("sde_sampler_tpu.distr.aladip.AlaDip")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """Every module of the port, and the solvers of DIS, DDS, EulerDDS and
     PIS, the subtrajectory solvers with their PotentialCtrls, the Langevin
     solver under each integrator, DIS on the rings and the Rosenbrock and
-    EulerDDS with the langevin_init control composed from conf/ and built,
-    load no JAX module."""
+    EulerDDS with the langevin_init control, DIS on the image, Cox and the
+    smooth NICE flow composed from conf/ and built, load no JAX module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sde_sampler_torch\n"
@@ -235,11 +236,13 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "runs = [('funnel', 'dis', []), ('funnel', 'dds', []), ('funnel', 'dds_euler', []),\n"
         "        ('funnel', 'pis', []), ('gmm', 'dis_subtraj', []), ('gmm', 'bridge_subtraj', []),\n"
         "        ('rings', 'dis', []), ('rosenbrock', 'dis', []),\n"
-        "        ('gmm', 'dds_euler', ['model@generative_ctrl=langevin_init'])]\n"
+        "        ('gmm', 'dds_euler', ['model@generative_ctrl=langevin_init']),\n"
+        "        ('img', 'dis', []), ('cox', 'dis', []), ('nice_smooth', 'dis', [])]\n"
         "runs += [('gmm', 'langevin', [f'integrator={i}']) for i in\n"
         "         ('euler', 'heun', 'euler_adjoint', 'torchsde_euler', 'torchsde_heun')]\n"
         "for i, (target, solver, extra) in enumerate(runs):\n"
-        "    ref = ['target.n_reference_samples=100'] if target in ('funnel', 'gmm') else []\n"
+        "    ref = (['target.n_reference_samples=100']\n"
+        "           if target in ('funnel', 'gmm', 'img', 'nice_smooth') else [])\n"
         "    s = main.make_solver([f'target={target}', f'solver={solver}', 'device=cpu',\n"
         "                          *ref, *extra, 'plot_results=False',\n"
         "                          'out_dir=' + sys.argv[1] + str(i)])\n"
@@ -248,7 +251,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "('jax', 'jaxlib', 'flax', 'optax', 'sde_sampler_tpu')]\n"
         "assert not bad, bad\n"
         "for m in ('solver.oc', 'distr.delta', 'losses.oc', 'ops.rollout', 'models.reparam',\n"
-        "          'solver.langevin', 'eq.integrator', 'distr.rings', 'distr.rosenbrock'):\n"
+        "          'solver.langevin', 'eq.integrator', 'distr.rings', 'distr.rosenbrock',\n"
+        "          'distr.img', 'distr.cox', 'distr.nice'):\n"
         "    assert 'sde_sampler_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )

@@ -11,7 +11,12 @@ the LerpCtrl on the rings (d = 2) and on the Rosenbrock (d = 15, whose
 score the JAX package takes by `jax.grad`), the CancelDriftCtrl of
 `model=langevin_init` on the mixture and the rings, and at d = 1, where the JAX kernel refuses the shape and only its scan
 runs, the PIS ScoreCtrl on the shifted double well and the LerpCtrl on the
-shifted Gaussian. Float32 on both sides, summed in another order: atol
+shifted Gaussian. The LerpCtrl on the image (d = 2, kernel 1's img form),
+and the given-score form on the whitened Cox process (d = 1600) and the
+smooth NICE flow (d = 196): for these two only the scan, which is what
+the JAX loss's phase 1 runs for them (the JAX kernel moves every array
+the step closes over into VMEM under a 10 MB budget, and Cox's L^-1 alone
+is 10.24 MB). Float32 on both sides, summed in another order: atol
 2e-5 + rtol 1e-5, the tolerance of the JAX package's own kernel test
 (tests/test_rollout_pallas.py:54). The new cases run the last T steps of
 the configs' 200-step grid, where the lerp weight is near 1: at the step
@@ -26,10 +31,13 @@ import numpy as np
 import pytest
 import torch
 
+from sde_sampler_tpu.distr.cox import Cox as JCox
 from sde_sampler_tpu.distr.double_well import DoubleWell as JDoubleWell
 from sde_sampler_tpu.distr.double_well import MultiWell as JMultiWell
 from sde_sampler_tpu.distr.gauss import GMM as JGMM
 from sde_sampler_tpu.distr.gauss import IsotropicGauss as JIsoGauss
+from sde_sampler_tpu.distr.img import Img as JImg
+from sde_sampler_tpu.distr.nice import Nice as JNice
 from sde_sampler_tpu.distr.rings import Rings as JRings
 from sde_sampler_tpu.distr.rosenbrock import Rosenbrock as JRosenbrock
 from sde_sampler_tpu.eq.sdes import VP as JVP
@@ -42,9 +50,12 @@ from sde_sampler_tpu.models.reparam import LerpCtrl as JLerpCtrl
 from sde_sampler_tpu.models.reparam import ScoreCtrl as JScoreCtrl
 from sde_sampler_tpu.ops.rollout_pallas import fused_sim_rollout, sde_step_fn
 from sde_sampler_torch.distr.base import Distribution
+from sde_sampler_torch.distr.cox import Cox
 from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.img import Img
+from sde_sampler_torch.distr.nice import Nice
 from sde_sampler_torch.distr.rings import Rings
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
@@ -69,7 +80,14 @@ TARGETS = {
     "rings": lambda: (JRings(), Rings(), 2),
     "rosenbrock": lambda: (JRosenbrock(dim=15, flatness=10.0, scale=1e5),
                            Rosenbrock(dim=15, flatness=10.0, scale=1e5), 15),
+    "img": lambda: (JImg(n_reference_samples=None), Img(n_reference_samples=None), 2),
+    "cox": lambda: (JCox(use_whitened=True), Cox(use_whitened=True), 1600),
+    "nice_smooth": lambda: (JNice(checkpoint="data/nice_smooth.npz", n_reference_samples=None),
+                            Nice(checkpoint="data/nice_smooth.npz", n_reference_samples=None),
+                            196),
 }
+# the given-score targets, whose JAX phase 1 is the scan
+SCAN_ONLY = ("cox", "nice_smooth")
 VP_KW = dict(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
 BM_KW = dict(diff_coeff=0.4472135954999579, terminal_t=5.0)
 
@@ -161,6 +179,10 @@ CASES = [
     pytest.param("cancel_drift", "gmm", {"clip_model": 5.0, "clip_score": 10.0},
                  id="cancel_drift.gmm"),
     pytest.param("cancel_drift", "rings", None, id="cancel_drift.rings"),
+    pytest.param("lerp", "img", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.img"),
+    pytest.param("lerp", "cox", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.given.cox"),
+    pytest.param("lerp", "nice_smooth", {"clip_model": 5.0, "clip_score": 10.0},
+                 id="lerp.given.nice_smooth"),
 ]
 
 
@@ -176,7 +198,8 @@ def test_plain_rollout_matches_jax_kernel_and_scan(form, target, clips):
     start = 0.0 if target == "funnel" else terminal_t * (1 - T / 200)
     x0, ts, dbs = inputs(d=d, terminal_t=terminal_t,
                          scale=3.0 if target in ("gmm", "rings") else 1.0, start=start)
-    wants = jax_rollouts(j_ctrl, params, x0, ts, dbs, clips, kernel=d > 1)
+    wants = jax_rollouts(j_ctrl, params, x0, ts, dbs, clips,
+                         kernel=d > 1 and target not in SCAN_ONLY)
     xs, x_T = fused_rollout(
         ctrl, torch.from_numpy(x0), torch.from_numpy(ts), torch.from_numpy(dbs), clips,
         sde=ctrl.sde if form == "score" else None,
@@ -214,8 +237,10 @@ class Ring(Distribution):
 
 
 def test_rollout_raises_on_an_unsupported_step():
-    """Controls, targets and updates the kernels lack raise on the CPU as
-    on the card: no plain fallback."""
+    """Controls, score nets and updates the kernels lack raise on the CPU
+    as on the card: no plain fallback. A target without an inline score,
+    including a subclass of a supported one, takes the given-score form,
+    whose twin runs the generic EM loop."""
     _, ctrl, _ = flagship_pair()
     x0, ts, dbs = map(torch.from_numpy, inputs())
     sde = ctrl.sde
@@ -232,11 +257,23 @@ def test_rollout_raises_on_an_unsupported_step():
     assert fused_rollout(plain, x0, ts, dbs)[0].shape == dbs.shape
     with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
         fused_rollout_exp(plain, x0, ts, dbs, 1.0, 1.0)
+    two_outputs = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=ctrl.target_score,
+                            score_model=TimeEmbed(dim_out=2))
+    with pytest.raises(NotImplementedError, match="score net with one output"):
+        fused_rollout(two_outputs, x0, ts, dbs, sde=sde)
     # targets without an inline score, including subclasses of the supported ones
     for target in (Ring(dim=D), Delta(dim=D, loc=0.5)):
         score = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=target.score)
-        with pytest.raises(NotImplementedError, match="MultiWell target"):
-            fused_rollout(score, x0, ts, dbs, sde=sde)
+        clips = {"clip_model": 5.0, "clip_score": 10.0}
+        xs, x_T = fused_rollout(score, x0, ts, dbs, clips, sde=sde)
+        x = x0
+        with torch.no_grad():
+            for k in range(T):
+                torch.testing.assert_close(xs[k], x, atol=2e-5, rtol=1e-5)
+                s, t = ts[k], ts[k + 1]
+                u = score(s, x, clips=clips)
+                x = x + (sde.drift(s, x) + sde.diff(s, x) * u) * (t - s) + sde.diff(s, x) * dbs[k]
+        torch.testing.assert_close(x_T, x, atol=2e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="shape mismatch"):
         fused_rollout(ctrl, x0[:5], ts, dbs)
     mixture = ScoreCtrl(base_model=FourierMLP(dim=D), target_score=GMM(name="grid").score)
