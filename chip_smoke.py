@@ -20,7 +20,11 @@ prints nvcc's register and spill report. Phases:
            CancelDriftCtrl's and the image's in both bodies, the
            PotentialCtrl's also at d = 50; the given score at d = 196 in
            the generic body and in the wide one, which must give its bits,
-           and at d = 1600 in the wide body), softmin and
+           at d = 1600 in the wide body and at the alanine dipeptide's
+           d = 60 and batch 512; the per-coordinate instances of a score
+           net of d outputs, the lerp form's in both bodies, the score
+           form's and kernel 2's, each also with a table of equal rows,
+           which must give the one-output instance's bits), softmin and
            transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
            edges at 100k (a column split of -inf duals, rows that see only
            -inf) and transport's (a column split of -inf duals, every dual
@@ -59,6 +63,15 @@ prints nvcc's register and spill report. Phases:
                         steps, a 10k evaluation and its Sinkhorn through
                         softmin's run-time-width path; the given-score form
                         in the generic body, 200 launches a step;
+             aladip_vacuum_dis  the alanine dipeptide (d = 60, the native
+                        force field's autograd score) under DIS at its batch
+                        512, 20 steps, a 4096 evaluation and its Sinkhorn
+                        against the validation set; the given-score form in
+                        the generic body, 200 launches a step;
+             funnel_dis_lerp_dim, funnel_pis_score_dim,
+             funnel_dds_score_dim  DIS, PIS and DDS with a score net of d
+                        outputs (conf/model/lerp_dim.yaml, score_dim.yaml):
+                        the per-coordinate instances, 20 steps, 10k eval;
              gmm_langevin  the untrained Langevin solver at its full config
                         (conf/solver/langevin.yaml: 6000 chains, 10000 Euler
                         steps of dt 0.01, 1000 output steps, burn-in 500),
@@ -77,8 +90,10 @@ prints nvcc's register and spill report. Phases:
              VP drift): 20 steps, 10k eval;
   timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
            steps, the rings DIS, Rosenbrock DIS and langevin_init EulerDDS
-           steps, the image, Cox and NICE DIS steps (the latter two, 200
-           launches and scores a step, over three windows of three), and
+           steps, the image, Cox, NICE and alanine-dipeptide DIS steps (the
+           last three, 200 launches and scores a step, over three windows
+           of two, with their card memory peak and the share of the step
+           that goes when their target score is replaced by zeros), and
            the mixture SubtrajBridge's, on the whole trajectory and on a
            subtrajectory (with a profiler breakdown; for the Bridge also
            the card time of phase 2's divergence), each kernel and instance
@@ -93,8 +108,9 @@ prints nvcc's register and spill report. Phases:
            conf/solver/oc_base.yaml. Without the main phase it times the
            kernels only.
 
-Each path prints the card memory it peaked at. It prints the card's name
-and power limit, a `kernels` JSON line, and,
+Each path prints the card memory it peaked at. `--paths a,b` drives only
+those paths (and times only their steps): a partial run, with no result
+line. It prints the card's name and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
 Any failure exits non-zero before that line. Without a CUDA card, or without the port beside this
 file, it fails. Numbers are written to chiprun_out/chip_smoke.json.
@@ -129,6 +145,8 @@ EPS = 1e-3  # Sinkhorn eps (eval/sinkhorn.py default)
 DDS_GRID = dict(start=0.0, end=12.8, dt=0.05, rescale_t="cosine")
 DDS_ALPHA, DDS_SIGMA = 1.0, 1.0
 SHORT_STEPS, SHORT_EVAL = 20, 10_000  # the EulerDDS and PIS paths
+# the alanine dipeptide's batch and evaluation (results/r4/aladip_vacuum_dis)
+ALADIP_BATCH, ALADIP_EVAL = 512, 4096
 
 # Tolerances of kernel vs plain version, both float32 on the card:
 # - rollout: the two sum the 64-wide products in another order (sequential
@@ -231,6 +249,29 @@ PATHS = {
         target="gmm", solver="dds_euler", overrides=["model@generative_ctrl=langevin_init"],
         kernels=("rollout.cancel_drift.gmm", *SINKHORN), steps=SHORT_STEPS, eval=SHORT_EVAL,
         log_z=FINITE_LOG_Z_KEYS),
+    # the alanine dipeptide (d = 60) at the batch of its TPU run
+    # (results/r4/aladip_vacuum_dis): the given-score form in the generic
+    # body, 200 launches a step after the force field's autograd score; a
+    # Sinkhorn at 4096 against draws from the validation set
+    "aladip_vacuum_dis": dict(target="aladip_vacuum", solver="dis",
+                              overrides=[f"train_batch_size={ALADIP_BATCH}"],
+                              kernels=("rollout.lerp.given", *SINKHORN), steps=SHORT_STEPS,
+                              eval=ALADIP_EVAL, log_z=FINITE_LOG_Z_KEYS, generic=True,
+                              per_step="rollout.lerp.given"),
+    # score nets of one output per coordinate (conf/model/lerp_dim.yaml,
+    # score_dim.yaml): the per-coordinate instances of kernels 1 and 2
+    "funnel_dis_lerp_dim": dict(target="funnel", solver="dis",
+                                overrides=["model@generative_ctrl=lerp_dim"],
+                                kernels=("rollout.lerp.dim", *SINKHORN), steps=SHORT_STEPS,
+                                eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "funnel_pis_score_dim": dict(target="funnel", solver="pis",
+                                 overrides=["model@generative_ctrl=score_dim"],
+                                 kernels=("rollout.score.dim",), steps=SHORT_STEPS,
+                                 eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "funnel_dds_score_dim": dict(target="funnel", solver="dds",
+                                 overrides=["model@generative_ctrl=score_dim"],
+                                 kernels=("rollout_exp.score.dim", *SINKHORN), steps=SHORT_STEPS,
+                                 eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
     # the untrained Langevin solver: no training, no log Z; its own config's
     # chains (6000, the Sinkhorn's n) unless cut
     "gmm_langevin": dict(target="gmm", solver="langevin", kernels=SINKHORN, langevin=True),
@@ -270,7 +311,22 @@ INSTANCES = {
     # give NaN, within 110 of the 200 steps)
     "rollout.lerp.given.wide": dict(form="lerp", target="cox",
                                     target_kwargs={"use_whitened": True}, config_last=True),
+    # the alanine dipeptide's given score at d = 60 and its batch (the
+    # generic body; the configs' last layers, as Cox's); it counts the
+    # launches of "rollout.lerp.given" on its own path only
+    "rollout.lerp.given.d60": dict(form="lerp", target="aladip_vacuum", batch=ALADIP_BATCH,
+                                   key="rollout.lerp.given", paths=("aladip_vacuum_dis",),
+                                   config_last=True),
+    # a score net of d outputs (the per-coordinate sscore): the lerp form in
+    # both bodies, kernel 1's score form and kernel 2's, on the funnel; each
+    # also with all its rows equal, which must give the one-output bits
+    "rollout.lerp.dim": dict(form="lerp", target="funnel", bodies=True, score_dim=True),
+    "rollout.score.dim": dict(form="score", target="funnel", score_dim=True),
+    "rollout_exp.score.dim": dict(form="exp", target="funnel", score_dim=True),
 }
+# the NICE and Cox instance of the given score counts its launches on
+# their paths
+INSTANCES["rollout.lerp.given"]["paths"] = ("nice_smooth_dis", "cox_dis")
 WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
 
 
@@ -310,7 +366,8 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False, table=0, given=False):
+def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False, table=0, given=False,
+                 score_dim=False):
     # multiply-adds of the net (2 flops each), GELU with erf (~10 flops per
     # activation) and `per_coord` flops of score and update per coordinate
     # (about 25 for the LerpCtrl EM step, 20 for the ScoreCtrl exponential
@@ -325,14 +382,16 @@ def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False, table=0, giv
     # gelu' (C(H + 1)) and GELU's derivative beside GELU (about 8 more flops
     # per activation: exp and four multiply-adds).
     # A target table of `table` floats (the image's energy) is read once; a
-    # given score, (B, d) a step, is an input of every step.
+    # given score, (B, d) a step, is an input of every step; a score net of
+    # d outputs adds its (T, d) table of per-coordinate scales.
     n_out = 1 if potential else d
     net = 2 * C * (d + H * C + n_out) + 10 * C * (H + 1)
     if potential:
         net += 2 * C * (H * C + d) + C * (H + 1) + 8 * C * (H + 1)
     ops = T * B * (net + per_coord * d + K * (3 * d + 10) + 3 * K * d)
     nbytes = 4 * (B * d + T * B * d + T * (6 + C) + C * d + C * n_out + H * C * (C + 1) + n_out
-                  + T * B * d + B * d + K * (2 * d + 1) + table + (T * B * d if given else 0))
+                  + T * B * d + B * d + K * (2 * d + 1) + table + (T * B * d if given else 0)
+                  + (T * d if score_dim else 0))
     return ops, nbytes
 
 
@@ -463,8 +522,8 @@ def seeded_instance(device, label, seed, dim=None):
     d = dim or target.dim
     base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH,
                       dim_out=1 if form == "potential" else None)
-    score_net = lambda bias: TimeEmbed(dim_out=1, num_layers=4, channels=WIDTH,
-                                       last_bias_init={"constant": bias})
+    score_net = lambda bias: TimeEmbed(dim_out=d if spec.get("score_dim") else 1, num_layers=4,
+                                       channels=WIDTH, last_bias_init={"constant": bias})
     clips = {"clip_model": 10.0, "clip_score": 10.0}
     sde = None
     if form == "lerp":
@@ -506,8 +565,9 @@ def seeded_instance(device, label, seed, dim=None):
     else:
         ts = torch.linspace(0.0, sde.terminal_t, STEPS + 1, device=device)
     T = ts.shape[0] - 1
-    x0 = f(rng.standard_normal((BATCH, d)) * (0.0 if form == "score" else 1.0))
-    noise = f(rng.standard_normal((T, BATCH, d)))
+    batch = spec.get("batch", BATCH)
+    x0 = f(rng.standard_normal((batch, d)) * (0.0 if form == "score" else 1.0))
+    noise = f(rng.standard_normal((T, batch, d)))
     if form == "exp":
         run = lambda x, t, n: ro.fused_rollout_exp(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
         plain = lambda x, t, n: ro.rollout_exp_plain(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
@@ -522,10 +582,10 @@ def seeded_instance(device, label, seed, dim=None):
     kind = prepared[1]["kind"]
     table = prepared[0][9].numel()
     K = table // (2 * d + 1) if kind == "gmm" else 0
-    work = rollout_work(BATCH, T, d, WIDTH, HIDDEN,
+    work = rollout_work(batch, T, d, WIDTH, HIDDEN,
                         per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K,
                         potential=form == "potential", table=table if kind == "img" else 0,
-                        given=kind == "given")
+                        given=kind == "given", score_dim=bool(spec.get("score_dim")))
     return run, plain, prepare, x0, ts, noise, work
 
 
@@ -715,6 +775,28 @@ def phase_kernels(device, report):
     k[f"generic_d{WIDE_POTENTIAL_DIM}_max_abs_err"] = report.pop("wide")["max_abs_err"]
     k["max_abs_err"] = max(k["max_abs_err"], k[f"generic_d{WIDE_POTENTIAL_DIM}_max_abs_err"])
 
+    # a score net of d outputs whose rows are all equal: the same launch with
+    # the per-coordinate table and with its one column must give the same
+    # bits (the per-coordinate instances run the one-output arithmetic)
+    for i, (label, spec) in enumerate(INSTANCES.items()):
+        if not spec.get("score_dim"):
+            continue
+        _, _, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 60 + i)
+        tensors, consts, form, update = prepare(x0i, tsi, noisei)
+        tab = tensors[2]
+        one = tab[:, :6].clone()
+        one[:, 4] = tab[:, 6]
+        equal = torch.cat([one, one[:, 4:5].expand(-1, tab.shape[1] - 6)], dim=1).contiguous()
+        for body in ("fast", "generic") if spec.get("bodies") else ("shape",):
+            got = ro._launch(([*tensors[:2], equal, *tensors[3:]], consts, form, update), body)
+            want = ro._launch(([*tensors[:2], one, *tensors[3:]], consts, form, update), body)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"kernel {label}: equal rows vs the one-output instance ({body} body): "
+                  f"the same bits: {same}", flush=True)
+            if not same:
+                fail(f"{label}: equal rows do not give the one-output instance's bits ({body})")
+        report[label]["equal_rows_bits"] = True
+
     for name in ("softmin", "transport"):
         report[name] = {"max_abs_err": 0.0}
     # the new paths' evaluation widths at their 10k evaluation: gmm (2),
@@ -863,7 +945,8 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         fail(f"the {path} path took the rollout kernels' generic body {generic}, "
              f"expected: {spec.get('generic', False)}")
     counts = [(name, build.LAUNCHES[name]) for name in KERNELS]
-    counts += [(label, build.FORM_LAUNCHES[label]) for label in INSTANCES]
+    counts += [(label, build.FORM_LAUNCHES[inst.get("key", label)])
+               for label, inst in INSTANCES.items() if path in inst.get("paths", (path,))]
     for name, count in counts:
         if count:
             report[name].setdefault("launches_by_path", {})[path] = count
@@ -949,6 +1032,8 @@ def phase_main(args, report):
         print(f"eval_batch_size cut to {args.eval_batch} (from {EVAL_BATCH})", flush=True)
     solvers = {}
     for path, spec in PATHS.items():
+        if args.paths and path not in args.paths.split(","):
+            continue
         solvers[path] = drive_path(
             path, spec.get("steps") or args.train_steps, spec.get("eval") or args.eval_batch,
             report)
@@ -1016,6 +1101,32 @@ def divergence_share(solver, busy_ms: float) -> dict:
     return {"device_busy_ms": ms, "share_of_step_busy": share}
 
 
+def score_share(solver, step_ms: float, steps: int = 2) -> dict:
+    """The target score's share of a given-score path's optimizer step: the
+    step timed again with the control's target score replaced by zeros (one
+    launch where the score was), after the timed windows; the share is the
+    time that went."""
+    import torch
+
+    ctrl = solver.generative_ctrl
+    score = ctrl.target_score
+    ctrl.target_score = torch.zeros_like
+    try:
+        solver.step()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(steps):
+            solver.step()
+        torch.cuda.synchronize()
+        without_ms = (time.perf_counter() - start) / steps * 1e3
+    finally:
+        ctrl.target_score = score
+    share = 1.0 - without_ms / step_ms
+    print(f"the step without its target scores: {without_ms:.3f} ms of the {step_ms:.3f} ms "
+          f"step: the scores' share {share:.4f}", flush=True)
+    return {"step_without_score_ms": without_ms, "share_of_step": share}
+
+
 def time_steps(solver, n_em_steps: int, label: str, windows: int = 5, per_window: int = 20,
                profiled: int = 5) -> dict:
     """Median of `windows` windows of `per_window` optimizer steps of the
@@ -1048,28 +1159,35 @@ def phase_timing(solvers, device, report):
     from sde_sampler_torch.ops import rollout as ro
     from sde_sampler_torch.ops import sinkhorn as sk
 
-    # optimizer steps of the DIS, DDS, mixture DIS and mixture Bridge paths
-    # (the trained solvers, more steps)
+    # optimizer steps of the trained solvers (more steps), of the paths that
+    # ran
     if solvers is not None:
-        report["step"] = time_steps(solvers["dis"], STEPS, "DIS")
-        dds = solvers["dds"]
-        report["dds_step"] = time_steps(dds, dds.train_ts.shape[0] - 1, "DDS")
-        report["gmm_step"] = time_steps(solvers["gmm_dis"], STEPS, "GMM DIS")
-        report["rings_step"] = time_steps(solvers["rings_dis"], STEPS, "Rings DIS")
-        report["rosenbrock_step"] = time_steps(solvers["rosenbrock_dis"], STEPS, "Rosenbrock DIS")
-        report["img_step"] = time_steps(solvers["img_dis"], STEPS, "Image DIS")
+        plain_steps = (("dis", "step", "DIS"), ("dds", "dds_step", "DDS"),
+                       ("gmm_dis", "gmm_step", "GMM DIS"), ("rings_dis", "rings_step", "Rings DIS"),
+                       ("rosenbrock_dis", "rosenbrock_step", "Rosenbrock DIS"),
+                       ("img_dis", "img_step", "Image DIS"))
+        for path, key, label in plain_steps:
+            if path in solvers:
+                solver = solvers[path]
+                report[key] = time_steps(solver, solver.train_ts.shape[0] - 1, label)
         # the given-score paths: 200 launches and scores a step, seconds a window
-        report["cox_step"] = time_steps(solvers["cox_dis"], STEPS, "Cox DIS (whitened, d 1600)",
-                                        windows=3, per_window=3, profiled=2)
-        report["nice_step"] = time_steps(solvers["nice_smooth_dis"], STEPS,
-                                         "NICE smooth DIS (d 196)", windows=3, per_window=3,
+        for path, key, label in (("cox_dis", "cox_step", "Cox DIS (whitened, d 1600)"),
+                                 ("nice_smooth_dis", "nice_step", "NICE smooth DIS (d 196)"),
+                                 ("aladip_vacuum_dis", "aladip_step", "AlaDip DIS (d 60)")):
+            if path in solvers:
+                torch.cuda.reset_peak_memory_stats()
+                report[key] = time_steps(solvers[path], STEPS, label, windows=3, per_window=2,
                                          profiled=2)
-        report["langevin_init_step"] = time_steps(
-            solvers["gmm_dds_euler_langevin_init"], STEPS, "GMM EulerDDS (langevin_init)")
-        bridge = solvers["gmm_bridge_diff_init"]
-        report["bridge_step"] = time_steps(bridge, STEPS, "GMM Bridge (diff init)")
-        report["bridge_step"]["divergence"] = divergence_share(
-            bridge, report["bridge_step"]["breakdown"]["device_busy_ms"])
+                report[key]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                report[key]["score"] = score_share(solvers[path], report[key]["ms"])
+        if "gmm_dds_euler_langevin_init" in solvers:
+            report["langevin_init_step"] = time_steps(
+                solvers["gmm_dds_euler_langevin_init"], STEPS, "GMM EulerDDS (langevin_init)")
+        if "gmm_bridge_diff_init" in solvers:
+            bridge = solvers["gmm_bridge_diff_init"]
+            report["bridge_step"] = time_steps(bridge, STEPS, "GMM Bridge (diff init)")
+            report["bridge_step"]["divergence"] = divergence_share(
+                bridge, report["bridge_step"]["breakdown"]["device_busy_ms"])
         # SubtrajBridge's step on the whole trajectory and on a window
         # (ending at T, of a uniform start: about half the grid on average),
         # and the Bridge form's (two potentials) on the whole trajectory
@@ -1078,6 +1196,8 @@ def phase_timing(solvers, device, report):
                 ("gmm_dis_subtraj", "subtraj_window_step", 1.0, "GMM DIS subtraj (subtrajectory)"),
                 ("gmm_bridge_subtraj", "bridge_subtraj_full_step", 0.0,
                  "GMM Bridge subtraj (whole trajectory)")):
+            if path not in solvers:
+                continue
             subtraj = solvers[path]
             prob, subtraj.subtraj_prob = subtraj.subtraj_prob, forced
             n_windows = len(subtraj.windows)
@@ -1195,7 +1315,7 @@ def phase_timing(solvers, device, report):
         print(f"time {name}: the kernel alone {k['kernel_ms']:.3f} ms; its generic body "
               f"alone at the same shapes {k['generic_body_ms']:.3f} ms", flush=True)
 
-    if solvers is None:
+    if solvers is None or "dis" not in solvers:
         return
     solver = solvers["dis"]
     samples = solver.target.sample((EVAL_BATCH,), generator=solver.generator)
@@ -1268,10 +1388,10 @@ def ptxas_summary(log: str) -> list[str]:
     for line in log.splitlines():
         if line.startswith("=="):
             lines.append(line.strip())
-        entry = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?",
-                          line)
+        entry = re.search(
+            r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", line)
         if entry:
-            args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
             name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and spill.groups() != ("0", "0"):
@@ -1287,6 +1407,9 @@ def main():
     parser.add_argument("--phases", default="kernels,main,timing")
     parser.add_argument("--train-steps", type=int, default=220)
     parser.add_argument("--eval-batch", type=int, default=EVAL_BATCH)
+    parser.add_argument("--paths", default="",
+                        help="comma-separated paths of the main phase (default: all; a "
+                             "subset gives no result line)")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -1342,8 +1465,9 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
-    if set(phases) != {"kernels", "main", "timing"}:
-        print(f"partial run ({args.phases}): no result line", flush=True)
+    if set(phases) != {"kernels", "main", "timing"} or args.paths:
+        print(f"partial run ({args.phases}; paths {args.paths or 'all'}): no result line",
+              flush=True)
         return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,6 +95,13 @@
 // a, b2s2, sb, unused, sscore, unused for the exponential integrator.
 // sscore is scale_score * clip(score_net(s), clip_model) (0 for a
 // ClippedCtrl; clip(score_net(s), clip_model) alone for cancel_drift).
+// A score net with one output per coordinate (model=lerp_dim, score_dim:
+// TimeEmbed with dim_out = d) makes sscore a row of d per step: its
+// instances (kPerCoord, the lerp and score forms of kernel 1 and kernel 2)
+// read a table of kTab + d columns a step, sscore[j] in column kTab + j
+// (column 4 unused), and multiply coordinate j's score term by it; every
+// other instance reads column 4 of a kTab-wide table, with the same code
+// as before. A row of equal sscores gives the one-output instance's bits.
 // xs[k] receives the state before step k (xs[0] = x0) and x_T the state
 // after the last step.
 //
@@ -140,7 +147,9 @@
 // This header holds both bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
 // (rollout_lerp.cu, rollout_lerp_target.cu, rollout_score.cu,
-// rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu; the
+// rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu, and the
+// per-coordinate sscore's rollout_lerp_dim.cu, rollout_score_dim.cu,
+// rollout_exp_dim.cu; the
 // potential form's two bodies, which
 // run the net's backward pass too, live whole in rollout_potential.cu),
 // so that the build runs one nvcc per form side by side; rollout.cu holds
@@ -373,14 +382,30 @@ __device__ __forceinline__ void exp_phase(float* row, int rows, int tid, int nt,
   }
 }
 
+// Columns of a step's table: kTab, and d more for a per-coordinate sscore.
+template <bool kPerCoord>
+__host__ __device__ constexpr int tab_cols(int D) {
+  return kPerCoord ? kTab + D : kTab;
+}
+
+// The sscore of coordinate j from a step's table row st.
+template <bool kPerCoord>
+__device__ __forceinline__ float step_sscore(const float* st, int j) {
+  if constexpr (kPerCoord) {
+    return st[kTab + j];
+  } else {
+    return st[4];
+  }
+}
+
 // One coordinate's update from its net output `net`, its target score
-// `target` and the step's scalars `st`.
+// `target`, the step's scalars `st` and its sscore.
 template <int kForm>
 __device__ __forceinline__ float step_update(float x, float net, float target,
-                                             const float* st, float db,
+                                             const float* st, float sscore, float db,
                                              const Consts& cs) {
   const float drift = st[0], diff = st[1], dt = st[2], w = st[3];
-  const float sscore = st[4], cscale = st[5];
+  const float cscale = st[5];
   if constexpr (kForm == kLerpEm) {
     const float prior = (cs.prior_loc - x) / cs.prior_var;
     const float lerp = clip(prior + (target - prior) * w, cs.clip_score);
@@ -442,7 +467,7 @@ __device__ __forceinline__ float ldw(const float* p) {
 // order), so they give the same bits. A given score (kGiven) is read from
 // device memory at the tile's rows: `gmm` is the score (B, D) of this
 // step's state.
-template <int kForm, int kTarget, bool kWide>
+template <int kForm, int kTarget, bool kWide, bool kPerCoord>
 __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     const float* __restrict__ x0, const float* __restrict__ dbs,
     const float* __restrict__ tab, const float* __restrict__ temb,
@@ -543,12 +568,13 @@ __global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
     __syncthreads();
 
     const float* db_k = dbs + (size_t)k * step_stride + tile_off;
-    const float* st = tab + k * kTab;
+    const float* st = tab + (size_t)k * tab_cols<kPerCoord>(D);
     for (int i = tid; i < nrows * D; i += kGenericThreads) {
       const int r = i / D, j = i - r * D;
       const float target =
           target_score<kTarget>(s_x[i], j, D, rows + r * row_stride, table, cs);
-      s_x[i] = step_update<kForm>(s_x[i], s_out[i], target, st, db_k[i], cs);
+      s_x[i] = step_update<kForm>(s_x[i], s_out[i], target, st,
+                                  step_sscore<kPerCoord>(st, j), db_k[i], cs);
     }
     __syncthreads();
   }
@@ -576,13 +602,14 @@ __device__ __forceinline__ void copy_in(float* dst, const float* src, int n) {
 }
 
 // Floats of shared memory the fast body needs at a given D and T, with RS
-// floats of row reductions a row and a target table of n_tab floats.
-__host__ __device__ constexpr size_t fast_smem_floats(int D, int T, int RS, int n_tab) {
-  return (size_t)T * kFastC + (size_t)T * kTab + 2 * kFastRows * kActStride + D +
+// floats of row reductions a row, a target table of n_tab floats and TS
+// columns of the per-step table.
+__host__ __device__ constexpr size_t fast_smem_floats(int D, int T, int RS, int n_tab, int TS) {
+  return (size_t)T * kFastC + (size_t)T * TS + 2 * kFastRows * kActStride + D +
          3 * (size_t)kFastRows * D + (size_t)kFastRows * RS + (size_t)n_tab;
 }
 
-template <int kForm, int kTarget, int D>
+template <int kForm, int kTarget, int D, bool kPerCoord>
 __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
     const float* __restrict__ x0, const float* __restrict__ dbs,
     const float* __restrict__ tab, const float* __restrict__ temb,
@@ -593,14 +620,15 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   constexpr int C = kFastC, H = kFastH, AS = kActStride, NT = kFastThreads;
   constexpr int RT = kFastRowsPerThread;
   constexpr int R = kFastRows;
+  constexpr int TS = tab_cols<kPerCoord>(D);
   const int RS = row_floats(kTarget, cs.K, D);
   extern __shared__ float4 sm4[];
   // float4-read arrays first, each at a multiple of 4 floats
   float* s_temb = reinterpret_cast<float*>(sm4);  // (T, C)
   float* s_a = s_temb + (size_t)T * C;            // (R, AS) activations, ping
   float* s_b = s_a + R * AS;                      // (R, AS) activations, pong
-  float* s_tab = s_b + R * AS;                    // (T, kTab)
-  float* s_bout = s_tab + (size_t)T * kTab;       // (D)
+  float* s_tab = s_b + R * AS;                    // (T, TS)
+  float* s_bout = s_tab + (size_t)T * TS;         // (D)
   float* s_x = s_bout + D;                        // (R, D) state tile
   float* s_db = s_x + R * D;                      // 2 x (R, D) noise
   float* s_row = s_db + 2 * R * D;                // (R, RS) the target's row reductions
@@ -634,7 +662,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   }
 
   copy_in(s_temb, temb, T * C);
-  copy_in(s_tab, tab, T * kTab);
+  copy_in(s_tab, tab, T * TS);
   copy_in(s_bout, b_out, D);
   copy_in(s_gmm, gmm, cs.n_tab);
   for (int i = tid; i < R * D; i += NT) {
@@ -730,7 +758,8 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
       if (o_valid && i < nx) {
         const float target =
             target_score<kTarget>(s_x[i], o_col, D, s_row + o_row * RS, table, cs);
-        s_x[i] = step_update<kForm>(s_x[i], o, target, s_tab + k * kTab,
+        const float* st = s_tab + k * TS;
+        s_x[i] = step_update<kForm>(s_x[i], o, target, st, step_sscore<kPerCoord>(st, o_col),
                                     s_db[(k & 1) * R * D + i], cs);
       }
     }
@@ -744,15 +773,17 @@ struct Args {
   const float *x0, *dbs, *tab, *temb, *w_in, *w_hid, *b_hid, *w_out, *b_out, *gmm;
   float *xs, *x_T;
   int B, D, C, H, T, target;
+  bool per_coord;  // a per-coordinate sscore: the table has kTab + D columns
   Consts cs;
   cudaStream_t stream;
 };
 
-template <int kForm, int kTarget, int D>
+template <int kForm, int kTarget, int D, bool kPerCoord>
 cudaError_t launch_fast(const Args& a) {
   const size_t smem =  // fast_fits
-      sizeof(float) * fast_smem_floats(D, a.T, row_floats(kTarget, a.cs.K, D), a.cs.n_tab);
-  auto kernel = rollout_fast_kernel<kForm, kTarget, D>;
+      sizeof(float) * fast_smem_floats(D, a.T, row_floats(kTarget, a.cs.K, D), a.cs.n_tab,
+                                       tab_cols<kPerCoord>(D));
+  auto kernel = rollout_fast_kernel<kForm, kTarget, D, kPerCoord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -767,11 +798,11 @@ cudaError_t launch_fast(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int kForm, int kTarget, bool kWide>
+template <int kForm, int kTarget, bool kWide, bool kPerCoord>
 cudaError_t launch_generic(const Args& a) {
   const size_t smem = sizeof(float) * generic_smem_floats(
       a.D, a.C, a.H, row_floats(kTarget, a.cs.K, a.D), a.cs.n_tab, kWide);
-  auto kernel = rollout_generic_kernel<kForm, kTarget, kWide>;
+  auto kernel = rollout_generic_kernel<kForm, kTarget, kWide, kPerCoord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -788,7 +819,8 @@ cudaError_t launch_generic(const Args& a) {
 inline bool fast_fits(const Args& a) {
   return a.C == kFastC && a.H == kFastH && a.D >= 1 && a.D <= 16 && a.target != kGiven &&
          sizeof(float) * fast_smem_floats(a.D, a.T, row_floats(a.target, a.cs.K, a.D),
-                                          a.cs.n_tab) <= kMaxSmem;
+                                          a.cs.n_tab, a.per_coord ? kTab + a.D : kTab) <=
+             kMaxSmem;
 }
 
 // The generic (wide = false) or wide body's shared memory fits a block.
@@ -802,10 +834,12 @@ inline bool generic_fits(const Args& a, bool wide) {
 // asks for one (each fails on a shape it does not take). *used receives the
 // body launched. kOnlyD > 0 instantiates the fast body at that D alone (a
 // target of one dimension) and no wide body; kOnlyD < 0 instantiates no
-// fast body (a given score) and the wide one.
-template <int kForm, int kTarget, int kOnlyD = 0>
+// fast body (a given score) and the wide one. kPerCoord: the instances of a
+// per-coordinate sscore (a.per_coord).
+template <int kForm, int kTarget, int kOnlyD = 0, bool kPerCoord = false>
 int launch(const Args& a, int body, int* used) {
-  if (a.B <= 0 || a.T <= 0 || used == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.T <= 0 || used == nullptr || a.per_coord != kPerCoord)
+    return (int)cudaErrorInvalidValue;
   if (body != kByShape && body != kFastBody && body != kGenericBody && body != kWideBody)
     return (int)cudaErrorInvalidValue;
   const bool fits = kOnlyD >= 0 && fast_fits(a);
@@ -817,17 +851,17 @@ int launch(const Args& a, int body, int* used) {
     chosen = fits ? kFastBody
                   : (generic_fits(a, false) || !wide_ok ? kGenericBody : kWideBody);
   *used = chosen;
-  if (chosen == kGenericBody) return (int)launch_generic<kForm, kTarget, false>(a);
+  if (chosen == kGenericBody) return (int)launch_generic<kForm, kTarget, false, kPerCoord>(a);
   if constexpr (kOnlyD < 0) {
-    return (int)launch_generic<kForm, kTarget, true>(a);
+    return (int)launch_generic<kForm, kTarget, true, kPerCoord>(a);
   } else if constexpr (kOnlyD > 0) {
-    return a.D == kOnlyD ? (int)launch_fast<kForm, kTarget, kOnlyD>(a)
+    return a.D == kOnlyD ? (int)launch_fast<kForm, kTarget, kOnlyD, kPerCoord>(a)
                          : (int)cudaErrorInvalidValue;
   } else {
     switch (a.D) {
 #define SDE_CASE(DD) \
   case DD:           \
-    return (int)launch_fast<kForm, kTarget, DD>(a);
+    return (int)launch_fast<kForm, kTarget, DD, kPerCoord>(a);
       SDE_CASE(1) SDE_CASE(2) SDE_CASE(3) SDE_CASE(4) SDE_CASE(5) SDE_CASE(6)
       SDE_CASE(7) SDE_CASE(8) SDE_CASE(9) SDE_CASE(10) SDE_CASE(11)
       SDE_CASE(12) SDE_CASE(13) SDE_CASE(14) SDE_CASE(15) SDE_CASE(16)
@@ -842,42 +876,46 @@ int launch(const Args& a, int body, int* used) {
 // mixture needs its table (K >= 1); the wells' count must lie in 1..D; the
 // rings need d = 2 and their radii; the image d = 2 and its energy table
 // (at least 3 x 3 pixels); a given score its tensor.
-template <int kForm>
+template <int kForm, bool kPerCoord = false>
 int launch_target(const Args& a, int body, int* used) {
   const Consts& cs = a.cs;
   switch (a.target) {
     case kFunnel:
-      return launch<kForm, kFunnel>(a, body, used);
+      return launch<kForm, kFunnel, 0, kPerCoord>(a, body, used);
     case kGmm:
       if (cs.K < 1 || a.gmm == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<kForm, kGmm>(a, body, used);
+      return launch<kForm, kGmm, 0, kPerCoord>(a, body, used);
     case kWells:
       if (cs.t0 < 1.0f || cs.t0 > (float)a.D) return (int)cudaErrorInvalidValue;
-      return launch<kForm, kWells>(a, body, used);
+      return launch<kForm, kWells, 0, kPerCoord>(a, body, used);
     case kRings:
       if (a.D != 2 || cs.n_tab < 1 || a.gmm == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<kForm, kRings, 2>(a, body, used);
+      return launch<kForm, kRings, 2, kPerCoord>(a, body, used);
     case kRosenbrock:
-      return launch<kForm, kRosenbrock>(a, body, used);
+      return launch<kForm, kRosenbrock, 0, kPerCoord>(a, body, used);
     case kImg:
       if (a.D != 2 || cs.tab_w < 3 || cs.tab_h < 3 || cs.n_tab != 0 || a.gmm == nullptr)
         return (int)cudaErrorInvalidValue;
-      return launch<kForm, kImg, 2>(a, body, used);
+      return launch<kForm, kImg, 2, kPerCoord>(a, body, used);
     case kGiven:
       if (a.gmm == nullptr || cs.n_tab != 0) return (int)cudaErrorInvalidValue;
-      return launch<kForm, kGiven, -1>(a, body, used);
+      return launch<kForm, kGiven, -1, kPerCoord>(a, body, used);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The instances of one form, each compiled in its own source.
+// The instances of one form, each compiled in its own source; the
+// per-coordinate sscore's (`_dim`) in sources of their own.
 int launch_lerp(const Args& a, int body, int* used);
+int launch_lerp_dim(const Args& a, int body, int* used);
 int launch_lerp_target(const Args& a, int body, int* used);
 int launch_score(const Args& a, int body, int* used);
+int launch_score_dim(const Args& a, int body, int* used);
 int launch_clipped(const Args& a, int body, int* used);
 int launch_potential(const Args& a, int body, int* used);
 int launch_cancel_drift(const Args& a, int body, int* used);
 int launch_exp(const Args& a, int body, int* used);
+int launch_exp_dim(const Args& a, int body, int* used);
 
 }  // namespace sde_rollout

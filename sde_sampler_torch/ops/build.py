@@ -38,7 +38,8 @@ NVCC_FLAGS = ARCH_FLAGS + [
 # ("<kernel>.<form>.<target>"), and launches of the any-shape generic body
 # once more under "<kernel>.<form>.generic", those of the wide body (a given
 # score too wide for the generic one) under "<kernel>.<form>.<target>.wide",
-# so a run shows which instance it took.
+# and those of a per-coordinate score net under "<kernel>.<form>.dim", so a
+# run shows which instance it took.
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
@@ -50,13 +51,16 @@ ROLLOUT_INSTANCES = {
                 "lerp_target": _SCORED, "potential": ("none",), "cancel_drift": _SCORED},
     "rollout_exp": {"score": _SCORED},
 }
+# the forms whose instances take a per-coordinate score net
+SCORE_DIM_INSTANCES = {"rollout": ("lerp", "score"), "rollout_exp": ("score",)}
 FORM_LAUNCHES: dict[str, int] = {
     key: 0
     for kernel, forms in ROLLOUT_INSTANCES.items()
     for form, targets in forms.items()
     for key in (f"{kernel}.{form}", f"{kernel}.{form}.generic",
                 *(f"{kernel}.{form}.{target}" for target in targets),
-                *((f"{kernel}.{form}.given.wide",) if "given" in targets else ()))
+                *((f"{kernel}.{form}.given.wide",) if "given" in targets else ()),
+                *((f"{kernel}.{form}.dim",) if form in SCORE_DIM_INSTANCES[kernel] else ()))
 }
 
 
@@ -67,12 +71,14 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, form: str | None = None, target: str | None = None,
-                 body: str = "fast") -> None:
+                 body: str = "fast", per_coord: bool = False) -> None:
     """One launch of kernel `name`, of its `form` and `target`, in `body`
-    ("fast", "generic" or "wide")."""
+    ("fast", "generic" or "wide"), with a per-coordinate score net or not."""
     LAUNCHES[name] += 1
     if form is not None:
         FORM_LAUNCHES[f"{name}.{form}"] += 1
+        if per_coord:
+            FORM_LAUNCHES[f"{name}.{form}.dim"] += 1
         if target is not None:
             FORM_LAUNCHES[f"{name}.{form}.{target}"] += 1
         if body == "generic":
@@ -87,13 +93,13 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _OUT = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # tensors and the target's table (or given score), xs, x_T; B, d, C, H,
-    # T, K, the table's width and height; clips, prior, four target
-    # scalars; form, target, body; used body; stream
-    "rollout_launch": [_PTR] * 12 + [_I32] * 8 + [_F32] * 8 + [_I32] * 3 + [_OUT, _PTR],
+    # T, K, the table's width and height, the sscore columns; clips, prior,
+    # four target scalars; form, target, body; used body; stream
+    "rollout_launch": [_PTR] * 12 + [_I32] * 9 + [_F32] * 8 + [_I32] * 3 + [_OUT, _PTR],
     # tensors and the target's table (or given score), xs, x_T; B, d, C, H,
-    # T, K, the table's width and height; clips, four target scalars;
-    # target, body; used body; stream
-    "rollout_exp_launch": [_PTR] * 12 + [_I32] * 8 + [_F32] * 6 + [_I32] * 2 + [_OUT, _PTR],
+    # T, K, the table's width and height, the sscore columns; clips, four
+    # target scalars; target, body; used body; stream
+    "rollout_exp_launch": [_PTR] * 12 + [_I32] * 9 + [_F32] * 6 + [_I32] * 2 + [_OUT, _PTR],
     # n, m, d; splits, cols (out)
     "softmin_scratch": [_I32] * 3 + [_OUT, _OUT],
     # x, y, dual, out, scratch; n, m, d; eps; stream

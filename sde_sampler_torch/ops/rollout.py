@@ -12,7 +12,9 @@ with its two step functions:
 
 The JAX kernel traces any step function; CUDA cannot, so these are
 specialised to control forms over a GELU `FourierMLP` with an optional
-`TimeEmbed` score net (one output):
+`TimeEmbed` score net, of one output, or in the lerp and score forms of d
+outputs (`model=lerp_dim`, `score_dim`: a per-coordinate scale of the
+score term, a (T, d) table; `SCORE_DIM_FORMS`):
 
 - "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
 - "lerp_target", a `LerpTargetCtrl` (the generative control of
@@ -106,6 +108,8 @@ FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped",
 NET_FORMS = ("clipped", "potential")
 # the forms that interpolate a score along t / T and roll out their own SDE
 LERP_FORMS = ("lerp", "lerp_target")
+# the forms whose kernels take a score net of d outputs
+SCORE_DIM_FORMS = ("lerp", "score")
 # the targets whose score the kernels inline; "given" takes any other score
 TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3, "rings": 4, "rosenbrock": 5,
                 "img": 6, "given": 7}
@@ -150,12 +154,17 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
     if form == "potential" and base.out_layer.out_features != 1:
         raise NotImplementedError("the rollout kernel needs a potential net with one output")
     score_model = getattr(ctrl, "score_model", None)
-    if score_model is not None and (
-        not isinstance(score_model, TimeEmbed) or score_model.dim_out != 1
-    ):
-        raise NotImplementedError(
-            "the rollout kernels need a TimeEmbed score net with one output"
-        )
+    if score_model is not None:
+        if not isinstance(score_model, TimeEmbed) or score_model.dim_out not in (1, base.dim):
+            raise NotImplementedError(
+                "the rollout kernels need a TimeEmbed score net with one output or one "
+                "per coordinate"
+            )
+        if score_model.dim_out > 1 and form not in SCORE_DIM_FORMS:
+            raise NotImplementedError(
+                f"the rollout kernels take a score net of d outputs in the {SCORE_DIM_FORMS} "
+                f"forms only, not in the {form} form"
+            )
     kind, target = "none", None
     if form not in NET_FORMS:
         target = _owner(ctrl.target_score, TARGETS)
@@ -189,6 +198,13 @@ def exp_coeffs(ts: torch.Tensor, alpha: float, sigma: float):
     return torch.sqrt(1.0 - beta**2), beta**2 * sigma**2, sigma * beta
 
 
+def per_coord(ctrl) -> bool:
+    """Whether `ctrl` scales its score per coordinate: a score net of d > 1
+    outputs."""
+    score_model = getattr(ctrl, "score_model", None)
+    return score_model is not None and score_model.dim_out > 1
+
+
 @torch.no_grad()
 def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     """Per-step tables: the time-embedding rows (T, C) and six scalars per
@@ -201,7 +217,10 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     else scale_score) in the lerp weight's column and clip(score net) alone
     in the next.
     Exponential integrator (`exp=(alpha, sigma)`): a, β²σ², σβ, 0,
-    scale_score * clip(score net), 1."""
+    scale_score * clip(score net), 1.
+    A score net of d outputs (`per_coord`) gives (T, 6 + d): its d columns
+    of scale_score * clip(score net) follow, and column 4 is NaN, read by
+    no instance."""
     s = ts[:-1]
     base = ctrl.base_model
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
@@ -216,13 +235,18 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
         sscore = ones
     else:
         sscore = ctrl.scale_score * ones
+    scale_dim = None
     if getattr(ctrl, "score_model", None) is not None:
-        score_net = ctrl.score_model(s)[:, 0]
+        score_net = ctrl.score_model(s)  # (T, 1) or (T, d)
         if clip_model is not None:
             score_net = score_net.clamp(-clip_model, clip_model)
         if hard:
-            score_net = ctrl.constrain(score_net, s)
-        sscore = sscore * score_net
+            score_net = ctrl.constrain(score_net, s[:, None])
+        if per_coord(ctrl):
+            scale_dim = sscore[:, None] * score_net
+            sscore = torch.full_like(s, math.nan)
+        else:
+            sscore = sscore * score_net[:, 0]
     if exp is not None:
         columns = [*exp_coeffs(ts, *exp), torch.zeros_like(s), sscore, ones]
     else:
@@ -241,7 +265,10 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
             sscore,
             ctrl_scale,
         ]
-    return torch.stack(columns, dim=1).contiguous(), temb.contiguous()
+    tab = torch.stack(columns, dim=1)
+    if scale_dim is not None:
+        tab = torch.cat([tab, scale_dim], dim=1)
+    return tab.contiguous(), temb.contiguous()
 
 
 @torch.no_grad()
@@ -388,7 +415,9 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
     xs = torch.empty_like(dbs)
     x = x0.clone()
     for k in range(T):
-        drift, diff, dt, w, sscore, cscale = tab[k]
+        drift, diff, dt, w, sscore, cscale = tab[k, :6]
+        if tab.shape[1] > 6:  # a per-coordinate sscore
+            sscore = tab[k, 6:]
         xs[k] = x
         if form == "potential":
             u = diff * _potential_grad(x, temb[k], weights, clip_model)
@@ -515,14 +544,17 @@ def _launch_steps(prepared, tensors, xs, x_T, body):
     else:
         name, launch_fn = "rollout_exp", lib.rollout_exp_launch
         scalars = (c["clip_model"], c["clip_score"], *c["scalars"], target)
+    # the columns of sscore a step: one, or d after the six scalars
+    score_cols = tensors[2].shape[1] - 6 if tensors[2].shape[1] > 6 else 1
     used = ctypes.c_int(0)
     code = launch_fn(
         *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, temb.shape[1], w_hid.shape[0], T, K, *c["dims"], *scalars, BODY_CODES[body],
-        ctypes.byref(used), torch.cuda.current_stream(x0.device).cuda_stream,
+        B, d, temb.shape[1], w_hid.shape[0], T, K, *c["dims"], score_cols, *scalars,
+        BODY_CODES[body], ctypes.byref(used), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     build.check(code, name)
-    build.count_launch(name, form, c["kind"], body=BODY_NAMES[used.value])
+    build.count_launch(name, form, c["kind"], body=BODY_NAMES[used.value],
+                       per_coord=score_cols > 1)
 
 
 @torch.no_grad()

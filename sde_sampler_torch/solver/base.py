@@ -12,7 +12,11 @@ TrainState pytree through one jitted step; here the state is the control
   max_loss / max_grad) changes neither the parameters nor the optimizer
   state, the `select` of the JAX step;
 - EMA with warmup, scheduled clip values (passed to the controls per call),
-  checkpoints written with `torch.save`, and `metrics.jsonl`.
+  checkpoints written with `torch.save`, and `metrics.jsonl`;
+- the setup hooks of the config's `setup` list (`utils/debug.py`),
+  `params_file` warm starts (`utils/params.py`), the model watcher
+  (`utils/watch.py`) and the loss and gradient variances of
+  `eval_stddev_steps` at every evaluation.
 
 Randomness comes from explicit generators: `self.generator` on the device
 (prior samples, noise, reference samples) and a CPU generator for the
@@ -36,6 +40,7 @@ from sde_sampler_torch.eval.metrics import get_metrics
 from sde_sampler_torch.utils.common import CKPT_DIR, Results
 from sde_sampler_torch.utils.config import instantiate
 from sde_sampler_torch.utils.device import resolve_device, sync
+from sde_sampler_torch.utils.params import load_params_file, load_solver_params
 
 # ---------------------------------------------------------------------------
 # Optimizer / scheduler / EMA config objects
@@ -269,8 +274,9 @@ class Solver:
     def __init__(self, cfg: dict):
         self.cfg = cfg
         self.out_dir = Path(cfg.get("out_dir") or Path.cwd())
-        if cfg.get("setup"):
-            raise NotImplementedError("setup hooks (conf/utils/debug.yaml) are not ported yet")
+        # setup hooks (conf/utils/debug.yaml: autograd anomaly detection)
+        for fn_cfg in cfg.get("setup") or []:
+            instantiate(fn_cfg)
         if cfg.get("matmul_precision"):
             raise NotImplementedError(
                 "the port runs float32 matmuls in full precision only"
@@ -407,10 +413,6 @@ class Trainable(Solver):
         self.max_grad = cfg.get("max_grad")
         self.max_loss = cfg.get("max_loss")
         self.scale_loss = cfg.get("scale_loss")
-        if cfg.get("params_file"):
-            raise NotImplementedError("params_file warm starts are not ported yet")
-        if cfg.get("model_watcher"):
-            raise NotImplementedError("the model watcher is not ported yet")
 
         self.optim_cfg: Adam = instantiate(cfg["optim"])
         self.lr_schedule = instantiate(cfg.get("lr_scheduler")) or ConstantLR()
@@ -419,6 +421,10 @@ class Trainable(Solver):
             for name, options in (cfg.get("param_groups") or {}).items()
         }
         self.init_params()
+        if cfg.get("params_file"):
+            # warm start from imported parameters (a reference torch
+            # checkpoint converted by scripts/import_torch_ckpt.py)
+            load_solver_params(self.modules, load_params_file(cfg["params_file"]))
         self.params = [p for p in self.modules.parameters()]
         self.optimizer = self.optim_cfg.build(
             [
@@ -447,8 +453,8 @@ class Trainable(Solver):
         self._host_step = 0
         self.time = 0.0
         self.eval_stddev_steps = cfg.get("eval_stddev_steps")
-        if self.eval_stddev_steps:
-            raise NotImplementedError("eval_stddev_steps is not ported yet")
+        # gradient and parameter norms per module (reference: wandb.watch)
+        self.model_watcher = instantiate(cfg.get("model_watcher"))
         self.eval_init = cfg.get("eval_init", True)
         self.eval_interval = cfg.get("eval_interval") or self.train_steps
         self.log_interval = cfg.get("log_interval") or self.train_steps
@@ -507,6 +513,9 @@ class Trainable(Solver):
         ]
         for p, g in zip(self.params, grads):
             p.grad = g
+        # the norms of this step's gradients and of the parameters before its
+        # update (device tensors: no host sync)
+        watched = {} if self.model_watcher is None else self.model_watcher.metrics(self.modules)
 
         # Guards: skip non-finite (or too large) losses and gradients
         loss = loss.detach()
@@ -547,6 +556,7 @@ class Trainable(Solver):
                 "train/skipped_steps": self.n_steps_skip,
                 "train/ema_decay": ema_decay,
                 "train/time_per_step": time.perf_counter() - start,
+                **watched,
             }
         )
         return metrics
@@ -565,6 +575,34 @@ class Trainable(Solver):
                 p.copy_(s)
                 s.copy_(tmp)
 
+    def loss_and_grad_var(self) -> dict[str, float]:
+        """Variances of the loss and of each gradient element over
+        `eval_stddev_steps` draws (the training parameters, fresh prior
+        samples and noise each), unbiased (ddof = 1). Logged under
+        `*_stddev_*` keys, as the JAX package and the reference log them."""
+        losses, grads = [], []
+        clips = self.current_clips()
+        for _ in range(self.eval_stddev_steps):
+            for p in self.params:
+                p.grad = None
+            loss, _ = self.compute_loss(clips)
+            if self.scale_loss is not None:
+                loss = self.scale_loss * loss
+            loss.backward()
+            losses.append(loss.detach())
+            grads.append(torch.cat([
+                (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                for p in self.params]))
+        for p in self.params:
+            p.grad = None
+        loss_var = torch.stack(losses).var(correction=1)
+        grads_var = torch.stack(grads).var(dim=0, correction=1)
+        return {
+            "eval/grad_stddev_mean": float(grads_var.mean()),
+            "eval/grad_stddev_max": float(grads_var.max()),
+            "eval/loss_stddev": float(loss_var),
+        }
+
     def evaluate(self, log=True) -> Results:
         logging.info("Evaluate at step %d (%.0f min).", self.n_steps, self.time // 60)
         self.swap_ema()  # evaluate the EMA parameters, as the JAX package
@@ -572,6 +610,8 @@ class Trainable(Solver):
             results = self.compute_results()
         finally:
             self.swap_ema()
+        if self.eval_stddev_steps is not None:
+            results.metrics.update(self.loss_and_grad_var())
         if log:
             self.last_metrics = self.log(results, step=self.n_steps)
         return results
@@ -592,6 +632,8 @@ class Trainable(Solver):
                 {f"params/{k}": v for k, v in self.scheduler.get(self.n_steps).items()}
             )
             last_step = self.n_steps == self.train_steps
+            if self.model_watcher is not None and not self.model_watcher.should_log(self.n_steps):
+                metrics = {k: v for k, v in metrics.items() if not k.startswith("watch/")}
             if self.n_steps % self.log_interval == 0 or last_step:
                 metrics = {
                     k: float(v) if isinstance(v, torch.Tensor) else v

@@ -4,8 +4,10 @@ The inverse of `convert_state_dict` in `sde_sampler_tpu/utils/torch_import.py`
 (a copy of the naming map, not an import). It takes the JAX package's
 parameter tree for one control (for example `params["generative_ctrl"]`)
 as nested dicts of numpy arrays and returns a flat torch `state_dict`;
-`load_solver_params` carries a solver's whole tree, one subtree per control
-(`generative_ctrl`, and a Bridge's `inference_ctrl`), into its modules;
+`load_solver_params` carries a solver's tree, one subtree per control
+(`generative_ctrl`, and a Bridge's `inference_ctrl`), into its modules (a
+`params_file` warm start: `load_params_file` reads the pickle that
+`scripts/import_torch_ckpt.py` writes);
 `nice_params_from_tree` carries a NICE flow's parameter tree (the JAX
 package's `init_nice_params` layout, as `distr/nice.py` keeps it):
 
@@ -19,6 +21,7 @@ package's `init_nice_params` layout, as `distr/nice.py` keeps it):
 """
 from __future__ import annotations
 
+import pickle
 import re
 
 import numpy as np
@@ -67,21 +70,61 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return state
 
 
-def load_flax_params(module: torch.nn.Module, tree: dict) -> None:
-    """Load a JAX parameter tree into `module`, every key and shape checked."""
-    module.load_state_dict(flax_to_state_dict(tree), strict=True)
+def _shapes(state: dict) -> dict:
+    return {key: tuple(value.shape) for key, value in sorted(state.items())}
+
+
+def load_flax_params(module: torch.nn.Module, tree: dict, name: str = "module") -> None:
+    """Load a JAX parameter tree into `module`, every key and shape checked
+    (a ValueError names both where they differ)."""
+    state = flax_to_state_dict(tree)
+    model, imported = _shapes(module.state_dict()), _shapes(state)
+    if model != imported:
+        raise ValueError(
+            f"imported {name!r} does not match the model architecture:\n"
+            f"  model:    {model}\n  imported: {imported}"
+        )
+    module.load_state_dict(state, strict=True)
 
 
 def load_solver_params(modules, params: dict) -> None:
     """Load a JAX solver's parameter tree (`train_state.params`: one subtree
-    per control) into the port solver's `modules` of the same names; the
-    two must name the same controls."""
-    if set(params) != set(modules.keys()):
+    per control) into the port solver's `modules` of the same names. The
+    tree replaces the controls it holds and the others keep their
+    parameters, as the JAX package's `merge_params` does; a control the
+    solver lacks is refused."""
+    extra = sorted(set(params) - set(modules.keys()))
+    if extra:
         raise ValueError(
-            f"the JAX tree has controls {sorted(params)}, the port {sorted(modules.keys())}"
+            f"the imported tree has controls {extra} that this solver lacks; it has "
+            f"{sorted(modules.keys())}"
         )
     for name, tree in params.items():
-        load_flax_params(modules[name], tree)
+        load_flax_params(modules[name], tree, name)
+
+
+# top-level packages whose classes a params pickle must not name: unpickling
+# them would import JAX
+_REFUSED = ("jax", "jaxlib", "flax", "optax", "sde_sampler_tpu")
+
+
+class _ParamsUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _REFUSED:
+            raise pickle.UnpicklingError(
+                f"the params file holds {module}.{name}, whose unpickling would import "
+                f"{module.split('.')[0]}: the port reads nested dicts of numpy arrays only "
+                "(convert the leaves with numpy.asarray before pickling)"
+            )
+        return super().find_class(module, name)
+
+
+def load_params_file(path) -> dict:
+    """A params pickle (nested dicts of numpy arrays, one subtree per
+    control), as `scripts/import_torch_ckpt.py` writes it; refuses one whose
+    unpickling would import JAX."""
+    with open(path, "rb") as f:
+        return _ParamsUnpickler(f).load()
 
 
 def nice_params_from_tree(tree: dict) -> dict:

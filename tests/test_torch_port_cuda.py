@@ -536,13 +536,13 @@ TARGET_INSTANCES = {
 }
 
 
-def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
+def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=False):
     """The control of an instance with seeded weights, and its inputs: the
     last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl,
     ClippedCtrl and CancelDriftCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
     scaled BM of conf/sde/bm.yaml for the LerpTargetCtrl), a cosine grid
-    with dt = 0 steps for kernel 2. Returns (prepare(x0, ts, noise), x0,
-    ts, noise)."""
+    with dt = 0 steps for kernel 2. `score_dim`: a score net of d outputs,
+    each its own. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
     from sde_sampler_torch.ops import rollout as ro
 
     form, make_target, d = spec or TARGET_INSTANCES[name]
@@ -564,7 +564,7 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
         bias = 1.0 if form in ("lerp", "lerp_target", "cancel_drift") else 0.01
         common = dict(base_model=base, target_score=target.score, clip_model=10.0,
                       clip_score=10.0,
-                      score_model=TimeEmbed(dim_out=1, num_layers=4,
+                      score_model=TimeEmbed(dim_out=d if score_dim else 1, num_layers=4,
                                             last_bias_init={"constant": bias}))
         if form == "lerp":
             ctrl = LerpCtrl(sde=sde, prior_score=IsotropicGauss(dim=d).score, **common)
@@ -577,6 +577,9 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None):
     ctrl.reset_parameters(torch.Generator().manual_seed(0))
     with torch.no_grad():  # give the zero-initialised last layer values
         base.out_layer.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+        if score_dim:
+            ctrl.score_model.out_layer.weight.normal_(
+                0.0, 0.05, generator=torch.Generator().manual_seed(2))
     ctrl = ctrl.to(cuda)
     rng = np.random.default_rng(seed)
     scale = 3.0 if ("gmm" in name or "rings" in name) and d > 1 else 1.0
@@ -705,10 +708,10 @@ def test_unsupported_target_instances_raise_before_the_launch(cuda):
     ctrl = ClippedCtrl(base_model=FourierMLP(dim=2), sde=VP()).to(cuda)
     with pytest.raises(NotImplementedError, match="needs a ScoreCtrl"):
         ro.fused_rollout_exp(ctrl, x0, ts, noise, 1.0, 1.0)
-    two = ScoreCtrl(base_model=FourierMLP(dim=2), target_score=GMM(name="grid").to(cuda).score,
-                    score_model=TimeEmbed(dim_out=2)).to(cuda)
+    three = ScoreCtrl(base_model=FourierMLP(dim=2), target_score=GMM(name="grid").to(cuda).score,
+                      score_model=TimeEmbed(dim_out=3)).to(cuda)
     with pytest.raises(NotImplementedError, match="score net with one output"):
-        ro.fused_rollout(two, x0, ts, noise, sde=VP())
+        ro.fused_rollout(three, x0, ts, noise, sde=VP())
     prepare, x0, ts, noise = instance_setup(cuda, "lerp.given", spec=GIVEN["lerp.d196"][:3])
     with pytest.raises(RuntimeError):
         ro._launch(prepare(x0, ts, noise), "fast")
@@ -801,3 +804,61 @@ def test_brownian_tree_is_the_same_path_on_the_card(cuda):
     card = VirtualBrownianTree(0.0, 2.0, 3, (256, 3), device=cuda)
     for t in (0.0, 0.37, 1.5, 2.0):
         torch.testing.assert_close(card(t).cpu(), cpu(t), atol=1e-5, rtol=1e-5)
+
+
+# Score nets of d outputs (model=lerp_dim, score_dim): the per-coordinate
+# instances of kernel 1's lerp and score forms and of kernel 2, in the fast
+# and the generic body, and with a given score (the whitened Cox process at
+# d = 196), each counted under "<kernel>.<form>.dim". (spec, body)
+SCORE_DIM = {
+    "lerp.funnel.fast": (("lerp", lambda: Funnel(dim=10, n_reference_samples=100), 10), "fast"),
+    "lerp.funnel.generic": (("lerp", lambda: Funnel(dim=10, n_reference_samples=100), 10),
+                            "generic"),
+    "lerp.gmm.fast": (("lerp", lambda: GMM(name="grid"), 2), "fast"),
+    "score.funnel.fast": (("score", lambda: Funnel(dim=10, n_reference_samples=100), 10),
+                          "fast"),
+    "score.wells.generic": (("score", lambda: MultiWell(dim=5, n_double_wells=5,
+                                                        separation=4.0), 5), "generic"),
+    "exp.funnel.fast": (("exp", lambda: Funnel(dim=10, n_reference_samples=100), 10), "fast"),
+    "exp.funnel.generic": (("exp", lambda: Funnel(dim=10, n_reference_samples=100), 10),
+                           "generic"),
+    "lerp.given.d196": (("lerp", lambda: Cox(dim=196, use_whitened=True), 196), "shape"),
+}
+
+
+@pytest.mark.parametrize("name", list(SCORE_DIM))
+def test_score_dim_instances_match_plain_twin(cuda, name):
+    """One step from the plain twin's own states, then the whole rollout,
+    within the rollouts' tolerance; counted under ".dim". A table whose d
+    columns all equal the one-output column gives the one-output bits."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    spec, body = SCORE_DIM[name]
+    prepare, x0, ts, noise = instance_setup(cuda, name, spec=spec, score_dim=True)
+    form = spec[0]
+    key = "rollout_exp.score" if form == "exp" else f"rollout.{form}"
+    T = noise.shape[0] if "given" in name else 1
+    before = build.FORM_LAUNCHES[f"{key}.dim"]
+    prepared = prepare(x0, ts, noise)
+    assert prepared[0][2].shape[1] == 6 + spec[2]
+    xs, x_T = ro._launch(prepared, body)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[f"{key}.dim"] == before + T
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    steps = noise.shape[0]
+    for k in (0, steps // 2, steps - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
+        torch.testing.assert_close(x1, xT_p if k == steps - 1 else xs_p[k + 1], atol=1e-5,
+                                   rtol=1e-5)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    # equal columns: the one-output instance's bits
+    tensors, consts, form_, update = prepared
+    tab = tensors[2]
+    one = tab[:, :6].clone()
+    one[:, 4] = tab[:, 6]
+    equal = torch.cat([one, one[:, 4:5].expand(-1, tab.shape[1] - 6)], dim=1).contiguous()
+    got = ro._launch(([*tensors[:2], equal, *tensors[3:]], consts, form_, update), body)
+    want = ro._launch(([*tensors[:2], one, *tensors[3:]], consts, form_, update), body)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

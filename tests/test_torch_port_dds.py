@@ -177,7 +177,9 @@ def test_rollouts_raise_on_unsupported_controls_and_targets():
             u = bare(ts[k], x)
             x = x * torch.sqrt(1 - beta**2) + beta**2 * SIGMA**2 * u + SIGMA * beta * noise[k]
     torch.testing.assert_close(x_T, x, atol=2e-5, rtol=1e-5)
-    wide = ScoreCtrl(base_model=FourierMLP(dim=D), score_model=TimeEmbed(dim_out=D),
+    # a score net of one output per coordinate has its instances
+    # (tests/test_torch_port_score_dim.py); any other width has none
+    wide = ScoreCtrl(base_model=FourierMLP(dim=D), score_model=TimeEmbed(dim_out=3),
                      target_score=ctrl.target_score)
     with pytest.raises(NotImplementedError, match="one output"):
         fused_rollout_exp(wide, x0, ts, noise, ALPHA, SIGMA)

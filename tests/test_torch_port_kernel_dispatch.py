@@ -285,8 +285,9 @@ def test_potential_rollout_launch_passes_its_one_output_net(fake_library, report
     ro._launch(prepared)
     (args,) = fake_library.calls
     assert args[7] == w_out.data_ptr() and args[8] == b_out.data_ptr()
-    assert args[12:20] == (5, d, 16, 2, 6, 0, 0, 0)
-    assert args[20] == 2.5 and math.isinf(args[21])
+    # B, d, C, H, T, K, the table's width and height, one sscore column
+    assert args[12:21] == (5, d, 16, 2, 6, 0, 0, 0, 1)
+    assert args[21] == 2.5 and math.isinf(args[22])
     assert args[-5] == ro.FORM_CODES["potential"] == 5
     assert args[-4] == ro.TARGET_CODES["none"]
     for key in ("rollout.potential", "rollout.potential.none"):

@@ -213,20 +213,25 @@ def test_config_remaps_targets_into_the_port():
     assert locate("sde_sampler_tpu.solver.oc.SubtrajBridge").__module__ == "sde_sampler_torch.solver.oc"
     assert locate("sde_sampler_tpu.models.reparam.CancelDriftCtrl").__module__ == (
         "sde_sampler_torch.models.reparam")
-    for module in ("cox.Cox", "img.Img", "nice.Nice"):
+    for module in ("cox.Cox", "img.Img", "nice.Nice", "aladip.AlaDip"):
         assert locate(f"sde_sampler_tpu.distr.{module}").__module__ == (
             "sde_sampler_torch.distr." + module.split(".")[0])
-    # a target the port lacks names the missing module, never the JAX class
-    with pytest.raises(ConfigError, match="sde_sampler_torch.distr.aladip"):
-        locate("sde_sampler_tpu.distr.aladip.AlaDip")
+    for name in ("debug.enable_debug_nans", "watch.ModelWatcher"):
+        assert locate(f"sde_sampler_tpu.utils.{name}").__module__ == (
+            "sde_sampler_torch.utils." + name.split(".")[0])
+    # a module the port lacks is named, never the JAX one
+    with pytest.raises(ConfigError, match="sde_sampler_torch.parallel.mesh"):
+        locate("sde_sampler_tpu.parallel.mesh.get_mesh")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """Every module of the port, and the solvers of DIS, DDS, EulerDDS and
     PIS, the subtrajectory solvers with their PotentialCtrls, the Langevin
     solver under each integrator, DIS on the rings and the Rosenbrock and
-    EulerDDS with the langevin_init control, DIS on the image, Cox and the
-    smooth NICE flow composed from conf/ and built, load no JAX module."""
+    EulerDDS with the langevin_init control, DIS on the image, Cox, the
+    smooth NICE flow and the alanine dipeptide, DIS, PIS and DDS with score
+    nets of d outputs, and the setup hooks and the model watcher composed
+    from conf/ and built, load no JAX module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sde_sampler_torch\n"
@@ -237,7 +242,12 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "        ('funnel', 'pis', []), ('gmm', 'dis_subtraj', []), ('gmm', 'bridge_subtraj', []),\n"
         "        ('rings', 'dis', []), ('rosenbrock', 'dis', []),\n"
         "        ('gmm', 'dds_euler', ['model@generative_ctrl=langevin_init']),\n"
-        "        ('img', 'dis', []), ('cox', 'dis', []), ('nice_smooth', 'dis', [])]\n"
+        "        ('img', 'dis', []), ('cox', 'dis', []), ('nice_smooth', 'dis', []),\n"
+        "        ('aladip_vacuum', 'dis', ['+utils@setup=debug',\n"
+        "                                  '+utils@model_watcher=model_watcher']),\n"
+        "        ('funnel', 'dis', ['model@generative_ctrl=lerp_dim']),\n"
+        "        ('funnel', 'pis', ['model@generative_ctrl=score_dim']),\n"
+        "        ('funnel', 'dds', ['model@generative_ctrl=score_dim'])]\n"
         "runs += [('gmm', 'langevin', [f'integrator={i}']) for i in\n"
         "         ('euler', 'heun', 'euler_adjoint', 'torchsde_euler', 'torchsde_heun')]\n"
         "for i, (target, solver, extra) in enumerate(runs):\n"
@@ -252,7 +262,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "assert not bad, bad\n"
         "for m in ('solver.oc', 'distr.delta', 'losses.oc', 'ops.rollout', 'models.reparam',\n"
         "          'solver.langevin', 'eq.integrator', 'distr.rings', 'distr.rosenbrock',\n"
-        "          'distr.img', 'distr.cox', 'distr.nice'):\n"
+        "          'distr.img', 'distr.cox', 'distr.nice', 'distr.aladip', 'distr.aladip_ff',\n"
+        "          'distr.aladip_transform', 'utils.debug', 'utils.watch'):\n"
         "    assert 'sde_sampler_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
