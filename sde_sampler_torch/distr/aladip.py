@@ -11,7 +11,8 @@ has no inline form of it, so kernel 1 takes its given-score form.
 The OpenMM backend (`backend="openmm"`) needs openmm, openmmtools and
 boltzgen and is not ported: it raises as the JAX package does without
 them, and `"auto"` resolves to the native backend without trying to import
-openmm. Plots are not ported.
+openmm. The plots are the native backend's: Ramachandran histograms and the
+60 marginals against the validation set.
 """
 from __future__ import annotations
 
@@ -144,4 +145,36 @@ class AlaDip(Distribution):
         return torch.remainder(phi, 2 * math.pi) - math.pi, torch.remainder(psi, 2 * math.pi) - math.pi
 
     def plots(self, samples, batch_size: int = 1000) -> dict:
-        raise NotImplementedError("plots are not ported yet: run with plot_results=False")
+        """Ramachandran (phi, psi) histograms of the samples and, where the
+        validation set is loaded, of it, and each coordinate's histogram
+        against the validation set's (the JAX package's `_plots_jax`)."""
+        import matplotlib as mpl
+
+        from sde_sampler_torch.eval.plots import pyplot, to_numpy
+
+        plt = pyplot()
+        samples = to_numpy(samples)
+        sets = [("prediction", samples)]
+        if self.eval_data is not None:
+            sets.append(("groundtruth", to_numpy(self.eval_data)))
+        figures = {}
+        for name, zs in sets:
+            with torch.no_grad():
+                phi, psi = self.phi_psi(torch.as_tensor(zs, device=self.device))
+            fig, ax = plt.subplots(1, 1)
+            ax.hist2d(to_numpy(phi), to_numpy(psi), bins=64, norm=mpl.colors.LogNorm(),
+                      range=[[-np.pi, np.pi], [-np.pi, np.pi]])
+            ax.set_xlabel(r"$\phi$")
+            ax.set_ylabel(r"$\psi$")
+            figures[f"plots/ramachandran_{name}"] = fig
+        if self.eval_data is not None:
+            eval_data = to_numpy(self.eval_data)
+            fig, axes = plt.subplots(6, 10, figsize=(20, 12))
+            for d in range(self.dim):
+                ax = axes.flat[d]
+                ax.hist(eval_data[:, d], bins=50, density=True, alpha=0.5)
+                ax.hist(samples[:, d], bins=50, density=True, alpha=0.5)
+                ax.set_xticks([])
+                ax.set_yticks([])
+            figures["plots/marginals"] = fig
+        return figures

@@ -5,7 +5,8 @@ exp(-((x - shift)² - separation)²) with its analytic score, statistics by
 Boole quadrature and a GMM-proposal rejection sampler, and MultiWell =
 (n double wells) ⊗ (d - n unit Gaussians at the shift) with factorised
 statistics. The rollout kernel (`ops/rollout.py`, `csrc/rollout.cuh`)
-inlines the same score. The rejection-sampling plot is not ported.
+inlines the same score. `DoubleWell.plots` draws the rejection sampler's
+diagnostic.
 """
 from __future__ import annotations
 
@@ -66,6 +67,28 @@ class DoubleWell(Distribution):
             scaling=self.rejection_sampling_scaling,
             generator=generator,
         )
+
+    def plots(self, samples, nbins: int = 100) -> dict:
+        """Rejection-sampling diagnostic: the histogram of as many exact
+        samples (from a generator seeded 0) against the density and the
+        scaled proposal."""
+        import numpy as np
+
+        from sde_sampler_torch.eval.plots import plot_marginal, to_numpy
+
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        gt = self.sample((samples.shape[0],), generator=generator)
+        pdf = lambda x, **kw: self.pdf(torch.as_tensor(x, dtype=torch.float32,
+                                                       device=self.device))
+        fig = plot_marginal(x=gt, marginal=pdf, dim=0, nbins=nbins, domain=self.domain)
+        ax = fig.axes[0]
+        x = np.linspace(*to_numpy(self.domain)[0], nbins)
+        proposal = self.get_proposal_distr().pdf(
+            torch.as_tensor(x[:, None], dtype=torch.float32, device=self.device))
+        y = to_numpy(proposal) * self.rejection_sampling_scaling
+        ax.plot(x, y.squeeze(-1), "r--", label="proposal")
+        ax.legend()
+        return {"plots/rejection_sampling": fig}
 
 
 class MultiWell(Distribution):

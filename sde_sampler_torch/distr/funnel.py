@@ -1,7 +1,8 @@
 """Neal's funnel target (d=10 default).
 
 Port of `sde_sampler_tpu/distr/funnel.py`: x₀ ~ N(0, σ²),
-x_i | x₀ ~ N(0, exp(x₀)); analytic score, exact sampler and domain.
+x_i | x₀ ~ N(0, exp(x₀)); analytic score, exact sampler, domain and
+marginals.
 The rollout kernel (`ops/rollout.py`, `csrc/rollout.cuh`) inlines the same
 score formula.
 """
@@ -76,6 +77,19 @@ class Funnel(Distribution):
         ) * inv_var_other
         score_other = -x_other * inv_var_other
         return torch.cat([score_first, score_other], dim=-1)
+
+    def marginal(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The density of coordinate `dim` at x (Q points): exact for the
+        first, a Monte Carlo mean over min(n_reference_samples, 1e6) draws
+        of the first coordinate (from a generator seeded 0) for the others."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device).reshape(-1, 1)
+        if dim == 0:
+            return self.distr_first.marginal(x)
+        n_mc = min(self.n_reference_samples or 10**6, 10**6)
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        # (n_mc, 1, 1): broadcasts against the (Q, 1) query points
+        samples_first = self.distr_first.sample((n_mc, 1), generator=generator)
+        return torch.exp(Funnel.log_prob_other(x, samples_first)).mean(dim=0)
 
     def sample(self, shape=None, generator: torch.Generator | None = None):
         shape = tuple(shape or ())

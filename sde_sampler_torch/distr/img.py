@@ -1,6 +1,6 @@
 """2-d density defined by a grayscale image (the labrador by default).
 
-Port of `sde_sampler_tpu/distr/img.py` (its plots left out): crop, white
+Port of `sde_sampler_tpu/distr/img.py` with its plots: crop, white
 cutoff and a stack of Gaussian blurs build an energy grid on the host
 (numpy and scipy); the density is the gradient-interpolated pixel energy
 with a quadratic penalty outside the image; sampling draws pixels from the
@@ -173,3 +173,52 @@ class Img(Distribution):
         u = torch.rand((n,), generator=generator, device=self.device)
         jitter = torch.rand((*shape, 2), generator=generator, device=self.device)
         return self.sample_from_uniforms(u, jitter)
+
+    # -- plots ---------------------------------------------------------------
+    def plot_energies(self, axs=None):
+        """The image (the decoded pixels), the density exp(-energy) and the
+        energy's contours."""
+        from sde_sampler_torch.eval.plots import pyplot
+
+        if axs is None:
+            _, axs = pyplot().subplots(ncols=3, nrows=1, figsize=(20, 6))
+        axs[0].imshow(np.load(self.path)["rgb"])
+        energy = self.pixel_energy.cpu().numpy()
+        axs[1].imshow(np.exp(-energy[::-1]), vmin=0, vmax=1, cmap="gray_r")
+        axs[2].contourf(energy, 20, vmin=energy.min(), vmax=energy.max(), cmap="Spectral")
+        for ax in axs:
+            ax.axis("off")
+        return axs[0].get_figure()
+
+    def plot_samples(self, samples, nbins=100, vmax=250.0, ax=None):
+        """A 2-d histogram of the samples over the domain."""
+        from sde_sampler_torch.eval.plots import pyplot, to_numpy
+
+        samples = to_numpy(samples)
+        domain = None if self.domain is None else to_numpy(self.domain)
+        if ax is None:
+            _, ax = pyplot().subplots()
+        ax.hist2d(samples[:, 0], samples[:, 1], bins=nbins, vmax=vmax, range=domain,
+                  cmap="gray_r")
+        if domain is not None:
+            ax.set_xlim(*domain[0])
+            ax.set_ylim(*domain[1])
+        ax.axis("off")
+        return ax.get_figure()
+
+    def plots(self, samples, nbins=100, vmax=250.0):
+        """The samples beside as many exact ones (from a generator seeded 0),
+        and the energies."""
+        from sde_sampler_torch.eval.plots import pyplot
+
+        fig, axes = pyplot().subplots(nrows=1, ncols=2, figsize=(6, 3))
+        fig.subplots_adjust(wspace=0.05)
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        results = {
+            "prediction": samples,
+            "groundtruth": self.sample((samples.shape[0],), generator=generator),
+        }
+        for ax, (name, x) in zip(axes, results.items()):
+            ax.set_title(name, fontsize=15)
+            fig = self.plot_samples(samples=x, nbins=nbins, vmax=vmax, ax=ax)
+        return {"plots/comparison": fig, "plots/groundtruth": self.plot_energies()}

@@ -1,6 +1,6 @@
 """196-d target: the log-density of a NICE normalizing flow on 14 x 14 MNIST.
 
-Port of `sde_sampler_tpu/distr/nice.py` (its plots left out): additive
+Port of `sde_sampler_tpu/distr/nice.py` with its image-grid plot: additive
 coupling layers (a shift MLP of the one half of the coordinates added to
 the other, alternating halves) and a diagonal log-scaling, a standard
 logistic latent prior, and chunked sampling. The flow is a plain dict of
@@ -210,6 +210,32 @@ class Nice(Distribution):
         rows = x.reshape(-1, self.dim)
         grads = [super(Nice, self).score(chunk) for chunk in rows.split(SCORE_CHUNK_ROWS)]
         return torch.cat(grads).reshape(x.shape)
+
+    def plots(self, samples, n_max: int = 64) -> dict:
+        """The first `n_max` samples (plus the data mean) as 14 x 14 images,
+        each scaled to [0, 1], tiled 8 to a row into one PIL image."""
+        from PIL import Image
+
+        from sde_sampler_torch.eval.plots import to_numpy
+
+        samples = to_numpy(samples[:n_max]) + to_numpy(self.mean)
+        imgs = samples.reshape(-1, *self.shape)
+        lo = imgs.min(axis=(1, 2), keepdims=True)
+        hi = imgs.max(axis=(1, 2), keepdims=True)
+        imgs = (imgs - lo) / np.maximum(hi - lo, 1e-8)
+        n = imgs.shape[0]
+        ncol = 8
+        nrow = -(-n // ncol)
+        pad = nrow * ncol - n
+        if pad:
+            imgs = np.concatenate([imgs, np.zeros((pad, *self.shape))])
+        grid = (
+            imgs.reshape(nrow, ncol, *self.shape)
+            .transpose(0, 2, 1, 3)
+            .reshape(nrow * self.shape[0], ncol * self.shape[1])
+        )
+        arr = np.clip(grid * 255 + 0.5, 0, 255).astype(np.uint8)
+        return {"plots/samples": Image.fromarray(arr)}
 
     def sample(self, shape=None, generator: torch.Generator | None = None) -> torch.Tensor:
         shape = tuple(shape or (1,))

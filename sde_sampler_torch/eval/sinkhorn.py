@@ -6,7 +6,11 @@ with a -inf dual (zero weight) are masked out of the convergence check.
 The cost matrix is never stored: each iteration calls `ops.sinkhorn.softmin`
 twice and the end `ops.sinkhorn.transport_cost` once, which launch the CUDA
 kernels on a card tensor and run their plain versions on a CPU tensor. The
-kernels support p = 2 only. The mesh (multi-device) path is not ported yet.
+kernels take p = 2; any other p runs the JAX package's XLA cost
+(`_cost_tile`) in plain torch on either device, over dense row chunks:
+|x - y|_1 for p = 1, (sum_k (x_k - y_k)^p)^(1/p) otherwise, as written
+there (without an absolute value, so an odd p > 1 gives NaN distances and a
+NaN result on both sides). The mesh (multi-device) path is not ported yet.
 """
 from __future__ import annotations
 
@@ -15,8 +19,38 @@ import torch
 from sde_sampler_torch.ops import sinkhorn as ops
 
 
+ROW_CHUNK = 256  # rows per (ROW_CHUNK, m, d) difference tile of p != 2
+
+
+def _cost(x: torch.Tensor, y: torch.Tensor, p: int) -> torch.Tensor:
+    """Pairwise p-distances (n, m) of p != 2, the JAX package's `_cost_tile`."""
+    diff = x[:, None, :] - y[None, :, :]
+    if p == 1:
+        return diff.abs().sum(-1)
+    return (diff**p).sum(-1) ** (1.0 / p)
+
+
+def softmin_p(x, y, dual, eps: float, p: int) -> torch.Tensor:
+    """eps * logsumexp_j((-M_ij + dual_j)/eps) with the p-cost, row chunks."""
+    out = torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
+    for r0 in range(0, x.shape[0], ROW_CHUNK):
+        z = (-_cost(x[r0 : r0 + ROW_CHUNK], y, p) + dual[None, :]) / eps
+        out[r0 : r0 + ROW_CHUNK] = eps * torch.logsumexp(z, dim=1)
+    return out
+
+
+def transport_cost_p(x, y, u, v, eps: float, p: int) -> torch.Tensor:
+    """sum_ij exp((-M_ij + u_i + v_j)/eps) * M_ij with the p-cost."""
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r0 in range(0, x.shape[0], ROW_CHUNK):
+        m = _cost(x[r0 : r0 + ROW_CHUNK], y, p)
+        plan = torch.exp((-m + u[r0 : r0 + ROW_CHUNK, None] + v[None, :]) / eps)
+        total = total + (plan * m).sum(dtype=torch.float64)
+    return total.to(x.dtype)
+
+
 class Sinkhorn:
-    """Entropy-regularized 2-Wasserstein distance between point clouds."""
+    """Entropy-regularized p-Wasserstein distance between point clouds."""
 
     def __init__(
         self,
@@ -30,8 +64,6 @@ class Sinkhorn:
     ):
         if not isinstance(p, int) or p <= 0:
             raise TypeError(f"p must be an integer greater than 0, got {p}")
-        if p != 2:
-            raise NotImplementedError("the port's Sinkhorn supports p = 2 only")
         self.p = p
         if eps <= 0:
             raise ValueError("Entropy regularization term eps must be > 0")
@@ -67,6 +99,11 @@ class Sinkhorn:
             raise ValueError("Weights w_x and w_y do not sum to the same value")
 
         eps = self.eps
+        if self.p == 2:  # the kernels (their plain versions on the CPU)
+            softmin, transport = ops.softmin, ops.transport_cost
+        else:
+            softmin = lambda a, b, dual, e: softmin_p(a, b, dual, e, self.p)
+            transport = lambda a, b, uu, vv, e: transport_cost_p(a, b, uu, vv, e, self.p)
         log_a, log_b = torch.log(w_x), torch.log(w_y)
         u = torch.zeros_like(w_x)
         v = eps * log_b
@@ -75,8 +112,8 @@ class Sinkhorn:
         fin_a, fin_b = torch.isfinite(log_a), torch.isfinite(log_b)
         self.n_iters = 0
         for it in range(self.max_iters):
-            u_new = log_a * eps - ops.softmin(x, y, v, eps)
-            v_new = log_b * eps - ops.softmin(y, x, u_new, eps)
+            u_new = log_a * eps - softmin(x, y, v, eps)
+            v_new = log_b * eps - softmin(y, x, u_new, eps)
             err = torch.maximum(
                 torch.where(fin_a, (u - u_new).abs(), 0.0).max(),
                 torch.where(fin_b, (v - v_new).abs(), 0.0).max(),
@@ -88,7 +125,7 @@ class Sinkhorn:
                 print(f"sinkhorn iter {it}: max_err={max_err:.3g}")
             if not max_err >= self.stop_thresh:
                 break
-        return ops.transport_cost(x, y, u, v, eps)
+        return transport(x, y, u, v, eps)
 
     def __call__(self, x, y, w_x=None, w_y=None):
         if self.n_max is not None:

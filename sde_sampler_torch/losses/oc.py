@@ -7,10 +7,16 @@ and `divx_hutchinson` from `sde_sampler_tpu/losses/oc.py`. Methods kl /
 kl_ito / lv / lv_traj; the lv default is the two-phase loss
 (`_two_phase_loss`):
 
-- phase 1: the value-only rollout recording every state, through the
-  fused rollouts (`ops/rollout.py`: kernel 1 for the EM losses, kernel 2
-  for the exponential integrator on the card, their plain twins on the
-  CPU); it runs the generative control alone, which drives the SDE;
+- phase 1: the value-only rollout recording every state; it runs the
+  generative control alone, which drives the SDE. Its route is decided from
+  the configuration before anything runs (`ops/rollout.py::phase1_route`):
+  the fused rollouts (kernel 1 for the EM losses, kernel 2 for the
+  exponential integrator on the card, their plain twins on the CPU), or
+  the scan route (`scan_rollout`, a value-only torch loop, the JAX
+  package's `lax.scan`) for a base net without a kernel body, for
+  exploration, or with `sim_backend=xla` on the CPU (on the card an
+  instance that exists is never set aside); the route is logged once per
+  loss and the scan route counted;
 - phase 2: one batched control evaluation over all (T, B) states, whose
   running cost and Ito terms autograd differentiates; with a Bridge's
   inference control v, also v and its divergence on all states in one
@@ -21,12 +27,20 @@ both log Z estimators from one rollout. Noise enters as an explicit
 (T, B, d) tensor `dbs` where a caller passes one (Brownian increments for
 the EM losses, standard normals for the exponential integrator), and is
 otherwise drawn from the given `torch.Generator`; the probes of a
-Hutchinson estimator likewise (`probes`). Exploration noise and dropout
-raise NotImplementedError here.
+Hutchinson estimator likewise (`probes`).
+
+Exploration of the log-variance losses (`sde_ctrl_noise`,
+`sde_ctrl_dropout`; `generative_and_sde_ctrl` of the JAX package): the
+detached control that drives the SDE gets `sde_ctrl_noise` times standard
+normals ξ, and is replaced by the neutral control −drift/diff wherever
+uniforms υ exceed `sde_ctrl_dropout`, as the JAX package writes it. ξ and υ
+(T, B, d) are drawn explicitly (`draw_explore`) or passed (`explore`), and
+the same tensors enter phase 1, phase 2's cost and `simulate`.
 """
 from __future__ import annotations
 
 import copy
+import logging
 from typing import Callable, NamedTuple
 
 import torch
@@ -102,6 +116,10 @@ def divx_hutchinson(
     return div / noise.shape[0], value
 
 
+def _at(draws, k):
+    return None if draws is None else draws[k]
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     n = mask.sum()
     return torch.where(mask, x, 0.0).sum() / n.clamp(min=1)
@@ -149,11 +167,14 @@ class BaseOCLoss:
         self.traj_per_sample = traj_per_sample
         self.filter_samples = filter_samples
         self.max_rnd = max_rnd
-        if sde_ctrl_noise is not None or sde_ctrl_dropout is not None:
-            raise NotImplementedError(
-                "exploration noise and dropout of the sde control are not "
-                "ported yet"
+        if sde_ctrl_dropout is not None and sde is None:
+            # the JAX package fails here on None.drift when it first traces
+            raise ValueError(
+                "sde_ctrl_dropout replaces the sde control by the neutral control "
+                "-drift/diff of the loss's SDE, and this loss has none (DDS)"
             )
+        self.sde_ctrl_noise = sde_ctrl_noise
+        self.sde_ctrl_dropout = sde_ctrl_dropout
         if two_phase and method in ("kl", "kl_ito"):
             raise ValueError(
                 "two_phase requires a detached-control method (lv/lv_traj); "
@@ -162,9 +183,9 @@ class BaseOCLoss:
         if two_phase is None:
             two_phase = FAST_PATH_DEFAULT and method in ("lv", "lv_traj")
         self.two_phase = two_phase
-        # Phase 1 always takes the fused rollout: its CUDA kernel on the
-        # card, its plain twin on the CPU. The JAX names stay accepted so
-        # that conf/ composes; "xla" (the JAX scan) raises on the card.
+        # phase 1's route (ops/rollout.py phase1_route): "auto" takes the
+        # kernel wherever an instance exists, "xla" the scan route on the
+        # CPU and "auto"'s on the card, "pallas" demands the kernel
         if sim_backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"Unknown sim_backend {sim_backend}.")
         self.sim_backend = sim_backend
@@ -172,6 +193,79 @@ class BaseOCLoss:
         # and its per-call clips, which the fused rollout reads directly
         self.ctrl_module = None
         self.ctrl_clips = None
+        # the routes already logged, shared by the copies of `with_ctrls`
+        self._routes_logged: set = set()
+
+    # -- exploration of the sde control -------------------------------------
+    @property
+    def explores(self) -> bool:
+        """Whether the sde control of the log-variance losses explores."""
+        return self.sde_ctrl_noise is not None or self.sde_ctrl_dropout is not None
+
+    def draw_explore(self, ts, x, generator=None):
+        """Exploration draws of every step, (ξ, υ): standard normals and
+        uniforms on [0, 1) of shape (T, B, d), for the noise and the dropout
+        of the sde control; each None where its knob is unset."""
+        shape = (ts.shape[0] - 1,) + tuple(x.shape)
+        kw = dict(generator=generator, device=x.device, dtype=x.dtype)
+        xi = torch.randn(shape, **kw) if self.sde_ctrl_noise is not None else None
+        ups = torch.rand(shape, **kw) if self.sde_ctrl_dropout is not None else None
+        return xi, ups
+
+    def explore_sde_ctrl(self, sde_ctrl, s, x, xi=None, ups=None):
+        """The detached control with exploration (`generative_and_sde_ctrl`
+        of the JAX package): plus sde_ctrl_noise·ξ, then the neutral control
+        −drift(s, x)/diff(s, x) wherever υ > sde_ctrl_dropout."""
+        if xi is not None:
+            sde_ctrl = sde_ctrl + self.sde_ctrl_noise * xi
+        if ups is not None:
+            neutral = -(self.sde.drift(s, x) / self.sde.diff(s, x))
+            sde_ctrl = torch.where(ups > self.sde_ctrl_dropout,
+                                   neutral.expand_as(sde_ctrl), sde_ctrl)
+        return sde_ctrl
+
+    def _explore_inputs(self, ts, x, explore, generator):
+        """The exploration draws of a log-variance call: `explore` where
+        given, else drawn when the loss explores; (None, None) otherwise."""
+        if explore is not None:
+            return explore
+        if self.explores:
+            return self.draw_explore(ts, x, generator)
+        return None, None
+
+    # -- phase 1 ----------------------------------------------------------------
+    def _phase1(self, ts, x, noise, explore, update="em", sde=None):
+        """Value-only rollout recording every pre-step state: (xs, x_T),
+        through the route that `phase1_route` picks (logged once per loss)."""
+        from sde_sampler_torch.ops import rollout
+
+        route, reason = rollout.phase1_route(
+            self.ctrl_module, sde, update, self.sim_backend, self.explores,
+            on_card=x.device.type == "cuda")
+        if (route, reason) not in self._routes_logged:
+            self._routes_logged.add((route, reason))
+            logging.info("Phase 1 of %s takes the %s route%s.", type(self).__name__,
+                         route, "" if reason is None else f" ({reason})")
+        if route == "kernel":
+            return self._kernel_rollout(ts, x, noise)
+        return rollout.scan_rollout(self._scan_step(ts, noise, explore), x, ts, noise)
+
+    def _kernel_rollout(self, ts, x, noise):
+        raise NotImplementedError
+
+    def _scan_step(self, ts, dbs, explore):
+        """The scan route's EM step k: x + (f(s, x) + σ(s)·u)·dt + σ(s)·db_k
+        with the (exploring) detached control u, as the JAX scan's body."""
+        xi, ups = explore
+
+        def step(k, x):
+            s, dt = ts[k], ts[k + 1] - ts[k]
+            u = self.explore_sde_ctrl(self.generative_ctrl(s, x), s, x,
+                                      _at(xi, k), _at(ups, k))
+            diff = self.sde.diff(s, x)
+            return x + (self.sde.drift(s, x) + diff * u) * dt + diff * dbs[k]
+
+        return step
 
     # -- noise ----------------------------------------------------------------
     @staticmethod
@@ -266,13 +360,6 @@ class BaseOCLoss:
             x = x.reshape(-1, x.shape[-1])
         return x
 
-    def _check_sim_backend(self, x):
-        if x.device.type == "cuda" and self.sim_backend == "xla":
-            raise ValueError(
-                "sim_backend=xla names the JAX scan; on the card phase 1 runs "
-                "through the rollout kernel (auto or pallas)"
-            )
-
     def with_ctrls(self, **kwargs) -> "BaseOCLoss":
         """Shallow copy with the control callables bound."""
         new = copy.copy(self)
@@ -330,9 +417,12 @@ class TimeReversalLoss(BaseOCLoss):
         dbs: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         probes: torch.Tensor | None = None,
+        explore: tuple | None = None,
     ) -> RolloutResult:
         """One EM rollout accumulating the RND with and without Ito term;
-        `probes` (T, B, d) feed a Hutchinson estimator in training."""
+        `probes` (T, B, d) feed a Hutchinson estimator in training, and
+        `explore` (ξ, υ) the exploration of the detached control."""
+        xi, ups = explore or (None, None)
         estimator = self.div_estimator if train else None
         if train and self.method in ["kl", "kl_ito"]:
             rnd = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
@@ -350,7 +440,9 @@ class TimeReversalLoss(BaseOCLoss):
                     x.shape, generator=generator, device=x.device, dtype=x.dtype
                 ) * torch.sqrt(dt)
             gen = self.generative_ctrl(s, x)
-            sde_ctrl = gen.detach() if change_sde_ctrl else gen
+            sde_ctrl = gen
+            if change_sde_ctrl:
+                sde_ctrl = self.explore_sde_ctrl(gen.detach(), s, x, _at(xi, k), _at(ups, k))
             sde_diff = self.sde.diff(s, x)
             gen_plus, gen_minus, div = self._inference_terms(
                 gen, s, x, estimator, None if probes is None else probes[k], generator
@@ -373,33 +465,34 @@ class TimeReversalLoss(BaseOCLoss):
         xs = torch.stack(traj) if return_traj else None
         return RolloutResult(x, rnd + ito, rnd, xs)
 
-    def _phase1(self, ts, x, dbs):
-        """Value-only rollout recording every pre-step state: (xs, x_T)."""
-        self._check_sim_backend(x)
+    def _kernel_rollout(self, ts, x, dbs):
         from sde_sampler_torch.ops.rollout import fused_rollout
 
         return fused_rollout(self.ctrl_module, x, ts, dbs, self.ctrl_clips)
 
     def _two_phase_loss(
         self, ts, x, terminal_unnorm_log_prob, initial_log_prob,
-        dbs=None, generator=None, probes=None,
+        dbs=None, generator=None, probes=None, explore=None,
     ):
         """lv/lv_traj loss with the trajectory rollout outside autograd.
         Phase 1 needs no inference control: the generative one drives the
-        SDE."""
+        SDE. Phase 2's cost takes the sde control that drove phase 1: the
+        detached control with the same exploration draws."""
         rnd0 = initial_log_prob(x)
         if dbs is None:
             dbs = self.draw_noise(ts, x, generator)
-        xs, x_T = self._phase1(ts, x, dbs)
+        explore = self._explore_inputs(ts, x, explore, generator)
+        xs, x_T = self._phase1(ts, x, dbs, explore)
 
         n = ts.shape[0] - 1
         s = ts[:-1].reshape(n, 1, 1)
         dt = (ts[1:] - ts[:-1]).reshape(n, 1, 1)
         gen = self.generative_ctrl(s, xs)  # (T, B, d), one batched call
+        sde_ctrl = self.explore_sde_ctrl(gen.detach(), s, xs, *explore)
         gen_plus, gen_minus, div = self._inference_terms(
             gen, s, xs, self.div_estimator, probes, generator
         )
-        cost = (gen_plus * (gen.detach() - 0.5 * gen_minus)).sum(dim=-1, keepdim=True) * dt
+        cost = (gen_plus * (sde_ctrl - 0.5 * gen_minus)).sum(dim=-1, keepdim=True) * dt
         if div is not None:
             cost = cost + self.sde.diff(s, xs) * div * dt
         ito = (gen_plus * dbs).sum(dim=-1, keepdim=True)
@@ -409,23 +502,29 @@ class TimeReversalLoss(BaseOCLoss):
 
     def __call__(
         self, ts, x, terminal_unnorm_log_prob, initial_log_prob=None,
-        dbs=None, generator=None, probes=None,
+        dbs=None, generator=None, probes=None, explore=None,
     ):
+        """The training loss; `explore` (ξ, υ) overrides the exploration
+        draws of an lv method (as `dbs` the noise)."""
         x = self._repeat_traj(x)
         if self.two_phase:
             return self._two_phase_loss(
                 ts, x, terminal_unnorm_log_prob, initial_log_prob,
-                dbs=dbs, generator=generator, probes=probes,
+                dbs=dbs, generator=generator, probes=probes, explore=explore,
             )
+        change_sde_ctrl = self.method in ["lv", "lv_traj"]
+        if change_sde_ctrl:
+            explore = self._explore_inputs(ts, x, explore, generator)
         result = self.simulate(
             ts, x,
             terminal_unnorm_log_prob=terminal_unnorm_log_prob,
             initial_log_prob=initial_log_prob,
             train=True,
-            change_sde_ctrl=self.method in ["lv", "lv_traj"],
+            change_sde_ctrl=change_sde_ctrl,
             dbs=dbs,
             generator=generator,
             probes=probes,
+            explore=explore,
         )
         rnd = result.rnd if self.method != "kl" else result.rnd_no_ito
         return self.compute_loss(rnd, samples=result.samples)
@@ -477,8 +576,11 @@ class ReferenceSDELoss(BaseOCLoss):
         return_traj: bool = False,
         dbs: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        explore: tuple | None = None,
     ) -> RolloutResult:
-        """One EM rollout accumulating the RND with and without Ito term."""
+        """One EM rollout accumulating the RND with and without Ito term;
+        `explore` (ξ, υ) explores with the detached control."""
+        xi, ups = explore or (None, None)
         rnd = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
         ito = torch.zeros_like(rnd)
         traj = [x] if return_traj else None
@@ -492,7 +594,9 @@ class ReferenceSDELoss(BaseOCLoss):
                     x.shape, generator=generator, device=x.device, dtype=x.dtype
                 ) * torch.sqrt(dt)
             gen = self.generative_ctrl(s, x)
-            sde_ctrl = gen.detach() if change_sde_ctrl else gen
+            sde_ctrl = gen
+            if change_sde_ctrl:
+                sde_ctrl = self.explore_sde_ctrl(gen.detach(), s, x, _at(xi, k), _at(ups, k))
             sde_diff = self.sde.diff(s, x)
             minus, plus = self._minus_plus_reference(gen, s, x)
             if change_sde_ctrl:
@@ -508,9 +612,10 @@ class ReferenceSDELoss(BaseOCLoss):
         xs = torch.stack(traj) if return_traj else None
         return RolloutResult(x, rnd + ito, rnd, xs)
 
-    def _phase1(self, ts, x, dbs):
-        """Value-only EM rollout recording every pre-step state: (xs, x_T)."""
-        self._check_sim_backend(x)
+    def _phase1(self, ts, x, dbs, explore):
+        return super()._phase1(ts, x, dbs, explore, sde=self.sde)
+
+    def _kernel_rollout(self, ts, x, dbs):
         from sde_sampler_torch.ops.rollout import fused_rollout
 
         return fused_rollout(
@@ -519,19 +624,21 @@ class ReferenceSDELoss(BaseOCLoss):
 
     def _two_phase_loss(
         self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
-        dbs=None, generator=None,
+        dbs=None, generator=None, explore=None,
     ):
         """lv/lv_traj loss with the trajectory rollout outside autograd."""
         if dbs is None:
             dbs = self.draw_noise(ts, x, generator)
-        xs, x_T = self._phase1(ts, x, dbs)
+        explore = self._explore_inputs(ts, x, explore, generator)
+        xs, x_T = self._phase1(ts, x, dbs, explore)
 
         n = ts.shape[0] - 1
         s = ts[:-1].reshape(n, 1, 1)
         dt = (ts[1:] - ts[:-1]).reshape(n, 1, 1)
         gen = self.generative_ctrl(s, xs)  # (T, B, d), one batched call
+        sde_ctrl = self.explore_sde_ctrl(gen.detach(), s, xs, *explore)
         minus, plus = self._minus_plus_reference(gen, s, xs)
-        cost = (minus * (gen.detach() - 0.5 * plus)).sum(dim=-1, keepdim=True) * dt
+        cost = (minus * (sde_ctrl - 0.5 * plus)).sum(dim=-1, keepdim=True) * dt
         ito = (minus * dbs).sum(dim=-1, keepdim=True)
         rnd_no_ito = (
             cost.sum(0) + reference_log_prob(x_T) - terminal_unnorm_log_prob(x_T)
@@ -541,22 +648,28 @@ class ReferenceSDELoss(BaseOCLoss):
 
     def __call__(
         self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
-        dbs=None, generator=None,
+        dbs=None, generator=None, explore=None,
     ):
+        """The training loss; `explore` (ξ, υ) overrides the exploration
+        draws of an lv method (as `dbs` the noise)."""
         x = self._repeat_traj(x)
         if self.two_phase:
             return self._two_phase_loss(
                 ts, x, terminal_unnorm_log_prob, reference_log_prob,
-                dbs=dbs, generator=generator,
+                dbs=dbs, generator=generator, explore=explore,
             )
+        change_sde_ctrl = self.method in ["lv", "lv_traj"]
+        if change_sde_ctrl:
+            explore = self._explore_inputs(ts, x, explore, generator)
         result = self.simulate(
             ts, x,
             terminal_unnorm_log_prob=terminal_unnorm_log_prob,
             reference_log_prob=reference_log_prob,
             train=True,
-            change_sde_ctrl=self.method in ["lv", "lv_traj"],
+            change_sde_ctrl=change_sde_ctrl,
             dbs=dbs,
             generator=generator,
+            explore=explore,
         )
         rnd = result.rnd if self.method != "kl" else result.rnd_no_ito
         return self.compute_loss(rnd, samples=result.samples)
@@ -607,10 +720,13 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
         return_traj: bool = False,
         dbs: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        explore: tuple | None = None,
     ) -> RolloutResult:
         """One exponential-integrator rollout accumulating the RND with and
-        without Ito term; `dbs` holds standard normals here."""
+        without Ito term; `dbs` holds standard normals here, `explore`
+        (ξ, υ) the exploration of the detached control."""
         sigma = self.sigma
+        xi, ups = explore or (None, None)
         rnd = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
         ito = torch.zeros_like(rnd)
         traj = [x] if return_traj else None
@@ -623,7 +739,7 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
                 )
             gen = self.generative_ctrl(ts[k], x)
             if change_sde_ctrl:
-                sde_ctrl = gen.detach()
+                sde_ctrl = self.explore_sde_ctrl(gen.detach(), ts[k], x, _at(xi, k), _at(ups, k))
                 running = (gen * (sde_ctrl - 0.5 * gen)).sum(dim=-1, keepdim=True)
             else:
                 sde_ctrl = gen
@@ -639,30 +755,49 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
         xs = torch.stack(traj) if return_traj else None
         return RolloutResult(x, rnd + ito, rnd, xs)
 
-    def _phase1(self, ts, x, noise):
-        """Value-only rollout recording every pre-step state: (xs, x_T)."""
-        self._check_sim_backend(x)
+    def _phase1(self, ts, x, noise, explore):
+        return super()._phase1(ts, x, noise, explore, update="exp")
+
+    def _kernel_rollout(self, ts, x, noise):
         from sde_sampler_torch.ops.rollout import fused_rollout_exp
 
         return fused_rollout_exp(
             self.ctrl_module, x, ts, noise, self.alpha, self.sigma, self.ctrl_clips
         )
 
+    def _scan_step(self, ts, noise, explore):
+        """The scan route's exponential-integrator step k:
+        a_k·x + β_k²σ²·u + σβ_k·ε_k with the (exploring) detached control u."""
+        xi, ups = explore
+        sigma = self.sigma
+
+        def step(k, x):
+            s = ts[k]
+            u = self.explore_sde_ctrl(self.generative_ctrl(s, x), s, x,
+                                      _at(xi, k), _at(ups, k))
+            beta = self._beta(s, ts[k + 1])
+            a = torch.sqrt(1.0 - beta**2)
+            return x * a + beta**2 * sigma**2 * u + sigma * beta * noise[k]
+
+        return step
+
     def _two_phase_loss(
         self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
-        dbs=None, generator=None,
+        dbs=None, generator=None, explore=None,
     ):
         """Two-phase lv for the exponential-integrator update rule."""
         sigma = self.sigma
         if dbs is None:
             dbs = self.draw_noise(ts, x, generator, scale_sqrt_dt=False)
-        xs, x_T = self._phase1(ts, x, dbs)
+        explore = self._explore_inputs(ts, x, explore, generator)
+        xs, x_T = self._phase1(ts, x, dbs, explore)
 
         n = ts.shape[0] - 1
         s = ts[:-1].reshape(n, 1, 1)
         beta = self._beta(ts[:-1], ts[1:]).reshape(n, 1, 1)
         gen = self.generative_ctrl(s, xs)  # (T, B, d), one batched call
-        running = (gen * (gen.detach() - 0.5 * gen)).sum(dim=-1, keepdim=True)
+        sde_ctrl = self.explore_sde_ctrl(gen.detach(), s, xs, *explore)
+        running = (gen * (sde_ctrl - 0.5 * gen)).sum(dim=-1, keepdim=True)
         cost = beta**2 * sigma**2 * running
         ito = (sigma * gen * dbs * beta).sum(dim=-1, keepdim=True)
         rnd_no_ito = (

@@ -64,10 +64,21 @@ FORM_LAUNCHES: dict[str, int] = {
 }
 
 
+# Phase-1 rollouts that took a route other than a kernel: "route.scan"
+# counts the calls of `ops/rollout.py::scan_rollout` (one per phase 1 of a
+# loss whose step no kernel instance runs), beside the launch counts.
+ROUTES: dict[str, int] = {"route.scan": 0}
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FORM_LAUNCHES):
+    for counts in (LAUNCHES, FORM_LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0
+
+
+def count_route(route: str) -> None:
+    """One phase-1 rollout through `route` ("scan")."""
+    ROUTES[f"route.{route}"] += 1
 
 
 def count_launch(name: str, form: str | None = None, target: str | None = None,

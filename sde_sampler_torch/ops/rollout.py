@@ -69,11 +69,21 @@ for a CPU tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`)
 then runs the whole loop. All return `xs` (T, B, d), the state before
 every step (xs[0] = x0), and `x_T`, the state after the last one. The
 rollouts are value-only: nothing here records a gradient.
+
+A loss's phase 1 picks its route from the configuration before anything
+runs (`phase1_route`): the kernel instance of `kernel_instance`, or the
+scan route (`scan_rollout`, the JAX package's `lax.scan` as a plain torch
+loop over the loss's own step) for a base net without a kernel body
+(FeedForward, DenseNet, MultilevelNet, a FourierMLP of another activation),
+for exploration of the sde control, or, on a CPU tensor, when
+`sim_backend=xla` asks for it. Every other refusal raises. The scan route
+is counted under "route.scan" (`build.count_route`), never as a launch.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -131,40 +141,43 @@ def _owner(method, classes):
     return None
 
 
-def resolve_step(ctrl, sde=None, update: str = "em"):
-    """(form, sde, prior, target kind, target) of the specialised step;
-    raises on any other.
+class NoInstance(NamedTuple):
+    """Why no kernel instance runs a control's step: `reason` names the
+    refusal ("base_net": a base net other than a GELU FourierMLP, the one
+    refusal that the scan route serves), `message` says it."""
+    reason: str
+    message: str
+
+
+def kernel_instance(ctrl, sde=None, update: str = "em"):
+    """(form, sde, prior, target kind, target) of the kernel instance that
+    runs `ctrl`'s step, or a NoInstance naming why none does.
 
     `sde` is the SDE the EM update integrates (a LerpCtrl's,
     LerpTargetCtrl's or CancelDriftCtrl's own, and by default a
     ClippedCtrl's or a PotentialCtrl's); the exponential integrator
-    (`update="exp"`) takes none.
+    (`update="exp"`) takes none. The base net is checked last, so that a
+    control refused for anything else is refused for that.
     """
     form = FORMS.get(type(ctrl))
     if form is None:
-        raise NotImplementedError(
+        return NoInstance("control", (
             "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, a "
-            f"LerpTargetCtrl, a PotentialCtrl or a CancelDriftCtrl, got {type(ctrl).__name__}"
-        )
+            f"LerpTargetCtrl, a PotentialCtrl or a CancelDriftCtrl, got {type(ctrl).__name__}"))
     if form != "score" and update != "em":
-        raise NotImplementedError("the exponential integrator needs a ScoreCtrl")
+        return NoInstance("update", "the exponential integrator needs a ScoreCtrl")
     base = ctrl.base_model
-    if not isinstance(base, FourierMLP) or base.activation != "gelu":
-        raise NotImplementedError("the rollout kernels need a GELU FourierMLP")
-    if form == "potential" and base.out_layer.out_features != 1:
-        raise NotImplementedError("the rollout kernel needs a potential net with one output")
     score_model = getattr(ctrl, "score_model", None)
     if score_model is not None:
-        if not isinstance(score_model, TimeEmbed) or score_model.dim_out not in (1, base.dim):
-            raise NotImplementedError(
+        if not isinstance(score_model, TimeEmbed) or score_model.dim_out not in (
+                1, getattr(base, "dim", None)):
+            return NoInstance("score_net", (
                 "the rollout kernels need a TimeEmbed score net with one output or one "
-                "per coordinate"
-            )
+                "per coordinate"))
         if score_model.dim_out > 1 and form not in SCORE_DIM_FORMS:
-            raise NotImplementedError(
+            return NoInstance("score_net", (
                 f"the rollout kernels take a score net of d outputs in the {SCORE_DIM_FORMS} "
-                f"forms only, not in the {form} form"
-            )
+                f"forms only, not in the {form} form"))
     kind, target = "none", None
     if form not in NET_FORMS:
         target = _owner(ctrl.target_score, TARGETS)
@@ -177,17 +190,82 @@ def resolve_step(ctrl, sde=None, update: str = "em"):
     prior = None
     if form in LERP_FORMS or form == "cancel_drift":
         if sde is not None and sde is not ctrl.sde:
-            raise NotImplementedError(f"a {type(ctrl).__name__} rolls out its own SDE")
+            return NoInstance("sde", f"a {type(ctrl).__name__} rolls out its own SDE")
         sde = ctrl.sde
     if form == "lerp":
         prior = _owner(ctrl.prior_score, (IsotropicGauss,))
         if prior is None:
-            raise NotImplementedError("the rollout kernel needs an IsotropicGauss prior")
+            return NoInstance("prior", "the rollout kernel needs an IsotropicGauss prior")
     elif form in NET_FORMS and sde is None:
         sde = ctrl.sde
     if update == "em" and (not isinstance(sde, OU) or type(sde).drift is not OU.drift):
-        raise NotImplementedError("the rollout kernel needs an OU-family SDE")
+        return NoInstance("sde", "the rollout kernel needs an OU-family SDE")
+    if not isinstance(base, FourierMLP) or base.activation != "gelu":
+        return NoInstance("base_net", "the rollout kernels need a GELU FourierMLP")
+    if form == "potential" and base.out_layer.out_features != 1:
+        return NoInstance("potential_net",
+                          "the rollout kernel needs a potential net with one output")
     return form, sde, prior, kind, target
+
+
+def phase1_route(ctrl, sde=None, update: str = "em", sim_backend: str = "auto",
+                 explore: bool = False, on_card: bool = False) -> tuple[str, str | None]:
+    """The route of a loss's phase 1, decided from the control, the loss's
+    configuration and the tensors' device before anything is launched:
+    ("kernel", None) for the kernel instance of `kernel_instance` (its plain
+    twin on a CPU tensor), or ("scan", reason) for `scan_rollout`.
+
+    - "auto": the kernel wherever an instance exists and the step draws no
+      exploration; the scan route for a base net without a kernel body
+      ("base_net") or for exploration noise or dropout ("explore");
+    - "xla": on a CPU tensor the scan route ("sim_backend=xla"); on the card
+      as "auto": an instance that exists is never set aside;
+    - "pallas": the kernel, raising where there is none or where the step
+      explores.
+
+    Every other refusal of `kernel_instance` raises NotImplementedError,
+    whatever the backend.
+    """
+    step = kernel_instance(ctrl, sde, update)
+    missing = step if isinstance(step, NoInstance) else None
+    if missing is not None and missing.reason != "base_net":
+        raise NotImplementedError(missing.message)
+    if sim_backend == "pallas":
+        if missing is not None:
+            raise NotImplementedError(f"sim_backend=pallas: {missing.message}")
+        if explore:
+            raise NotImplementedError(
+                "sim_backend=pallas: the rollout kernels draw no exploration noise or "
+                "dropout of the sde control")
+        return "kernel", None
+    if explore:
+        return "scan", "explore"
+    if missing is not None:
+        return "scan", missing.reason
+    if sim_backend == "xla" and not on_card:
+        return "scan", "sim_backend=xla"
+    return "kernel", None
+
+
+@torch.no_grad()
+def scan_rollout(step, x0: torch.Tensor, ts: torch.Tensor, noise: torch.Tensor):
+    """The scan route of phase 1, the counterpart of the JAX package's
+    `lax.scan` simulation: a value-only torch loop over the T = len(ts) - 1
+    steps, `x_{k+1} = step(k, x_k)`, for the steps that no kernel instance
+    covers (`phase1_route`). Records every pre-step state and returns
+    (xs (T, B, d), x_T), as `fused_rollout` does; counts one call under
+    "route.scan" (`build.count_route`)."""
+    T = noise.shape[0]
+    if ts.shape != (T + 1,) or noise.shape[1:] != x0.shape:
+        raise ValueError(f"shape mismatch: x0 {tuple(x0.shape)}, ts {tuple(ts.shape)}, "
+                         f"noise {tuple(noise.shape)}")
+    xs = torch.empty_like(noise)
+    x = x0.detach()
+    for k in range(T):
+        xs[k] = x
+        x = step(k, x)
+    build.count_route("scan")
+    return xs, x
 
 
 @torch.no_grad()
@@ -454,7 +532,10 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
 def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
     """Checked inputs, tables, weights and constants of one rollout."""
     update = "em" if exp is None else "exp"
-    form, sde, prior, kind, target = resolve_step(ctrl, sde, update)
+    step = kernel_instance(ctrl, sde, update)
+    if isinstance(step, NoInstance):
+        raise NotImplementedError(step.message)
+    form, sde, prior, kind, target = step
     T, B, d = dbs.shape
     if x0.shape != (B, d) or ts.shape != (T + 1,):
         raise ValueError(

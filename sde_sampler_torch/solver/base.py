@@ -16,11 +16,18 @@ TrainState pytree through one jitted step; here the state is the control
 - the setup hooks of the config's `setup` list (`utils/debug.py`),
   `params_file` warm starts (`utils/params.py`), the model watcher
   (`utils/watch.py`) and the loss and gradient variances of
-  `eval_stddev_steps` at every evaluation.
+  `eval_stddev_steps` at every evaluation;
+- the evaluation plots (`eval/plots.py` and the targets' `plots`), saved as
+  `{key}.png`, or `{key}_step_{n}.png` during training, under `out_dir`.
+  `plot_results=True` (the config's default) needs matplotlib: without it
+  the solver raises at set-up and names `plot_results=False`;
+- a `torch.profiler` window over the training steps `profile_start` to
+  `profile_start + profile_steps` (default 10), its trace written under
+  `out_dir/profile`.
 
 Randomness comes from explicit generators: `self.generator` on the device
 (prior samples, noise, reference samples) and a CPU generator for the
-parameter init, both seeded from `seed`. Plots and wandb are not ported.
+parameter init, both seeded from `seed`. wandb is not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 import yaml
 
 from sde_sampler_torch.distr.base import Distribution
+from sde_sampler_torch.eval import plots as plots_lib
 from sde_sampler_torch.eval.metrics import get_metrics
 from sde_sampler_torch.utils.common import CKPT_DIR, Results
 from sde_sampler_torch.utils.config import instantiate
@@ -298,9 +306,7 @@ class Solver:
 
         self.plot_results: bool = cfg.get("plot_results", True)
         if self.plot_results:
-            raise NotImplementedError(
-                "plots are not ported yet: run with plot_results=False"
-            )
+            plots_lib.require_backend()  # raises without matplotlib
         self.store_last_ckpt: bool = cfg.get("store_last_ckpt", False)
         self.eval_marginal_dims: list = cfg.get("eval_marginal_dims") or []
         self.ckpt_file = cfg.get("ckpt_file")
@@ -340,8 +346,33 @@ class Solver:
             metrics["eval/metrics_time"] = time.perf_counter() - start
         return metrics
 
+    def get_plots(self, results: Results) -> dict:
+        """The evaluation's plots: the results' own, and with samples the
+        marginals, densities and trajectories (`eval/plots.py`) and the
+        target's (`target.plots`)."""
+        plots = dict(results.plots)
+        if results.samples is not None and self.plot_results:
+            plots.update(
+                plots_lib.get_plots(
+                    distr=self.target,
+                    samples=results.samples,
+                    weights=results.weights,
+                    ts=results.ts,
+                    xs=results.xs,
+                    marginal_dims=self.eval_marginal_dims,
+                    generator=self.generator,
+                )
+            )
+            if hasattr(self.target, "plots"):
+                plots.update(self.target.plots(results.samples))
+        return plots
+
     def log(self, results: Results, step=None) -> dict:
+        plots = self.get_plots(results)  # before the metrics, as the JAX package
         metrics = self.get_metrics(results)
+        for key, fig in plots.items():
+            name = f"{key}.png" if step is None else f"{key}_step_{step}.png"
+            plots_lib.save_fig(fig, self.out_dir / name)
         if step is not None:
             metrics["train/step"] = step
         self.metrics_file.parent.mkdir(parents=True, exist_ok=True)
@@ -620,36 +651,76 @@ class Trainable(Solver):
         if self.n_steps == 0 and self.eval_init:
             self.evaluate()
         logging.info("Start training at step %d.", self.n_steps)
-        while self.n_steps < self.train_steps:
-            t_start = time.perf_counter()
-            metrics = self.step()
-            sync(self.device)
-            elapsed = time.perf_counter() - t_start
-            metrics["train/time_per_step"] = elapsed
-            self.time += elapsed
-            metrics.update({"train/time": self.time, "train/step": self.n_steps})
-            metrics.update(
-                {f"params/{k}": v for k, v in self.scheduler.get(self.n_steps).items()}
-            )
-            last_step = self.n_steps == self.train_steps
-            if self.model_watcher is not None and not self.model_watcher.should_log(self.n_steps):
-                metrics = {k: v for k, v in metrics.items() if not k.startswith("watch/")}
-            if self.n_steps % self.log_interval == 0 or last_step:
-                metrics = {
-                    k: float(v) if isinstance(v, torch.Tensor) else v
-                    for k, v in metrics.items()
-                }
-                metrics["train/n_filtered_cumulative"] = int(self.n_filtered)
-                logging.info("Train metrics:\n%s", yaml.dump(metrics))
-                with self.metrics_file.open(mode="a") as f:
-                    f.write(json.dumps(metrics) + "\n")
-            if not last_step:
-                if self.n_steps % self.eval_interval == 0:
-                    self.evaluate()
-                if self.n_steps % self.ckpt_interval == 0:
-                    self.store_checkpoint(suffix=f"{self.n_steps:06}")
+        # an optional torch.profiler window (cfg: profile_start, profile_steps)
+        profile_start = self.cfg.get("profile_start")
+        profile_steps = self.cfg.get("profile_steps", 10)
+        profiler = None
+        try:
+            while self.n_steps < self.train_steps:
+                if profile_start is not None:
+                    if self.n_steps == profile_start:
+                        profiler = self._start_profiler()
+                    elif profiler is not None and self.n_steps >= profile_start + profile_steps:
+                        self._stop_profiler(profiler, profile_start)
+                        profiler = profile_start = None
+                self._train_step()
+        finally:
+            if profiler is not None:  # training ended inside the window
+                self._stop_profiler(profiler, profile_start)
         logging.info("Finished training at step %d.", self.n_steps)
         return self.evaluate()
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        logging.info("Profiling from step %d.", self.n_steps)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, start: int) -> None:
+        """Close the window after the device has finished its work, and
+        write its Chrome trace under out_dir/profile."""
+        sync(self.device)
+        profiler.stop()
+        path = self.out_dir / "profile" / f"trace_steps_{start}_{self.n_steps}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(path))
+        logging.info("Profiler trace of steps %d-%d: %s", start, self.n_steps, path)
+
+    def _train_step(self):
+        """One optimizer step of the run loop: its timing, metrics, and the
+        evaluations and checkpoints that fall on it."""
+        t_start = time.perf_counter()
+        metrics = self.step()
+        sync(self.device)
+        elapsed = time.perf_counter() - t_start
+        metrics["train/time_per_step"] = elapsed
+        self.time += elapsed
+        metrics.update({"train/time": self.time, "train/step": self.n_steps})
+        metrics.update(
+            {f"params/{k}": v for k, v in self.scheduler.get(self.n_steps).items()}
+        )
+        last_step = self.n_steps == self.train_steps
+        if self.model_watcher is not None and not self.model_watcher.should_log(self.n_steps):
+            metrics = {k: v for k, v in metrics.items() if not k.startswith("watch/")}
+        if self.n_steps % self.log_interval == 0 or last_step:
+            metrics = {
+                k: float(v) if isinstance(v, torch.Tensor) else v
+                for k, v in metrics.items()
+            }
+            metrics["train/n_filtered_cumulative"] = int(self.n_filtered)
+            logging.info("Train metrics:\n%s", yaml.dump(metrics))
+            with self.metrics_file.open(mode="a") as f:
+                f.write(json.dumps(metrics) + "\n")
+        if not last_step:
+            if self.n_steps % self.eval_interval == 0:
+                self.evaluate()
+            if self.n_steps % self.ckpt_interval == 0:
+                self.store_checkpoint(suffix=f"{self.n_steps:06}")
 
     # -- checkpoint protocol --------------------------------------------------
     def state_dict(self) -> dict:

@@ -7,7 +7,11 @@ learned inference control (`solver=bridge_diff_init`, `bridge`; DIS), and
 its log-variance training over random subtrajectories (`solver=dis_subtraj`,
 `bridge_subtraj`). Evaluation computes both log Z estimators (with and
 without the Ito integral) from one rollout. DDS has no SDE (`sde` is None):
-its exponential integrator takes α and σ from the loss.
+its exponential integrator takes α and σ from the loss. With
+`plot_results`, an evaluation also rolls out `traj_batch_size` (default
+512) trajectories for the evolution plots and, for a solver with an
+inference SDE and a target with a sampler, plots that SDE's trajectories
+from target samples (`_inference_plots`).
 
 The subtrajectory window. The JAX package runs a subtrajectory on a
 power-of-two bucket of the time grid, clipped to [ts[idx_init],
@@ -28,7 +32,9 @@ import torch
 from sde_sampler_torch.distr.base import Distribution, sample_uniform
 from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.gauss import Gauss
+from sde_sampler_torch.eq.integrator import EulerIntegrator
 from sde_sampler_torch.eq.sdes import OU, ControlledSDE
+from sde_sampler_torch.eval.plots import get_plots
 from sde_sampler_torch.losses.oc import BaseOCLoss
 from sde_sampler_torch.solver.base import Trainable
 from sde_sampler_torch.utils.common import Results, clip_norm
@@ -46,6 +52,8 @@ class TrainableDiff(Trainable):
         self.eval_ts = instantiate(cfg["eval_timesteps"], device=self.device)()
         self.clip_target = cfg.get("clip_target")
         self.eval_batch_size: int = cfg["eval_batch_size"]
+        self.traj_batch_size: int = min(cfg.get("traj_batch_size", 512), self.eval_batch_size)
+        self.eval_integrator = EulerIntegrator()
 
     # -- models ---------------------------------------------------------------
     def setup_models(self):
@@ -83,7 +91,7 @@ class TrainableDiff(Trainable):
     def _call_loss(self, loss: BaseOCLoss, ts, x, dbs):
         raise NotImplementedError
 
-    def _call_loss_eval(self, loss: BaseOCLoss, ts, x):
+    def _call_loss_eval(self, loss: BaseOCLoss, ts, x, return_traj=False):
         raise NotImplementedError
 
     def compute_loss(self, clips, x0=None, dbs=None):
@@ -122,16 +130,45 @@ class TrainableDiff(Trainable):
             "eval/n_nonfinite_rnd": float(stats["n_nonfinite_rnd"]),
             "eval/n_filtered_rnd": float(stats["n_filtered_rnd"]),
         }
-        # The JAX package adds here the plots of the inference SDE's
-        # trajectories from target samples (`_inference_plots`, controlled
-        # by a Bridge's inference control); they wait for eval/plots.py, as
-        # every plot does (plot_results=True raises in Solver).
-        return Results(
+        xs = ts = None
+        if self.plot_results:  # the trajectories of the evolution plots
+            x0 = self.prior.sample((self.traj_batch_size,), generator=self.generator)
+            xs, ts = self._call_loss_eval(loss, self.eval_ts, x0, return_traj=True).xs, self.eval_ts
+        results = Results(
             samples=result.samples,
             weights=stats["weights"],
             log_norm_const_preds=log_norm_const_preds,
+            ts=ts,
+            xs=xs,
             metrics=metrics,
         )
+        if (self.plot_results and getattr(self, "inference_sde", None) is not None
+                and hasattr(self.target, "sample")):
+            results.plots.update(self._inference_plots())
+        return results
+
+    def _inference_plots(self) -> dict:
+        """The inference SDE's trajectories from `traj_batch_size` target
+        samples (controlled by the inference control where there is one),
+        plotted against the prior; keys suffixed `_inference`."""
+        x_target = self.target.sample((self.traj_batch_size,), generator=self.generator)
+        sde = self.inference_sde
+        if self.inference_ctrl is not None:
+            ctrl, clips = self.inference_ctrl, self.current_clips().get("inference_ctrl")
+            sde = ControlledSDE(sde=self.inference_base_sde,
+                                ctrl=lambda t, x: ctrl(t, x, clips=clips))
+        xs = self.eval_integrator.integrate(sde=sde, ts=self.eval_ts, x_init=x_target,
+                                            generator=self.generator, timesteps=self.eval_ts)
+        plots = get_plots(
+            distr=self.prior,
+            samples=xs[-1],
+            ts=self.eval_ts,
+            xs=xs,
+            marginal_dims=self.eval_marginal_dims,
+            domain=self.target.domain,
+            generator=self.generator,
+        )
+        return {f"{k}_inference": v for k, v in plots.items()}
 
 
 class Bridge(TrainableDiff):
@@ -142,6 +179,8 @@ class Bridge(TrainableDiff):
     def setup_models(self):
         super().setup_models()
         cfg = self.cfg
+        self.inference_base_sde: OU = instantiate(cfg["sde"], generative=False)
+        self.inference_sde = self.inference_base_sde
         if cfg.get("inference_ctrl"):
             self.inference_ctrl = instantiate(
                 cfg["inference_ctrl"],
@@ -151,6 +190,9 @@ class Bridge(TrainableDiff):
             ).to(self.device)
             self.modules["inference_ctrl"] = self.inference_ctrl
             self.register_scheduled_clips("inference_ctrl", self.inference_ctrl)
+            # bound to the live inference control at evaluation
+            # (_inference_plots)
+            self.inference_sde = ControlledSDE(sde=self.inference_base_sde, ctrl=None)
         elif not isinstance(self.prior, Gauss):
             raise ValueError("Can only be used with Gaussian prior.")
         self.loss: BaseOCLoss = instantiate(
@@ -170,11 +212,12 @@ class Bridge(TrainableDiff):
             generator=self.generator,
         )
 
-    def _call_loss_eval(self, loss, ts, x):
+    def _call_loss_eval(self, loss, ts, x, return_traj=False):
         return loss.eval(
             ts, x,
             self.clipped_target_unnorm_log_prob,
             initial_log_prob=self.prior.log_prob,
+            return_traj=return_traj,
             generator=self.generator,
         )
 
@@ -322,11 +365,12 @@ class PIS(TrainableDiff):
             generator=self.generator,
         )
 
-    def _call_loss_eval(self, loss, ts, x):
+    def _call_loss_eval(self, loss, ts, x, return_traj=False):
         return loss.eval(
             ts, x,
             self.clipped_target_unnorm_log_prob,
             self.reference_distr.log_prob,
+            return_traj=return_traj,
             generator=self.generator,
         )
 

@@ -18,6 +18,9 @@ package's `init_nice_params` layout, as `distr/nice.py` keeps it):
     timestep_embed.hidden_K.*          timestep_embed.hidden_layer.K.*
     hidden_K.{kernel,bias}             hidden_layer.K.{weight,bias}
     out.{kernel,bias}                  out_layer.{weight,bias}
+    norm_K.{scale,bias}                norm_layer.K.{weight,bias}
+    level_L.dense_K.{kernel,bias}      level_net.L.dense_layer.K.{weight,bias}
+    level_L.norm_K.{scale,bias}        level_net.L.norm_layer.K.{weight,bias}
 """
 from __future__ import annotations
 
@@ -27,21 +30,22 @@ import re
 import numpy as np
 import torch
 
-_HIDDEN = re.compile(r"^hidden_(\d+)$")
+# flax's indexed submodule names -> the port's module lists
+_INDEXED = re.compile(r"^(hidden|norm|dense|level)_(\d+)$")
+_LISTS = {"hidden": "hidden_layer", "norm": "norm_layer", "dense": "dense_layer",
+          "level": "level_net"}
+# flax leaf names -> torch's (a LayerNorm's scale is its weight)
+_LEAVES = {"out": "out_layer", "kernel": "weight", "scale": "weight"}
 
 
 def _rename(parts: list[str]) -> list[str]:
     out: list[str] = []
     for p in parts:
-        match = _HIDDEN.match(p)
+        match = _INDEXED.match(p)
         if match:
-            out += ["hidden_layer", match.group(1)]
-        elif p == "out":
-            out.append("out_layer")
-        elif p == "kernel":
-            out.append("weight")
+            out += [_LISTS[match.group(1)], match.group(2)]
         else:
-            out.append(p)
+            out.append(_LEAVES.get(p, p))
     return out
 
 

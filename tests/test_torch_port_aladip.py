@@ -261,8 +261,25 @@ def test_eval_set_sampler_and_backends(pair):
         AlaDip(**{**KW, "backend": "openmm"})
     with pytest.raises(ValueError, match="vacuum"):
         AlaDip(**{**KW, "env": "implicit"})
-    with pytest.raises(NotImplementedError, match="plots"):
-        p.plots(np.zeros((4, 60), np.float32))
+    # the plots: the Ramachandran histograms of the samples and of the
+    # validation set and the 60 marginals against it, as the JAX package's
+    # native-backend plots draw them
+    j, _ = pair
+    z = data[idx.numpy()]
+    got, want = p.plots(torch.from_numpy(z)), j._plots_jax(z)
+    assert set(got) == set(want) == {"plots/ramachandran_prediction",
+                                     "plots/ramachandran_groundtruth", "plots/marginals"}
+    for key in ("plots/ramachandran_prediction", "plots/ramachandran_groundtruth"):
+        g = np.ma.filled(got[key].axes[0].collections[0].get_array(), 0.0)
+        w = np.ma.filled(want[key].axes[0].collections[0].get_array(), 0.0)
+        # float32 dihedrals: a point on a bin edge may fall either side
+        assert g.shape == w.shape and np.abs(g - w).sum() <= 2 and g.sum() == w.sum()
+    for ax_g, ax_w in zip(got["plots/marginals"].axes, want["plots/marginals"].axes):
+        np.testing.assert_allclose([b.get_height() for b in ax_g.patches],
+                                   [b.get_height() for b in ax_w.patches], rtol=1e-5)
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
 
 
 # the first 16 steps of the config's 200-step grid (dt = 0.005): coarser

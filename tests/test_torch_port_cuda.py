@@ -16,6 +16,8 @@ Tolerances (float32 on the card, sums in another order):
   step after the target's own score: Cox) the same at d = 196 in the
   generic and the wide body, which give the same bits, and at d = 1600 in
   the wide body;
+- the scan route of phase 1 (no kernel: a DenseNet base net): 1e-4
+  against the CPU over 12 steps;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
   (1e-4 at the evaluation's eps = 1e-3, and for a plan of one normal
   entry), exactly 0 when every dual is -inf or every plan entry lies below
@@ -862,3 +864,78 @@ def test_score_dim_instances_match_plain_twin(cuda, name):
     got = ro._launch(([*tensors[:2], equal, *tensors[3:]], consts, form_, update), body)
     want = ro._launch(([*tensors[:2], one, *tensors[3:]], consts, form_, update), body)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _lerp_on(device, base=None):
+    """lerp_ctrl's control with its prior and target on `device` (the scan
+    route calls the control itself, scores and all), on `base` if given."""
+    prior = IsotropicGauss(dim=10).to(device)
+    target = Funnel(dim=10, n_reference_samples=100).to(device)
+    ctrl = lerp_ctrl()
+    if base is not None:
+        ctrl.base_model = base
+    ctrl.prior_score, ctrl.target_score = prior.score, target.score
+    return ctrl.to(device)
+
+
+def _scan_loss(ctrl, sim_backend="auto"):
+    from sde_sampler_torch.losses.oc import TimeReversalLoss
+
+    clips = {"clip_model": 10.0, "clip_score": 10.0}
+    return TimeReversalLoss(generative_ctrl=None, sde=ctrl.sde, method="lv",
+                            sim_backend=sim_backend).with_ctrls(
+        generative_ctrl=lambda t, x: ctrl(t, x, clips=clips), ctrl_module=ctrl,
+        ctrl_clips=clips)
+
+
+def _phase1_inputs(device, batch=32, T=12, d=10, seed=8):
+    rng = np.random.default_rng(seed)
+    ts = torch.linspace(0.0, 1.0, T + 1, device=device)
+    x0 = torch.tensor(rng.normal(size=(batch, d)), dtype=torch.float32, device=device)
+    dbs = torch.tensor(rng.normal(size=(T, batch, d)), dtype=torch.float32, device=device)
+    return ts, x0, dbs * torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
+
+
+def test_scan_route_on_the_card_matches_the_cpu(cuda):
+    """A DenseNet base net has no kernel body: phase 1 takes the scan route
+    on the card, counted once and launching no rollout kernel, and gives the
+    CPU's (xs, x_T) to 1e-4 (cuBLAS and the CPU sum the 200-wide layers in
+    another order over 12 steps)."""
+    from sde_sampler_torch.models.mlp import DenseNet
+    from sde_sampler_torch.ops import build
+
+    base = DenseNet(dim=10)
+    base.reset_parameters(torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        base.out_layer.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(3))
+    ts, x0, dbs = _phase1_inputs("cpu")
+    want = _scan_loss(_lerp_on("cpu", base))._phase1(ts, x0, dbs, (None, None))
+    ctrl = _lerp_on(cuda, base)
+    build.reset_launches()
+    got = _scan_loss(ctrl)._phase1(ts.to(cuda), x0.to(cuda), dbs.to(cuda), (None, None))
+    torch.cuda.synchronize()
+    assert build.ROUTES["route.scan"] == 1 and build.LAUNCHES["rollout"] == 0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+def test_sim_backend_xla_on_the_card_keeps_the_kernel(cuda):
+    """sim_backend=xla no longer raises on the card: where a kernel instance
+    exists it launches kernel 1, bit for bit `auto`'s rollout, and takes no
+    scan route; on a DenseNet base net (no instance) it takes the scan
+    route, once."""
+    from sde_sampler_torch.models.mlp import DenseNet
+    from sde_sampler_torch.ops import build
+
+    ctrl = _lerp_on(cuda)
+    ts, x0, dbs = _phase1_inputs(cuda)
+    build.reset_launches()
+    xla = _scan_loss(ctrl, "xla")._phase1(ts, x0, dbs, (None, None))
+    auto = _scan_loss(ctrl, "auto")._phase1(ts, x0, dbs, (None, None))
+    torch.cuda.synchronize()
+    assert build.ROUTES["route.scan"] == 0 and build.FORM_LAUNCHES["rollout.lerp.funnel"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(xla, auto))
+    dense = _lerp_on(cuda, DenseNet(dim=10))
+    _scan_loss(dense, "xla")._phase1(ts, x0, dbs, (None, None))
+    torch.cuda.synchronize()
+    assert build.ROUTES["route.scan"] == 1 and build.LAUNCHES["rollout"] == 2

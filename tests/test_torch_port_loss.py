@@ -162,8 +162,11 @@ def test_masked_reductions_and_noise_buffer_guard():
     huge = torch.empty(1).expand(2**22, 1000)
     with pytest.raises(ValueError, match="PREGEN_MAX_BYTES"):
         BaseOCLoss.draw_noise(ts, huge)
-    with pytest.raises(NotImplementedError):
-        TimeReversalLoss(generative_ctrl=None, method="lv", sde_ctrl_noise=0.1)
+    # exploration of the sde control is accepted; its dropout needs the
+    # loss's SDE for the neutral control -drift/diff
+    assert TimeReversalLoss(generative_ctrl=None, method="lv", sde_ctrl_noise=0.1).explores
+    with pytest.raises(ValueError, match="sde_ctrl_dropout"):
+        TimeReversalLoss(generative_ctrl=None, method="lv", sde_ctrl_dropout=0.5)
     # an inference control (the Bridge) is accepted, an unknown divergence
     # estimator is not
     inference = lambda t, x: x

@@ -247,3 +247,20 @@ def test_sinkhorn_on_mixture_samples_matches_float64():
     exact = float(transport_cost_plain(xd, yd, u, v, eps))
     assert got == pytest.approx(exact, rel=1e-4)
     assert want_jax == pytest.approx(exact, rel=1e-4)
+
+
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_sinkhorn_with_other_p_matches_jax(p):
+    """p != 2 runs the JAX package's XLA cost (`_cost_tile`) in plain torch:
+    the L1 distance at p = 1, (sum of p-th powers)^(1/p) otherwise. Without
+    an absolute value there, an odd p > 1 gives NaN on both sides (p = 3);
+    p = 4 is finite. Values to 1e-4 relative: float32 iterations whose
+    logsumexps are summed in another order."""
+    x, y = clouds(3, n=160, m=160, seed=p)[:2]
+    kw = dict(p=p, eps=EPS, max_iters=30)
+    want = float(JSinkhorn(backend="xla", **kw)(jnp.asarray(x), jnp.asarray(y)))
+    got = float(Sinkhorn(**kw)(torch.from_numpy(x), torch.from_numpy(y)))
+    if p == 3:
+        assert math.isnan(want) and math.isnan(got)
+    else:
+        assert math.isfinite(got) and got == pytest.approx(want, rel=1e-4)

@@ -211,7 +211,7 @@ def test_potential_plain_rollout_matches_jax_kernel_and_scan(d, clipped):
 
 def test_potential_form_resolves_and_raises_on_other_nets():
     _, ctrl, _ = potential_pair(2)
-    form, sde, prior, kind, target = ro.resolve_step(ctrl)
+    form, sde, prior, kind, target = ro.kernel_instance(ctrl)
     assert (form, kind, prior, target) == ("potential", "none", None, None)
     assert sde is ctrl.sde and ro.FORM_CODES[form] == 5
     x0, ts, dbs = torch.zeros(4, 2), torch.linspace(0, 1, 3), torch.zeros(2, 4, 2)
