@@ -100,6 +100,28 @@ prints nvcc's register and spill report. Phases:
            then the plots: with matplotlib on the card, a gmm_dis
            evaluation with plot_results=True must write its PNGs; without
            it, plot_results=True must raise at set-up, naming matplotlib;
+           then the entry points' phases (ENTRY_PHASES), on funnel DIS at
+           full width, 20 steps and a 10k evaluation per job, each timed:
+             multirun_seq   `main -m ... seed=1,2` through the in-process
+                        launcher: each job launches kernel 1 20 times and
+                        the Sinkhorn's kernels, and a finished job leaves no
+                        card memory behind (the second job leaves what the
+                        first did and peaks where it did);
+             multirun_pool  the same two jobs as two child processes on the
+                        card (`launcher=joblib launcher.n_jobs=2`), which
+                        must overlap; each child's launches are read from
+                        the line its solver writes to its main.log;
+             wandb_resume   with tests/fake_wandb.py as the backend, a
+                        20-step job uploading its checkpoints every 5 steps
+                        is preempted after step 10, its out_dir wiped and
+                        requeued: it resumes at step 11 from the artifact,
+                        its optimizer state on the card, and ends with an
+                        uninterrupted run's parameters (WANDB_RESUME_RTOL;
+                        it reports whether they are bit-equal);
+             train_nice `python -m sde_sampler_torch.train_nice` on 4000
+                        synthetic images for 200 iterations: the loss falls,
+                        and its checkpoint loads in the port's Nice with a
+                        finite log-density on 1000 draws;
   timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
            steps, the rings DIS, Rosenbrock DIS and langevin_init EulerDDS
            steps, the image, Cox, NICE and alanine-dipeptide DIS steps (the
@@ -1014,13 +1036,7 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         # unless d > 16
         fail(f"the {path} path took the rollout kernels' generic body {generic}, "
              f"expected: {spec.get('generic', False)}")
-    counts = [(name, build.LAUNCHES[name]) for name in KERNELS]
-    counts += [(label, build.FORM_LAUNCHES[inst.get("key", label)])
-               for label, inst in INSTANCES.items() if path in inst.get("paths", (path,))]
-    for name, count in counts:
-        if count:
-            report[name].setdefault("launches_by_path", {})[path] = count
-            report[name]["launches"] = report[name].get("launches", 0) + count
+    add_launches(report, path, launches)
     subtraj = None
     if spec.get("subtraj"):
         # every optimizer step launches kernel 1 once: on the whole grid or on
@@ -1068,6 +1084,18 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
     return solver_obj
 
 
+def add_launches(report, path: str, launches: dict) -> None:
+    """Add a path's launch counts (`ops/build.py`'s keys) to the kernels'
+    and instances' `launches` and `launches_by_path`."""
+    counts = [(name, launches.get(name, 0)) for name in KERNELS]
+    counts += [(label, launches.get(inst.get("key", label), 0))
+               for label, inst in INSTANCES.items() if path in inst.get("paths", (path,))]
+    for name, count in counts:
+        if count:
+            report[name].setdefault("launches_by_path", {})[path] = count
+            report[name]["launches"] = report[name].get("launches", 0) + count
+
+
 def langevin_result(path, solver_obj, seconds, n_chains, launches, report):
     """The Langevin paths' check: finite burn-in expectations and, with a
     sampler, a finite Sinkhorn; their sampling time, and the adaptive
@@ -1099,6 +1127,9 @@ def langevin_result(path, solver_obj, seconds, n_chains, launches, report):
 def phase_main(args, report):
     """Every path through the entry point, with launch counts, then the
     plots check."""
+    from sde_sampler_torch.utils import wandb as wandb_shim
+
+    wandb_shim.use_backend(None)  # the paths talk to no wandb server, installed or not
     if args.eval_batch != EVAL_BATCH:
         print(f"eval_batch_size cut to {args.eval_batch} (from {EVAL_BATCH})", flush=True)
     solvers = {}
@@ -1110,6 +1141,14 @@ def phase_main(args, report):
             report)
     if not args.paths or "plots" in args.paths.split(","):
         report["plots"] = check_plots()
+    for name, check in ENTRY_PHASES.items():
+        if args.paths and name not in args.paths.split(","):
+            continue
+        start = time.perf_counter()
+        report.setdefault("entry", {})[name] = check(report)
+        seconds = time.perf_counter() - start
+        report["entry"][name]["seconds"] = seconds
+        print(f"phase {name}: {seconds:.1f} s", flush=True)
     return solvers
 
 
@@ -1146,6 +1185,265 @@ def check_plots() -> dict:
         fail(f"plots: the gmm_dis evaluation wrote {pngs}")
     print(f"plots: matplotlib present; the gmm_dis evaluation wrote {len(pngs)} PNGs", flush=True)
     return {"matplotlib": True, "pngs": pngs}
+
+
+# The entry points' phases (after the paths): the main path's funnel DIS at
+# full width, 20 steps and a 10k evaluation per job
+ENTRY_STEPS = 20
+ENTRY_OVERRIDES = ["target=funnel", "solver=dis", "loss.method=lv", f"train_steps={ENTRY_STEPS}",
+                   f"eval_batch_size={SHORT_EVAL}", "eval_init=False", "plot_results=False",
+                   "store_last_ckpt=False"]
+NO_WANDB = "wandb.mode=disabled"  # the multirun jobs open no wandb run
+ENTRY_KEYS = FINITE_LOG_Z_KEYS + ["eval/effective_sample_size", "error/sinkhorn"]
+LAUNCH_LINE = "Kernel launches of this run: "
+
+
+def launch_counts() -> dict[str, int]:
+    from sde_sampler_torch.ops import build
+
+    return {**build.LAUNCHES, **build.FORM_LAUNCHES, **build.ROUTES}
+
+
+def check_job_launches(name: str, launches: dict, steps: int = ENTRY_STEPS) -> None:
+    """A funnel DIS job: kernel 1 once per optimizer step, the Sinkhorn's
+    kernels, no scan route."""
+    if launches.get("rollout.lerp.funnel") != steps:
+        fail(f"{name}: {launches.get('rollout.lerp.funnel')} rollout.lerp.funnel launches for "
+             f"{steps} optimizer steps")
+    if not launches.get("softmin") or not launches.get("transport"):
+        fail(f"{name}: no Sinkhorn kernel launched: {launches}")
+    if launches.get("route.scan"):
+        fail(f"{name}: phase 1 took the scan route: {launches}")
+
+
+def check_entry_metrics(name: str, metrics: dict) -> dict:
+    summary = {k: metrics[k] for k in ENTRY_KEYS}
+    if not all(math.isfinite(v) for v in summary.values()):
+        fail(f"{name}: non-finite log Z, ESS or Sinkhorn: {summary}")
+    return summary
+
+
+def check_multirun_seq(report) -> dict:
+    """Two funnel DIS jobs (seed=1,2) through `main -m` and the in-process
+    launcher: each job's launches, and the card memory that a finished job
+    leaves behind (none: the next job's peak is the first's)."""
+    import shutil
+
+    import torch
+
+    from sde_sampler_torch import main as entry
+
+    root = OUT_DIR / "chip_smoke_multirun_seq"
+    shutil.rmtree(root, ignore_errors=True)
+    jobs, run_job = [], entry.run_job
+
+    def measured_job(overrides):
+        before = launch_counts()
+        metrics = run_job(overrides)
+        torch.cuda.synchronize()
+        jobs.append({
+            "launches": {k: v - before[k] for k, v in launch_counts().items() if v != before[k]},
+            "peak_so_far_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "allocated_after_gib": torch.cuda.memory_allocated() / 2**30})
+        return metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    entry.run_job = measured_job
+    try:
+        results = entry.main(["-m", *ENTRY_OVERRIDES, "seed=1,2", NO_WANDB, f"out_dir={root}"])
+    finally:
+        entry.run_job = run_job
+    total = {}
+    for i, (job, metrics) in enumerate(zip(jobs, results)):
+        check_job_launches(f"multirun_seq job {i}", job["launches"])
+        job["result"] = check_entry_metrics(f"multirun_seq job {i}", metrics)
+        for k, v in job["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if len(jobs) != 2 or total.get("rollout.lerp.funnel") != 2 * ENTRY_STEPS:
+        fail(f"multirun_seq: {len(jobs)} jobs, launches {total}")
+    add_launches(report, "multirun_seq", total)
+    print(f"multirun_seq: launches {json.dumps(total)}; card memory before "
+          f"{base_gib:.3f} GiB; per job {json.dumps(jobs)}", flush=True)
+    # the first job on a card may leave what the process keeps for good (the
+    # cuBLAS workspaces); a later job adds nothing to it
+    if jobs[1]["allocated_after_gib"] - jobs[0]["allocated_after_gib"] > 1 / 64:
+        fail(f"multirun_seq: the second job left {jobs[1]['allocated_after_gib']:.3f} GiB "
+             f"allocated on the card, the first {jobs[0]['allocated_after_gib']:.3f}")
+    if jobs[1]["peak_so_far_gib"] > 1.05 * jobs[0]["peak_so_far_gib"]:
+        fail(f"multirun_seq: the second job peaked at {jobs[1]['peak_so_far_gib']:.3f} GiB "
+             f"against the first's {jobs[0]['peak_so_far_gib']:.3f}")
+    return {"base_gib": base_gib, "jobs": jobs, "launches": total}
+
+
+def check_multirun_pool(report) -> dict:
+    """The same two jobs through `launcher=joblib launcher.n_jobs=2`: two
+    child processes on the card, which must overlap in time; each child's
+    launches come from its own main.log."""
+    import shutil
+    from datetime import datetime
+
+    from sde_sampler_torch import main as entry
+
+    root = OUT_DIR / "chip_smoke_multirun_pool"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        codes = entry.main(["-m", *ENTRY_OVERRIDES, "seed=1,2", "launcher=joblib",
+                            "launcher.n_jobs=2", NO_WANDB, f"out_dir={root}"])
+    except SystemExit as err:
+        fail(f"multirun_pool: {err}")
+    jobs, total = [], {}
+    for i in range(2):
+        log = (root / f"job{i}" / "main.log").read_text()
+        lines = [line for line in log.splitlines() if LAUNCH_LINE in line]
+        if not lines:
+            fail(f"multirun_pool: job {i}'s main.log has no launch line")
+        launches = json.loads(lines[-1].split(LAUNCH_LINE, 1)[1])
+        check_job_launches(f"multirun_pool job {i}", launches)
+        stamps = [datetime.strptime(line[1:24], "%Y-%m-%d %H:%M:%S,%f")
+                  for line in log.splitlines() if line.startswith("[20")]
+        metrics = json.loads((root / f"job{i}" / "metrics.jsonl").read_text().splitlines()[-1])
+        jobs.append({"rc": codes[i], "launches": launches,
+                     "result": check_entry_metrics(f"multirun_pool job {i}", metrics),
+                     "start": stamps[0].isoformat(), "end": stamps[-1].isoformat(),
+                     "seconds": (stamps[-1] - stamps[0]).total_seconds()})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    if not (jobs[1]["start"] < jobs[0]["end"] and jobs[0]["start"] < jobs[1]["end"]):
+        fail(f"multirun_pool: the jobs did not overlap: {jobs}")
+    add_launches(report, "multirun_pool", total)
+    print(f"multirun_pool: exit codes {codes}; jobs {json.dumps(jobs)}", flush=True)
+    return {"jobs": jobs, "launches": total}
+
+
+class Preempted(Exception):
+    """The node loss that check_wandb_resume injects."""
+
+
+def check_wandb_resume(report) -> dict:
+    """tests/fake_wandb.py as the backend: a 20-step funnel DIS job with
+    its checkpoints every 5 steps uploaded is preempted after step 10, its
+    out_dir wiped, and the requeued job resumes from the artifact on the card
+    and ends with the parameters of the same job run without interruption."""
+    import shutil
+
+    import torch
+
+    from sde_sampler_torch import main as entry
+    from sde_sampler_torch.solver.base import Trainable
+    from sde_sampler_torch.utils import wandb as wandb_shim
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import fake_wandb
+
+    root = OUT_DIR / "chip_smoke_wandb_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    overrides = [*ENTRY_OVERRIDES, "seed=1", "ckpt_interval=5", "log_interval=1",
+                 "upload_ckpt_to_wandb=True"]
+    kill_at, train_step = ENTRY_STEPS // 2, Trainable._train_step
+
+    def preempted_step(self):
+        if self.n_steps == kill_at:
+            raise Preempted(f"node lost after step {kill_at}")
+        train_step(self)
+
+    fake_wandb.reset()
+    wandb_shim.use_backend(fake_wandb)
+    before = launch_counts()
+    try:
+        whole = entry.main([*overrides, f"out_dir={root / 'whole'}"])
+        Trainable._train_step = preempted_step
+        try:
+            entry.main([*overrides, f"out_dir={root / 'job'}"])
+            fail(f"wandb_resume: the job was not preempted after step {kill_at}")
+        except Preempted:
+            pass
+        finally:
+            Trainable._train_step = train_step
+        shutil.rmtree(root / "job")
+        resumed_from = launch_counts()
+        resumed = entry.main([*overrides, f"out_dir={root / 'job'}"])
+    finally:
+        wandb_shim.use_backend(None)
+    after = launch_counts()
+    resumed_launches = after["rollout.lerp.funnel"] - resumed_from["rollout.lerp.funnel"]
+    add_launches(report, "wandb_resume", {k: v - before[k] for k, v in after.items()})
+    log = (root / "job" / "main.log").read_text()
+    steps = [json.loads(line).get("train/step")
+             for line in (root / "job" / "metrics.jsonl").read_text().splitlines()]
+    steps = [s for s in steps if s is not None]
+    state = next(iter(resumed.optimizer.state.values()))
+    if ("restored from wandb" not in log or min(steps) != kill_at + 1
+            or resumed_launches != ENTRY_STEPS - kill_at):
+        fail(f"wandb_resume: the requeued job did not resume after step {kill_at}: steps "
+             f"{min(steps)}-{max(steps)}, {resumed_launches} rollout launches")
+    if state["exp_avg"].device.type != "cuda" or resumed.n_steps != ENTRY_STEPS:
+        fail("wandb_resume: the resumed optimizer state is not on the card")
+    want = whole.modules.state_dict()
+    diffs = {k: float((v - want[k]).abs().max()) for k, v in resumed.modules.state_dict().items()}
+    scale = max(float(v.abs().max()) for v in want.values())
+    bit_equal = all(torch.equal(v, want[k]) for k, v in resumed.modules.state_dict().items())
+    max_diff = max(diffs.values())
+    result = {"resumed_steps": [min(steps), max(steps)], "resumed_rollout_launches":
+              resumed_launches, "bit_equal": bit_equal, "max_abs_diff": max_diff,
+              "max_abs_param": scale, "result": check_entry_metrics("wandb_resume",
+                                                                   resumed.last_metrics)}
+    print(f"wandb_resume: {json.dumps(result)}", flush=True)
+    # the resumed steps recompute the same float32 operations on the card
+    if max_diff > WANDB_RESUME_RTOL * scale:
+        fail(f"wandb_resume: final parameters {max_diff} from the uninterrupted run's")
+    return result
+
+
+# how far the resumed run's parameters may lie from the uninterrupted run's,
+# relative to the largest parameter: the same operations on the same card
+# give the same bits unless a reduction's order varies between runs
+WANDB_RESUME_RTOL = 1e-5
+
+
+def check_train_nice(report) -> dict:
+    """`python -m sde_sampler_torch.train_nice` on synthetic data, 200
+    iterations on the card: the loss falls, and the checkpoint loads in the
+    port's Nice with a finite log-density on 1000 of its draws."""
+    import re
+    import shutil
+
+    import torch
+
+    from sde_sampler_torch.distr.nice import Nice
+
+    out_dir = OUT_DIR / "chip_smoke_train_nice"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    out = out_dir / "nice_smoke.npz"
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sde_sampler_torch.train_nice", "--synthetic", "4000",
+         "--max_iter", "200", "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        fail(f"train_nice exited {proc.returncode}: {proc.stderr[-2000:]}")
+    match = re.search(r"mean loss: iterations 1-(\d+) (\S+), (\d+)-(\d+) (\S+)", proc.stdout)
+    if match is None:
+        fail(f"train_nice printed no loss summary: {proc.stdout[-2000:]}")
+    first, last = float(match.group(2)), float(match.group(5))
+    target = Nice(checkpoint=out, n_reference_samples=10).to(torch.device("cuda"))
+    draws = target.sample((1000,), generator=torch.Generator("cuda").manual_seed(SEED))
+    log_prob = target.unnorm_log_prob(draws)
+    result = {"process_seconds": seconds, "loss_first_tenth": first, "loss_last_tenth": last,
+              "log_prob_mean": float(log_prob.mean()), "finite": bool(torch.isfinite(log_prob).all())}
+    print(f"train_nice: {json.dumps(result)}", flush=True)
+    if not last < first:
+        fail(f"train_nice: the loss did not fall ({first} -> {last})")
+    if not result["finite"]:
+        fail("train_nice: non-finite log-density of the trained flow's draws")
+    return result
+
+
+ENTRY_PHASES = {"multirun_seq": check_multirun_seq, "multirun_pool": check_multirun_pool,
+                "wandb_resume": check_wandb_resume, "train_nice": check_train_nice}
 
 
 def kernel_ms(fn, n: int = 5) -> dict[str, float]:
@@ -1535,8 +1833,8 @@ def main():
     parser.add_argument("--train-steps", type=int, default=220)
     parser.add_argument("--eval-batch", type=int, default=EVAL_BATCH)
     parser.add_argument("--paths", default="",
-                        help="comma-separated paths of the main phase (default: all; a "
-                             "subset gives no result line)")
+                        help="comma-separated paths of the main phase, or its entry-point "
+                             "phases (default: all; a subset gives no result line)")
     args = parser.parse_args()
     phases = args.phases.split(",")
 

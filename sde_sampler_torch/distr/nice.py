@@ -12,7 +12,9 @@ are 128 wide, and `nice_smooth.npz`, 500 wide; the width is read from each
 file's meta; the port reads its copies in `sde_sampler_torch/data/`), or from a JAX parameter tree carried across
 (`utils/params.py::nice_params_from_tree`). Without either the JAX package
 falls back to a seeded random flow drawn from its own PRNG, which the port
-cannot draw: the port raises there instead.
+cannot draw: the port raises there instead. `init_nice_params`,
+`nice_sample` and `save_nice_checkpoint` serve the flow's training
+(`sde_sampler_torch/train_nice.py`), whose checkpoints both packages read.
 
 The score is the base class's autograd through the flow, over any leading
 batch shape, in chunks of rows so that the saved activations of a whole
@@ -55,6 +57,32 @@ class StandardLogistic:
 # ---------------------------------------------------------------------------
 
 
+def _linear_init(fan_in: int, fan_out: int, generator: torch.Generator) -> dict:
+    bound = 1.0 / math.sqrt(fan_in)
+    w = torch.empty(fan_in, fan_out).uniform_(-bound, bound, generator=generator)
+    b = torch.empty(fan_out).uniform_(-bound, bound, generator=generator)
+    return {"w": w, "b": b}
+
+
+def init_nice_params(
+    generator: torch.Generator,
+    in_out_dim: int = 196,
+    mid_dim: int = 500,
+    hidden: int = 5,
+    coupling: int = 4,
+) -> dict:
+    """A flow's parameters as the JAX package's `init_nice_params` draws
+    them (from torch's generator, on the CPU): each coupling's MLP has
+    `hidden` layers of `mid_dim` and an output layer, every weight and bias
+    uniform in ±1/sqrt(fan_in); the log-scaling starts at 0."""
+    half = in_out_dim // 2
+    dims = [(half, mid_dim)] + [(mid_dim, mid_dim)] * (hidden - 1) + [(mid_dim, half)]
+    return {
+        "couplings": [[_linear_init(i, o, generator) for i, o in dims] for _ in range(coupling)],
+        "scale": torch.zeros(1, in_out_dim),
+    }
+
+
 def _coupling_shift(mlp, off: torch.Tensor) -> torch.Tensor:
     h = off
     for layer in mlp[:-1]:
@@ -93,6 +121,28 @@ def nice_g(params: dict, z: torch.Tensor, mask_config: int = 1) -> torch.Tensor:
 def nice_log_prob(params: dict, x: torch.Tensor, mask_config: int = 1) -> torch.Tensor:
     z, log_det = nice_f(params, x, mask_config)
     return StandardLogistic.log_prob(z).sum(dim=1) + log_det
+
+
+def nice_sample(params: dict, size: int, in_out_dim: int, mask_config: int = 1,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    z = StandardLogistic.sample((size, in_out_dim), generator, params["scale"].device)
+    return nice_g(params, z, mask_config)
+
+
+def tree_leaves(params: dict) -> list[torch.Tensor]:
+    """A flow's tensors in jax.tree_util's flatten order (dict keys sorted:
+    each layer's `b` before its `w`, the couplings before the scale);
+    `tree_from_leaves` inverts it."""
+    return [t for mlp in params["couplings"] for layer in mlp
+            for t in (layer["b"], layer["w"])] + [params["scale"]]
+
+
+def save_nice_checkpoint(path, params: dict, meta: dict) -> None:
+    """Write a flow as the JAX package's `save_nice_checkpoint` does: its
+    leaves as `arr_<i>` and each meta entry as `meta_<key>` of one .npz,
+    which both packages' `load_nice_checkpoint` read."""
+    leaves = [t.detach().cpu().numpy() for t in tree_leaves(params)]
+    np.savez_compressed(path, *leaves, **{f"meta_{k}": v for k, v in meta.items()})
 
 
 def checkpoint_leaves(data) -> list[np.ndarray]:

@@ -4,8 +4,11 @@ Every `csrc/*.cu` is compiled by `nvcc` for `sm_90a` (one `nvcc` per source,
 all started together), linked into one shared library with a plain C
 interface, and loaded with `ctypes`. The library is built at first use into
 `sde_sampler_torch/_build/` (listed in .gitignore) under a name that hashes
-the sources and flags, so an edited source is always rebuilt. Nothing is
-compiled or imported when this module is imported: the CPU tests import it.
+the sources and flags, so an edited source is always rebuilt. The build
+holds an exclusive lock on `_build/.lock`, so that processes that start
+cold together (the jobs of a multirun) build once: the others wait and load
+the library it wrote. Nothing is compiled or imported when this module is
+imported: the CPU tests import it.
 
 Each C launch entry point launches on the caller's stream, allocates
 nothing and returns `cudaGetLastError()`; `check` raises on a non-zero
@@ -16,6 +19,7 @@ reports the body it took (`rollout*_launch`), and `softmin_scratch` and
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -189,10 +193,15 @@ def library_path() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The kernel library, built from `csrc/` on first use."""
+    """The kernel library, built from `csrc/` on first use (by one process
+    at a time: a process that waited for the lock finds the library built)."""
     lib_path = library_path()
     if not lib_path.exists():
-        _build(lib_path, _sources())
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not lib_path.exists():
+                _build(lib_path, _sources())
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

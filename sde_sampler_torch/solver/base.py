@@ -23,11 +23,19 @@ TrainState pytree through one jitted step; here the state is the control
   the solver raises at set-up and names `plot_results=False`;
 - a `torch.profiler` window over the training steps `profile_start` to
   `profile_start + profile_steps` (default 10), its trace written under
-  `out_dir/profile`.
+  `out_dir/profile`;
+- wandb (`utils/wandb.py`, a no-op without an active run): every
+  `metrics.jsonl` line is logged there too, each stored checkpoint is
+  uploaded as an artifact when `upload_ckpt_to_wandb` is True or "last"
+  (then older versions are deleted after the final log), and without a
+  `ckpt_file` the run's latest artifact is restored into `out_dir` before
+  the local checkpoints are searched when `restore_ckpt_from_wandb`;
+- at the end of a run, one log line with the kernel launches and scan-route
+  phase 1s of the run (`ops/build.py`'s counts since the solver was built).
 
 Randomness comes from explicit generators: `self.generator` on the device
 (prior samples, noise, reference samples) and a CPU generator for the
-parameter init, both seeded from `seed`. wandb is not ported.
+parameter init, both seeded from `seed`.
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ import yaml
 from sde_sampler_torch.distr.base import Distribution
 from sde_sampler_torch.eval import plots as plots_lib
 from sde_sampler_torch.eval.metrics import get_metrics
+from sde_sampler_torch.ops import build
+from sde_sampler_torch.utils import wandb as wandb_shim
 from sde_sampler_torch.utils.common import CKPT_DIR, Results
 from sde_sampler_torch.utils.config import instantiate
 from sde_sampler_torch.utils.device import resolve_device, sync
@@ -308,6 +318,13 @@ class Solver:
         if self.plot_results:
             plots_lib.require_backend()  # raises without matplotlib
         self.store_last_ckpt: bool = cfg.get("store_last_ckpt", False)
+        self.restore_ckpt_from_wandb = cfg.get("restore_ckpt_from_wandb")
+        self.upload_ckpt_to_wandb = cfg.get("upload_ckpt_to_wandb")
+        if isinstance(self.upload_ckpt_to_wandb, str) and self.upload_ckpt_to_wandb != "last":
+            raise ValueError(
+                "upload_ckpt_to_wandb must be True/False/'last', got "
+                f"{self.upload_ckpt_to_wandb!r}"
+            )
         self.eval_marginal_dims: list = cfg.get("eval_marginal_dims") or []
         self.ckpt_file = cfg.get("ckpt_file")
         self.ckpt_dir = self.out_dir / CKPT_DIR
@@ -315,6 +332,11 @@ class Solver:
         logging.info("Device: %s; checkpoint directory: %s", self.device, self.ckpt_dir)
         self.initialized = False
         self.initial_time = time.time()
+        self._launches_at_start = self._launch_counts()
+
+    @staticmethod
+    def _launch_counts() -> dict[str, int]:
+        return {**build.LAUNCHES, **build.FORM_LAUNCHES, **build.ROUTES}
 
     def setup(self):
         logging.info("Setting up solver.")
@@ -378,6 +400,8 @@ class Solver:
         self.metrics_file.parent.mkdir(parents=True, exist_ok=True)
         with self.metrics_file.open(mode="a") as f:
             f.write(json.dumps(metrics) + "\n")
+        wandb_plots = {k: wandb_shim.format_fig(fig) for k, fig in plots.items()}
+        wandb_shim.log({**metrics, **wandb_plots}, step=step)
         logging.info("Metrics:\n%s", yaml.dump(metrics))
         return metrics
 
@@ -393,6 +417,11 @@ class Solver:
             self.store_checkpoint(suffix="_final")
         logging.info("Logging final results.")
         self.last_metrics = self.log(results)
+        if self.upload_ckpt_to_wandb == "last":
+            wandb_shim.delete_old_wandb_ckpts()
+        launches = {k: v - self._launches_at_start[k]
+                    for k, v in self._launch_counts().items() if v != self._launches_at_start[k]}
+        logging.info("Kernel launches of this run: %s", json.dumps(launches))
         return results
 
     # -- checkpoint protocol ------------------------------------------------
@@ -419,10 +448,16 @@ class Solver:
         tmp = path.with_suffix(".pt.tmp")
         torch.save(self.state_dict(), tmp)
         os.replace(tmp, path)  # a cut-off write never becomes the latest
+        if self.upload_ckpt_to_wandb:
+            wandb_shim.upload_ckpt(path, name=path.name)
         return path
 
     def load_checkpoint(self, ckpt_file=None):
         if ckpt_file is None:
+            if self.restore_ckpt_from_wandb:
+                # preemption resume: this run's latest checkpoint artifact
+                # (run id = hash of out_dir) before the local files
+                wandb_shim.restore_ckpt(self.out_dir)
             ckpt_file = latest_checkpoint(self.ckpt_dir)
         if ckpt_file is not None:
             logging.info("Loading checkpoint %s", ckpt_file)
@@ -495,6 +530,7 @@ class Trainable(Solver):
 
         n_params = sum(p.numel() for p in self.params)
         logging.info("Trainable parameters: %d", n_params)
+        wandb_shim.summary_update({"params/trainable": n_params})
 
     # -- subclass interface --------------------------------------------------
     def setup_models(self):
@@ -713,6 +749,7 @@ class Trainable(Solver):
                 for k, v in metrics.items()
             }
             metrics["train/n_filtered_cumulative"] = int(self.n_filtered)
+            wandb_shim.log(metrics, step=self.n_steps)
             logging.info("Train metrics:\n%s", yaml.dump(metrics))
             with self.metrics_file.open(mode="a") as f:
                 f.write(json.dumps(metrics) + "\n")

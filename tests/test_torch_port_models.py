@@ -231,7 +231,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     EulerDDS with the langevin_init control, DIS on the image, Cox, the
     smooth NICE flow and the alanine dipeptide, DIS, PIS and DDS with score
     nets of d outputs, and the setup hooks and the model watcher composed
-    from conf/ and built, load no JAX module."""
+    from conf/ and built, and the entry points with their launchers, sweep,
+    wandb shim and NICE trainer, load no JAX module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sde_sampler_torch\n"
@@ -263,7 +264,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "for m in ('solver.oc', 'distr.delta', 'losses.oc', 'ops.rollout', 'models.reparam',\n"
         "          'solver.langevin', 'eq.integrator', 'distr.rings', 'distr.rosenbrock',\n"
         "          'distr.img', 'distr.cox', 'distr.nice', 'distr.aladip', 'distr.aladip_ff',\n"
-        "          'distr.aladip_transform', 'utils.debug', 'utils.watch'):\n"
+        "          'distr.aladip_transform', 'utils.debug', 'utils.watch', 'main', 'sweep',\n"
+        "          'train_nice', 'utils.launcher', 'utils.wandb'):\n"
         "    assert 'sde_sampler_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
