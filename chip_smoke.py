@@ -122,6 +122,22 @@ prints nvcc's register and spill report. Phases:
                         synthetic images for 200 iterations: the loss falls,
                         and its checkpoint loads in the port's Nice with a
                         finite log-density on 1000 draws;
+             data_parallel  n_devices=2, the two ranks sharing the card
+                        over gloo: the funnel DIS job as a child
+                        `python -m sde_sampler_torch.main ... n_devices=2`
+                        (each rank's launches and parameter digest read from
+                        its `[rank r]` log lines: 20 kernel-1 launches, 2
+                        softmin per Sinkhorn iteration and 1 transport per
+                        Sinkhorn, equal digests), its 20 losses and largest
+                        gradients against one rank's (DP_LOSS_RTOL); a
+                        sharded 100k x 100k
+                        Sinkhorn at d = 10 against one rank's kernel result
+                        on the same clouds (DP_SINKHORN_RTOL), with the
+                        seconds its collectives take; gmm_langevin (6000
+                        chains, 1000 Euler steps) at n_devices=2 against
+                        n_devices=1 (DP_LANGEVIN_RTOL); on a machine with
+                        two cards, the DIS job again over NCCL, a card per
+                        rank (else it prints that it was not run);
   timing   time the DIS, DDS, mixture DIS and mixture Bridge optimizer
            steps, the rings DIS, Rosenbrock DIS and langevin_init EulerDDS
            steps, the image, Cox, NICE and alanine-dipeptide DIS steps (the
@@ -156,6 +172,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1442,8 +1459,260 @@ def check_train_nice(report) -> dict:
     return result
 
 
+# Data parallelism (n_devices = 2, the ranks sharing the card over gloo):
+# - the 20 losses of the two ranks' funnel DIS against one rank's with the
+#   same seed: the same global draws and float32 reductions in another
+#   order, which 20 Adam steps carry to about 1e-6 relative; the same bound
+#   holds each step's largest gradient (`train/max_grad`, the summed
+#   gradients' inf-norm), which a wrong sum over the ranks moves by a
+#   factor where the losses, under Adam's scale invariance, would not move;
+# - the sharded 100k x 100k Sinkhorn at d = 10 against one rank's kernel
+#   result on the same clouds: softmin plans its column splits from its row
+#   count, so a rank's rows may sum in another order than one rank's (the
+#   same bits on an H100 so far, PERF.md), and the stopping iteration can
+#   move by one;
+# - the Langevin chains are integrated row by row from the same draws; the
+#   expectations over them agree to float32 reductions of the gathered
+#   chains.
+DP_LOSS_RTOL = 1e-4
+DP_SINKHORN_RTOL = 1e-4
+DP_LANGEVIN_RTOL = 1e-5
+DP_SINKHORN_N, DP_SINKHORN_DIM = 100_000, 10
+RANK_LINE = re.compile(r"\[rank (\d+)\]\[INFO\] (Kernel launches of this run|Parameter digest "
+                       r"of rank \d+): (.*)$")
+
+
+def rank_lines(stderr: str, w: int) -> list[dict]:
+    """Each rank's launch counts and parameter digest from its log lines."""
+    ranks = [{} for _ in range(w)]
+    for line in stderr.splitlines():
+        match = RANK_LINE.search(line)
+        if match:
+            r, what, value = int(match.group(1)), match.group(2), match.group(3)
+            if what.startswith("Kernel"):
+                ranks[r]["launches"] = json.loads(value)
+            else:
+                ranks[r]["digest"] = value.strip()
+    return ranks
+
+
+def run_ranks(name: str, overrides: list[str], w: int) -> tuple[list[dict], float]:
+    """`python -m sde_sampler_torch.main ... n_devices=w` in a child process:
+    each rank's log lines, and the seconds it took."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sde_sampler_torch.main", *overrides,
+                           f"n_devices={w}", NO_WANDB], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        fail(f"{name}: n_devices={w} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    ranks = rank_lines(proc.stderr, w)
+    if not all("launches" in r for r in ranks):
+        fail(f"{name}: a rank logged no launch line: {proc.stderr[-3000:]}")
+    return ranks, seconds
+
+
+def losses_of(out_dir: Path, key: str = "train/loss") -> list[float]:
+    """The training steps' `key` (the loss, or `train/max_grad`)."""
+    lines = (out_dir / "metrics.jsonl").read_text().splitlines()
+    return [row[key] for row in map(json.loads, lines) if key in row]
+
+
+def max_rel_diff(got: list[float], want: list[float]) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def dp_rank(rank: int, clouds: str, langevin: list[str]) -> dict:
+    """A rank of the group that runs the sharded 100k Sinkhorn on the clouds
+    in `clouds` (the cost, iterations, seconds, the rank's launches and the
+    seconds in its collectives, gloo's host copies included), then the
+    Langevin job `langevin` through the entry point (as `main.py`'s ranks
+    run it; its launches and final metrics)."""
+    import torch
+    import torch.distributed as dist
+
+    from sde_sampler_torch import main as entry
+    from sde_sampler_torch.eval.sinkhorn import Sinkhorn
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.parallel import mesh
+
+    x, y = (t.cuda() for t in torch.load(clouds))
+    group = mesh.get_group(dist.get_world_size())
+    sk = Sinkhorn(eps=EPS, group=group)
+    sk(x[:1000], y[:1000])  # warm up the collectives and the kernels' first launch
+    comm = {"seconds": 0.0, "calls": 0}
+    gather, reduce = mesh.all_gather_rows, mesh.all_reduce
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            comm["seconds"] += time.perf_counter() - start
+            comm["calls"] += 1
+            return out
+        return wrapper
+
+    mesh.all_gather_rows, mesh.all_reduce = timed(gather), timed(reduce)
+    build.reset_launches()
+    try:
+        mesh.barrier(group)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        cost = float(sk(x, y))
+        seconds = time.perf_counter() - start
+    finally:
+        mesh.all_gather_rows, mesh.all_reduce = gather, reduce
+    sinkhorn = {"cost": cost, "n_iters": sk.n_iters, "seconds": seconds,
+                "launches": {k: v for k, v in build.LAUNCHES.items() if v},
+                "collective_seconds": comm["seconds"], "collective_calls": comm["calls"]}
+    build.reset_launches()
+    start = time.perf_counter()
+    solver = entry.main(langevin)
+    return {"sinkhorn": sinkhorn, "langevin": {
+        "seconds": time.perf_counter() - start, "final": dict(solver.last_metrics),
+        "launches": {k: v for k, v in build.LAUNCHES.items() if v}}}
+
+
+def check_data_parallel(report) -> dict:
+    """n_devices=2 on one card: the main path's funnel DIS (20 steps, a 10k
+    evaluation) as two ranks through the entry point against one rank; in
+    one spawned group, the sharded 100k Sinkhorn, against one rank's, and
+    gmm_langevin (6000 chains, 1000 Euler steps), against one rank; NCCL
+    with a rank per card where the machine has two cards."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sde_sampler_torch import main as entry
+    from sde_sampler_torch.eval.sinkhorn import Sinkhorn
+    from sde_sampler_torch.parallel import mesh
+
+    root = OUT_DIR / "chip_smoke_data_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    result, seconds = {}, {}
+
+    # the funnel DIS: two ranks against one, seed 1
+    dis = [*ENTRY_OVERRIDES, "seed=1", "log_interval=1"]
+    ranks, seconds["dis_two_ranks"] = run_ranks("data_parallel dis", [
+        *dis, f"out_dir={root / 'dis_two'}"], 2)
+    start = time.perf_counter()
+    before = launch_counts()
+    entry.main([*dis, NO_WANDB, f"out_dir={root / 'dis_one'}"])
+    one = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    seconds["dis_one_rank"] = time.perf_counter() - start
+    total = {}
+    for r, rank in enumerate(ranks):
+        check_job_launches(f"data_parallel dis rank {r}", rank["launches"])
+        if rank["launches"]["transport"] != 2 or rank["launches"]["softmin"] % 2:
+            fail(f"data_parallel dis rank {r}: launches {rank['launches']}, not 2 softmin per "
+                 "Sinkhorn iteration and 1 transport per Sinkhorn (2 final Sinkhorns)")
+        for k, v in rank["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if ranks[0]["launches"] != ranks[1]["launches"]:
+        fail(f"data_parallel dis: the ranks launched differently: {ranks}")
+    if not ranks[0].get("digest") or ranks[0]["digest"] != ranks[1].get("digest"):
+        fail(f"data_parallel dis: the ranks' parameters differ: {ranks}")
+    add_launches(report, "data_parallel", total)
+    two_losses, one_losses = losses_of(root / "dis_two"), losses_of(root / "dis_one")
+    rel = [abs(a - b) / abs(b) for a, b in zip(two_losses, one_losses)]
+    two_grads = losses_of(root / "dis_two", "train/max_grad")
+    one_grads = losses_of(root / "dis_one", "train/max_grad")
+    final = json.loads((root / "dis_two" / "metrics.jsonl").read_text().splitlines()[-1])
+    result["dis"] = {"rank_launches": [r["launches"] for r in ranks], "one_rank_launches": one,
+                     "digest": ranks[0]["digest"], "losses_two": two_losses,
+                     "losses_one": one_losses, "max_rel_loss_diff": max(rel),
+                     "max_grads_two": two_grads, "max_grads_one": one_grads,
+                     "max_rel_max_grad_diff": max_rel_diff(two_grads, one_grads),
+                     "result": check_entry_metrics("data_parallel dis", final)}
+    if len(two_losses) != ENTRY_STEPS or len(one_losses) != ENTRY_STEPS or max(rel) > DP_LOSS_RTOL:
+        fail(f"data_parallel dis: losses {two_losses} against one rank's {one_losses}")
+    if len(two_grads) != ENTRY_STEPS or max_rel_diff(two_grads, one_grads) > DP_LOSS_RTOL:
+        fail(f"data_parallel dis: largest gradients {two_grads} against one rank's {one_grads}")
+
+    # one group: the sharded Sinkhorn at 100k x 100k, d = 10, then
+    # gmm_langevin with 6000 chains and 1000 Euler steps of dt 0.01
+    langevin = main_overrides("gmm_langevin", root / "langevin_one", 0, 0)
+    langevin += ["sde.terminal_t=10", NO_WANDB]
+    langevin_two = [o for o in langevin if not o.startswith("out_dir=")] + [
+        f"out_dir={root / 'langevin_two'}", "n_devices=2"]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(DP_SINKHORN_N, DP_SINKHORN_DIM)).astype(np.float32))
+    y = torch.from_numpy((rng.normal(size=(DP_SINKHORN_N, DP_SINKHORN_DIM)) + 0.3)
+                         .astype(np.float32))
+    clouds = root / "clouds.pt"
+    clouds.parent.mkdir(parents=True, exist_ok=True)
+    torch.save((x, y), clouds)
+    start = time.perf_counter()
+    group_runs = mesh.spawn(dp_rank, 2, "cuda", args=(str(clouds), langevin_two), store_dir=root)
+    seconds["group_of_two_ranks"] = time.perf_counter() - start
+    sharded = [run["sinkhorn"] for run in group_runs]
+    seconds["sinkhorn_two_ranks"] = sharded[0]["seconds"]
+    sk = Sinkhorn(eps=EPS)
+    xc, yc = x.cuda(), y.cuda()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    want = float(sk(xc, yc))
+    seconds["sinkhorn_one_rank"] = time.perf_counter() - start
+    got = sharded[0]["cost"]
+    result["sinkhorn"] = {"ranks": sharded, "one_rank": want, "one_rank_iters": sk.n_iters,
+                          "rel_diff": abs(got - want) / abs(want),
+                          "collective_ms_per_iteration": [
+                              1e3 * r["collective_seconds"] / r["n_iters"] for r in sharded]}
+    clouds.unlink()
+    for r, rank in enumerate(sharded):
+        if (rank["cost"] != got or rank["launches"].get("transport") != 1
+                or rank["launches"].get("softmin") != 2 * rank["n_iters"]):
+            fail(f"data_parallel sinkhorn rank {r}: {rank}")
+    if not abs(got - want) <= DP_SINKHORN_RTOL * abs(want):
+        fail(f"data_parallel sinkhorn: two ranks {got}, one rank {want}")
+
+    # gmm_langevin against one rank
+    seconds["langevin_two_ranks"] = group_runs[0]["langevin"]["seconds"]
+    start = time.perf_counter()
+    one_solver = entry.main(langevin)
+    seconds["langevin_one_rank"] = time.perf_counter() - start
+    keys = [f"eval/{name}_direct" for name in ("square", "abs", "sum", "square_minus_sum")]
+    final = group_runs[0]["langevin"]["final"]
+    want = {k: one_solver.last_metrics[k] for k in keys}
+    result["langevin"] = {"two": {k: final[k] for k in keys}, "one": want,
+                          "rank_launches": [run["langevin"]["launches"] for run in group_runs],
+                          "sinkhorn_two": final["error/sinkhorn"],
+                          "sinkhorn_one": one_solver.last_metrics["error/sinkhorn"]}
+    for k in keys:
+        if not abs(final[k] - want[k]) <= DP_LANGEVIN_RTOL * abs(want[k]) + 1e-6:
+            fail(f"data_parallel langevin: {k} {final[k]} against one rank's {want[k]}")
+    for r, run in enumerate(group_runs):
+        launches = run["langevin"]["launches"]
+        if not launches.get("softmin") or launches.get("transport") != 1:
+            fail(f"data_parallel langevin rank {r}: not one Sinkhorn's launches: {launches}")
+
+    if torch.cuda.device_count() >= 2:
+        ranks, seconds["dis_nccl"] = run_ranks("data_parallel_nccl", [
+            *dis, f"out_dir={root / 'dis_nccl'}"], 2)
+        nccl_losses = losses_of(root / "dis_nccl")
+        nccl_grads = losses_of(root / "dis_nccl", "train/max_grad")
+        if max_rel_diff(nccl_losses, one_losses) > DP_LOSS_RTOL:
+            fail(f"data_parallel_nccl: losses {nccl_losses} against one rank's {one_losses}")
+        if max_rel_diff(nccl_grads, one_grads) > DP_LOSS_RTOL:
+            fail(f"data_parallel_nccl: largest gradients {nccl_grads} against one rank's "
+                 f"{one_grads}")
+        result["nccl"] = {"losses": nccl_losses, "rank_launches": [r["launches"] for r in ranks]}
+        print(f"phase data_parallel_nccl: {seconds['dis_nccl']:.1f} s", flush=True)
+    else:
+        print("phase data_parallel_nccl: not run (1 card)", flush=True)
+    result["seconds"] = seconds
+    print(f"data_parallel: {json.dumps(result)}", flush=True)
+    for part, value in seconds.items():
+        print(f"  data_parallel {part}: {value:.1f} s", flush=True)
+    return result
+
+
 ENTRY_PHASES = {"multirun_seq": check_multirun_seq, "multirun_pool": check_multirun_pool,
-                "wandb_resume": check_wandb_resume, "train_nice": check_train_nice}
+                "wandb_resume": check_wandb_resume, "train_nice": check_train_nice,
+                "data_parallel": check_data_parallel}
 
 
 def kernel_ms(fn, n: int = 5) -> dict[str, float]:

@@ -38,6 +38,15 @@ whose forward pass stores no per-step state, and whose backward pass
 re-derives the trajectory by reverse Euler on the same tree path,
 accumulating the adjoint and the parameters' gradients by per-step
 `torch.autograd.grad` VJPs (`_make_adjoint_euler` in the JAX package).
+
+Data parallelism (`group` of `integrate`; `parallel/mesh.py`): the caller
+passes the whole batch of chains, each rank integrates its row block and
+the whole output is gathered on every rank. The per-step normals are drawn
+at the global shape and the rank's rows kept; a Brownian tree hashes the
+global element index of each of its rows (`VirtualBrownianTree.rows`);
+adaptive Heun's err, the max over the whole batch, is the MAX over the
+ranks, so every rank takes the same steps. The paths are then those of one
+device.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from sde_sampler_torch.eq.sdes import SDE
+from sde_sampler_torch.parallel import mesh
 from sde_sampler_torch.utils.common import get_timesteps
 
 _MASK64 = (1 << 64) - 1
@@ -81,12 +91,12 @@ def seed_key(seed: int) -> int:
     return int(splitmix64(torch.tensor([_signed(seed)], dtype=torch.int64))[0])
 
 
-def hashed_normals(key: int, nodes: torch.Tensor, numel: int) -> torch.Tensor:
+def hashed_normals(key: int, nodes: torch.Tensor, numel: int, offset: int = 0) -> torch.Tensor:
     """Standard normals (len(nodes), numel), float32, a pure function of
-    (key, node, element): splitmix64 of (node · 2^32 + element) xor the
-    key, whose top and next 24 bits give the two uniforms of one
-    Box-Muller draw."""
-    elements = torch.arange(numel, dtype=torch.int64, device=nodes.device)
+    (key, node, element) for the elements offset, ..., offset + numel − 1:
+    splitmix64 of (node · 2^32 + element) xor the key, whose top and next
+    24 bits give the two uniforms of one Box-Muller draw."""
+    elements = torch.arange(offset, offset + numel, dtype=torch.int64, device=nodes.device)
     z = splitmix64(((nodes[:, None] << 32) | elements[None, :]) ^ key)
     scale = 2.0**-24
     u1 = (_shr(z, 40).to(torch.float32) + 0.5) * scale
@@ -103,14 +113,20 @@ class VirtualBrownianTree:
     coefficients of the depth + 1 nodes on t's path are computed on the
     host (float64) and W(t) is their sum against one batched draw. The last
     two values are kept, so that an integrator's bm(t) − bm(s) costs one
-    new path a step."""
+    new path a step. With `rows` (a `mesh.Rows` of shape[0]), W(t) holds
+    those rows of the tree of the whole `shape`, the same bits."""
 
     def __init__(self, t0: float, t1: float, seed: int, shape, depth: int = 22,
-                 device=None):
+                 device=None, rows: mesh.Rows | None = None):
         self.t0 = float(t0)
         self.t1 = float(t1)
         self.key = seed_key(seed)
         self.shape = tuple(shape)
+        self.offset = 0
+        if rows is not None:
+            inner = math.prod(self.shape[1:])
+            self.offset = rows.start * inner
+            self.shape = (rows.stop - rows.start,) + self.shape[1:]
         self.depth = int(depth)
         self.device = torch.device("cpu") if device is None else torch.device(device)
         self.numel = math.prod(self.shape)
@@ -142,7 +158,8 @@ class VirtualBrownianTree:
             return self._cache[key]
         nodes, coeffs = self.path(key)
         z = hashed_normals(
-            self.key, torch.tensor(nodes, dtype=torch.int64, device=self.device), self.numel)
+            self.key, torch.tensor(nodes, dtype=torch.int64, device=self.device), self.numel,
+            self.offset)
         c = torch.as_tensor(coeffs, dtype=torch.float32, device=self.device)
         value = (c @ z).reshape(self.shape)
         if len(self._cache) >= 2:
@@ -203,15 +220,37 @@ def _internal_grid(integrator, ts, timesteps, device):
 
 
 class Integrator:
-    def integrate(self, sde, ts, x_init, generator=None, timesteps=None, bm=None):
+    def integrate(self, sde, ts, x_init, generator=None, timesteps=None, bm=None,
+                  group=None):
         """Roll out `sde` from x_init and return the states on the output
         grid ts, (len(ts), B, d). `bm` (optional) is a Brownian path W(t)
         whose increments replace the generator's normals: the same path can
-        then drive integrations at different resolutions."""
+        then drive integrations at different resolutions. With a `group`,
+        each rank integrates its rows of x_init (and of a given bm's whole
+        batch) and the whole output is gathered on every rank; without one,
+        the rows are the whole batch and the collectives the identity."""
+        rows = mesh.Rows(x_init.shape[0], group)
+        if bm is not None:
+            whole = bm
+            bm = lambda t: rows.take(whole(t))  # noqa: E731
+        xs = self._integrate(sde, ts, rows.take(x_init), generator, timesteps, bm, rows)
+        return mesh.all_gather_rows(
+            xs, group, mesh.block_sizes(x_init.shape[0], mesh.world(group)), dim=1)
+
+    def _integrate(self, sde, ts, x_init, generator, timesteps, bm, rows):
+        """`integrate` of this rank's rows `rows` (a `mesh.Rows`)."""
         raise NotImplementedError
 
 
-def _fixed_step_loop(step, ts, x_init, generator, timesteps, bm):
+def _normals(shape, generator, device, dtype, rows) -> torch.Tensor:
+    """Standard normals of `shape`, this rank's `rows` of a draw at the
+    global batch (axis 0)."""
+    whole = torch.randn((rows.total,) + tuple(shape[1:]), generator=generator,
+                        device=device, dtype=dtype)
+    return rows.take(whole).contiguous()
+
+
+def _fixed_step_loop(step, ts, x_init, generator, timesteps, bm, rows):
     """The loop shared by Euler and Heun: step(s, t, dt, x, noise) -> x'."""
     interp = _Interpolation(timesteps, ts)
     dts = timesteps[1:] - timesteps[:-1]
@@ -220,8 +259,7 @@ def _fixed_step_loop(step, ts, x_init, generator, timesteps, bm):
     for k in range(timesteps.shape[0] - 1):
         s, t = timesteps[k], timesteps[k + 1]
         if bm is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype) * sqrt_dts[k]
+            noise = _normals(x.shape, generator, x.device, x.dtype, rows) * sqrt_dts[k]
         else:
             noise = bm(t) - bm(s)
         x_next = step(s, t, dts[k], x, noise)
@@ -254,7 +292,7 @@ class EulerIntegrator(Integrator):
         self.adjoint = adjoint
         self.depth = depth
 
-    def integrate(self, sde: SDE, ts, x_init, generator=None, timesteps=None, bm=None):
+    def _integrate(self, sde: SDE, ts, x_init, generator, timesteps, bm, rows):
         timesteps = _internal_grid(self, ts, timesteps, x_init.device)
         if self.adjoint:
             if bm is not None:
@@ -267,13 +305,13 @@ class EulerIntegrator(Integrator):
                 )
             tree = VirtualBrownianTree(
                 float(timesteps[0]), float(timesteps[-1]), draw_seed(generator),
-                x_init.shape, depth=self.depth, device=x_init.device)
+                _whole_shape(x_init, rows), depth=self.depth, device=x_init.device, rows=rows)
             return adjoint_euler(sde, timesteps, ts, x_init, tree, sde_parameters(sde))
 
         def step(s, t, dt, x, noise):
             return x + sde.drift(s, x) * dt + sde.diff(s, x) * noise
 
-        return _fixed_step_loop(step, ts, x_init, generator, timesteps, bm)
+        return _fixed_step_loop(step, ts, x_init, generator, timesteps, bm, rows)
 
 
 class HeunIntegrator(Integrator):
@@ -289,7 +327,7 @@ class HeunIntegrator(Integrator):
         self.steps = steps
         self.rescale_t = rescale_t
 
-    def integrate(self, sde, ts, x_init, generator=None, timesteps=None, bm=None):
+    def _integrate(self, sde, ts, x_init, generator, timesteps, bm, rows):
         timesteps = _internal_grid(self, ts, timesteps, x_init.device)
 
         def step(s, t, dt, x, noise):
@@ -300,7 +338,12 @@ class HeunIntegrator(Integrator):
             diff_t = sde.diff(t, x_pred)
             return x + 0.5 * (drift_s + drift_t) * dt + 0.5 * (diff_s + diff_t) * noise
 
-        return _fixed_step_loop(step, ts, x_init, generator, timesteps, bm)
+        return _fixed_step_loop(step, ts, x_init, generator, timesteps, bm, rows)
+
+
+def _whole_shape(x, rows) -> tuple:
+    """The shape of the whole batch of which x holds `rows`."""
+    return (rows.total,) + tuple(x.shape[1:])
 
 
 class AdaptiveHeunIntegrator(Integrator):
@@ -332,7 +375,7 @@ class AdaptiveHeunIntegrator(Integrator):
         self.n_accepted = 0
         self.n_rejected = 0
 
-    def integrate(self, sde, ts, x_init, generator=None, timesteps=None, bm=None):
+    def _integrate(self, sde, ts, x_init, generator, timesteps, bm, rows):
         device = x_init.device
         grid = torch.as_tensor(ts if timesteps is None else timesteps,
                                dtype=torch.float32, device=device)
@@ -340,7 +383,7 @@ class AdaptiveHeunIntegrator(Integrator):
         if bm is None:
             bm = VirtualBrownianTree(
                 float(grid_host[0]), float(grid_host[-1]), draw_seed(generator),
-                x_init.shape, depth=self.depth, device=device)
+                _whole_shape(x_init, rows), depth=self.depth, device=device, rows=rows)
         f32 = np.float32
         dt_min, safety = f32(self.dt_min), f32(self.safety)
         min_factor, max_factor = f32(self.min_factor), f32(self.max_factor)
@@ -368,7 +411,7 @@ class AdaptiveHeunIntegrator(Integrator):
             while t < stop:
                 dt_eff = min(dt, f32(t_end - t))
                 x_new, err = heun_step(t, x, dt_eff)
-                err = f32(float(err))
+                err = f32(float(mesh.all_reduce(err, rows.group, "max")))  # over the whole batch
                 if np.isnan(err):  # the JAX loop would never end
                     raise FloatingPointError(f"adaptive Heun: NaN error estimate at t = {t}")
                 if err <= 1.0 or dt_eff <= dt_min:

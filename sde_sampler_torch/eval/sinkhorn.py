@@ -10,13 +10,28 @@ kernels take p = 2; any other p runs the JAX package's XLA cost
 (`_cost_tile`) in plain torch on either device, over dense row chunks:
 |x - y|_1 for p = 1, (sum_k (x_k - y_k)^p)^(1/p) otherwise, as written
 there (without an absolute value, so an odd p > 1 gives NaN distances and a
-NaN result on both sides). The mesh (multi-device) path is not ported yet.
+NaN result on both sides).
+
+Data parallelism (`group`, attached by the solver of a data-parallel run;
+JAX `_compute_sharded`, `eval/sinkhorn.py:205-291, 451-488`). Every rank
+holds both whole clouds (the evaluation gathers its samples once, and the
+target's are drawn at the global shape), so no cloud is gathered again:
+each rank takes its row blocks of x and y and of their weights and duals.
+On each half-iteration the rank gathers the other side's duals (each block
+padded to the largest and trimmed, so no padded row enters a kernel) and
+calls softmin on its (n/W) x m rectangle; the error that stops the loop is
+the MAX over the ranks, so every rank stops on the same iteration. The
+transport kernel runs on the rank's rows against all columns, and the
+ranks' float32 partials are summed in float64, then cast to float32.
+Without a group the one rank's block is the whole cloud and every
+collective is the identity, so the same loop is the one-device Sinkhorn.
 """
 from __future__ import annotations
 
 import torch
 
 from sde_sampler_torch.ops import sinkhorn as ops
+from sde_sampler_torch.parallel import mesh
 
 
 ROW_CHUNK = 256  # rows per (ROW_CHUNK, m, d) difference tile of p != 2
@@ -60,6 +75,7 @@ class Sinkhorn:
         stop_thresh: float = 1e-5,
         verbose: bool = False,
         n_max: int | None = None,
+        group=None,
         **kwargs,  # JAX tiling, backend and mesh knobs
     ):
         if not isinstance(p, int) or p <= 0:
@@ -76,6 +92,9 @@ class Sinkhorn:
         self.stop_thresh = stop_thresh
         self.n_max = n_max
         self.verbose = verbose
+        # the data-parallel group whose ranks share the rows (set by the
+        # solver; None: one device)
+        self.group = group
         self.n_iters = 0  # iterations the last call ran
 
     def compute(self, x, y, w_x=None, w_y=None) -> torch.Tensor:
@@ -105,27 +124,35 @@ class Sinkhorn:
             softmin = lambda a, b, dual, e: softmin_p(a, b, dual, e, self.p)
             transport = lambda a, b, uu, vv, e: transport_cost_p(a, b, uu, vv, e, self.p)
         log_a, log_b = torch.log(w_x), torch.log(w_y)
-        u = torch.zeros_like(w_x)
-        v = eps * log_b
+        # this rank's row blocks (the whole clouds without a group)
+        group = self.group
+        x_l, la, y_l, lb = (mesh.shard_batch(t, group) for t in (x, log_a, y, log_b))
+        sizes_x = mesh.block_sizes(x.shape[0], mesh.world(group))
+        sizes_y = mesh.block_sizes(y.shape[0], mesh.world(group))
+        u_l, v_l = torch.zeros_like(la), eps * lb
         # zero-weight entries keep -inf duals; their nan deltas must not
         # end the loop early
-        fin_a, fin_b = torch.isfinite(log_a), torch.isfinite(log_b)
+        fin_a, fin_b = torch.isfinite(la), torch.isfinite(lb)
         self.n_iters = 0
         for it in range(self.max_iters):
-            u_new = log_a * eps - softmin(x, y, v, eps)
-            v_new = log_b * eps - softmin(y, x, u_new, eps)
+            v_all = mesh.all_gather_rows(v_l, group, sizes_y)
+            u_new = la * eps - softmin(x_l, y, v_all, eps)
+            u_all = mesh.all_gather_rows(u_new, group, sizes_x)
+            v_new = lb * eps - softmin(y_l, x, u_all, eps)
             err = torch.maximum(
-                torch.where(fin_a, (u - u_new).abs(), 0.0).max(),
-                torch.where(fin_b, (v - v_new).abs(), 0.0).max(),
+                torch.where(fin_a, (u_l - u_new).abs(), 0.0).max(),
+                torch.where(fin_b, (v_l - v_new).abs(), 0.0).max(),
             )
-            u, v = u_new, v_new
+            u_l, v_l = u_new, v_new
             self.n_iters = it + 1
-            max_err = float(err)
-            if self.verbose:
+            max_err = float(mesh.all_reduce(err, group, "max"))
+            if self.verbose and mesh.rank(group) == 0:
                 print(f"sinkhorn iter {it}: max_err={max_err:.3g}")
             if not max_err >= self.stop_thresh:
                 break
-        return transport(x, y, u, v, eps)
+        v_all = mesh.all_gather_rows(v_l, group, sizes_y)
+        part = transport(x_l, y, u_l, v_all, eps).to(torch.float64)
+        return mesh.all_reduce(part, group).to(torch.float32)
 
     def __call__(self, x, y, w_x=None, w_y=None):
         if self.n_max is not None:

@@ -36,14 +36,30 @@ normals ξ, and is replaced by the neutral control −drift/diff wherever
 uniforms υ exceed `sde_ctrl_dropout`, as the JAX package writes it. ξ and υ
 (T, B, d) are drawn explicitly (`draw_explore`) or passed (`explore`), and
 the same tensors enter phase 1, phase 2's cost and `simulate`.
+
+Data parallelism (`group`, bound by the solver; `parallel/mesh.py`). A call
+takes the whole batch, as on one device, and its given draws at the whole
+batch's shape. With a group, each rank keeps its row block of the batch
+(all traj_per_sample copies of a sample stay on one rank) and of every
+draw, which it makes at the global shape: the noise, the exploration
+draws, the Hutchinson probes and `simulate`'s per-step normals. So one seed
+gives the same global draws whatever the number of ranks. Phase 1 runs the
+fused rollout on the rank's rows. The training losses reduce over every
+rank (`masked_mean`, `masked_var`): each rank's loss has the
+global value and, as its gradient, the rank's share of the global
+gradient, so the solver sums the ranks' gradients once. `eval` returns the
+whole batch on every rank, gathered once.
 """
 from __future__ import annotations
 
 import copy
 import logging
+import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from sde_sampler_torch.parallel import mesh
 
 # Production default of the JAX package: lv/lv_traj train on the two-phase
 # path (A/B-validated there against the per-step path).
@@ -89,6 +105,16 @@ def divx_exact(fn: Callable, t, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     return div, value
 
 
+def hutchinson_probes(shape, noise_type: str, generator, device, dtype) -> torch.Tensor:
+    """Probes of a Hutchinson estimator: Rademacher signs or standard normals."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    if noise_type == "rademacher":
+        return torch.randint(0, 2, shape, **kw) * 2 - 1.0
+    if noise_type == "gauss":
+        return torch.randn(shape, **kw)
+    raise NotImplementedError(f"Undefined noise type {noise_type}.")
+
+
 def divx_hutchinson(
     fn: Callable, t, x: torch.Tensor, noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None, noise_type: str = "rademacher",
@@ -101,14 +127,8 @@ def divx_hutchinson(
     f = lambda xx: fn(t, xx)
     value = f(x)
     if noise is None:
-        shape = (n_samples,) + tuple(x.shape)
-        kw = dict(generator=generator, device=x.device, dtype=x.dtype)
-        if noise_type == "rademacher":
-            noise = torch.randint(0, 2, shape, **kw) * 2 - 1.0
-        elif noise_type == "gauss":
-            noise = torch.randn(shape, **kw)
-        else:
-            raise NotImplementedError(f"Undefined noise type {noise_type}.")
+        noise = hutchinson_probes((n_samples,) + tuple(x.shape), noise_type, generator,
+                                  x.device, x.dtype)
     div = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
     for probe in noise:
         _, jv = torch.func.jvp(f, (x,), (probe,))
@@ -120,17 +140,52 @@ def _at(draws, k):
     return None if draws is None else draws[k]
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    n = mask.sum()
-    return torch.where(mask, x, 0.0).sum() / n.clamp(min=1)
+class _ValueOf(torch.autograd.Function):
+    """A tensor whose value is `value` and whose gradient flows into
+    `surrogate`, unchanged."""
+
+    @staticmethod
+    def forward(ctx, surrogate, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
-def masked_var(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Unbiased variance over masked entries (matches torch.Tensor.var)."""
-    n = mask.sum()
-    mu = masked_mean(x, mask)
-    ss = torch.where(mask, (x - mu) ** 2, 0.0).sum()
-    return ss / (n - 1).clamp(min=1)
+def _global_sum_and_count(x, mask, group):
+    local = torch.stack([torch.where(mask, x, 0.0).sum().detach(), mask.sum().to(x.dtype)])
+    return mesh.all_reduce(local, group)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over the masked entries of every rank's rows: on each rank
+    its value is the global mean, and its gradient the share of the global
+    gradient that this rank's rows give (summed over the ranks, the global
+    gradient). Without a group, the mean of x's masked entries."""
+    total, n = _global_sum_and_count(x, mask, group).unbind()
+    n = n.clamp(min=1)
+    return _ValueOf.apply(torch.where(mask, x, 0.0).sum() / n, total / n)
+
+
+def masked_var(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
+    """The unbiased variance over the masked entries of every rank's rows
+    (torch.Tensor.var's), value and gradient as `masked_mean`. The mean m̄
+    is global; through it each entry's gradient gains −2S/n/(n − 1), with
+    S = Σ (x_i − m̄) over every rank's masked entries (zero but for
+    rounding), so S is summed over the ranks with the squares: each rank's
+    share is then exact, and one device's gradient is autograd's."""
+    total, n = _global_sum_and_count(x, mask, group).unbind()
+    n = n.clamp(min=1)
+    mu = total / n
+    # the square inside the where, as in the JAX package's loss: a
+    # non-finite filtered entry still poisons the gradient (0 · inf)
+    ss_local = torch.where(mask, (x - mu) ** 2, 0.0).sum()
+    s_local = torch.where(mask, x - mu, 0.0).sum().detach()
+    ss, s = mesh.all_reduce(torch.stack([ss_local.detach(), s_local]), group).unbind()
+    denom = (n - 1).clamp(min=1)
+    surrogate = (ss_local - 2 * s / n * torch.where(mask, x, 0.0).sum()) / denom
+    return _ValueOf.apply(surrogate, ss / denom)
 
 
 class RolloutResult(NamedTuple):
@@ -195,6 +250,53 @@ class BaseOCLoss:
         self.ctrl_clips = None
         # the routes already logged, shared by the copies of `with_ctrls`
         self._routes_logged: set = set()
+        # the data-parallel group (bound by the solver) and the rows of the
+        # global batch that this rank holds in the current call (`_enter`)
+        self.group = None
+        self._rows: mesh.Rows | None = None
+
+    # -- data parallelism -------------------------------------------------------
+    def _enter(self, x, dbs=None, explore=None, probes=None, train=True):
+        """The call's batch: x (in training with its traj_per_sample copies)
+        and, with a group, this rank's rows of it and of the given draws
+        (each of the global batch, on axis -2), whose rows the call's own
+        draws keep too."""
+        n = x.shape[0]
+        repeat = self.traj_per_sample if train else 1
+        if train:
+            x = self._repeat_traj(x)
+        self._rows = None
+        if self.group is None:
+            return x, dbs, explore, probes
+        self._rows = mesh.Rows(n, self.group, repeat=repeat)
+
+        def take(t):
+            return None if t is None else self._rows.take(t, -2).contiguous()
+
+        if explore is not None:
+            explore = tuple(take(t) for t in explore)
+        return take(x), take(dbs), explore, take(probes)
+
+    def _draw(self, draw: Callable, shape) -> torch.Tensor:
+        """draw(shape); in a sharded call, drawn at the global batch (axis -2
+        of shape) and this rank's rows of it kept."""
+        rows = self._rows
+        if rows is None:
+            return draw(tuple(shape))
+        shape = tuple(shape[:-2]) + (rows.total, shape[-1])
+        return rows.take(draw(shape), -2).contiguous()
+
+    def _gather(self, result: "RolloutResult") -> "RolloutResult":
+        """The whole batch's rollout on every rank from the ranks' rows."""
+        if self._rows is None:
+            return result
+        sizes = mesh.block_sizes(self._rows.n, mesh.world(self.group))
+
+        def gather(t, dim=0):
+            return None if t is None else mesh.all_gather_rows(t, self.group, sizes, dim)
+
+        return RolloutResult(gather(result.samples), gather(result.rnd),
+                             gather(result.rnd_no_ito), gather(result.xs, 1))
 
     # -- exploration of the sde control -------------------------------------
     @property
@@ -208,8 +310,10 @@ class BaseOCLoss:
         of the sde control; each None where its knob is unset."""
         shape = (ts.shape[0] - 1,) + tuple(x.shape)
         kw = dict(generator=generator, device=x.device, dtype=x.dtype)
-        xi = torch.randn(shape, **kw) if self.sde_ctrl_noise is not None else None
-        ups = torch.rand(shape, **kw) if self.sde_ctrl_dropout is not None else None
+        xi = (self._draw(lambda shp: torch.randn(shp, **kw), shape)
+              if self.sde_ctrl_noise is not None else None)
+        ups = (self._draw(lambda shp: torch.rand(shp, **kw), shape)
+               if self.sde_ctrl_dropout is not None else None)
         return xi, ups
 
     def explore_sde_ctrl(self, sde_ctrl, s, x, xi=None, ups=None):
@@ -269,21 +373,25 @@ class BaseOCLoss:
 
     # -- noise ----------------------------------------------------------------
     @staticmethod
-    def draw_noise(ts, x, generator=None, scale_sqrt_dt: bool = True) -> torch.Tensor:
+    def draw_noise(ts, x, generator=None, scale_sqrt_dt: bool = True,
+                   rows: mesh.Rows | None = None) -> torch.Tensor:
         """Noise of every step, (T, B, d): Brownian increments dW ~ N(0, dt),
         or standard normals with `scale_sqrt_dt=False` (the exponential
-        integrator scales them itself)."""
+        integrator scales them itself). With `rows`, drawn at the global
+        batch and this rank's rows kept."""
         n = ts.shape[0] - 1
-        nbytes = n * x.numel() * x.element_size()
+        shape = (n,) + tuple(x.shape)
+        if rows is not None:
+            shape = (n, rows.total) + tuple(x.shape[1:])
+        nbytes = math.prod(shape) * x.element_size()
         if nbytes > PREGEN_MAX_BYTES:
             raise ValueError(
-                f"noise buffer of shape {(n,) + tuple(x.shape)} needs {nbytes} "
+                f"noise buffer of shape {shape} needs {nbytes} "
                 f"bytes, above PREGEN_MAX_BYTES={PREGEN_MAX_BYTES}"
             )
-        dbs = torch.randn(
-            (n,) + tuple(x.shape), generator=generator, device=x.device,
-            dtype=x.dtype,
-        )
+        dbs = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
+        if rows is not None:
+            dbs = rows.take(dbs, 1).contiguous()
         if not scale_sqrt_dt:
             return dbs
         return dbs * torch.sqrt(ts[1:] - ts[:-1])[:, None, None]
@@ -304,6 +412,8 @@ class BaseOCLoss:
         return mask & (rnd < self.max_rnd)
 
     def compute_loss(self, rnd, samples=None):
+        """The loss of the rows' RNDs and the count of filtered ones, over
+        every rank's rows with a group."""
         mask = self.filter(rnd, samples=samples)
         if self.method == "lv_traj":
             r = self.traj_per_sample
@@ -312,14 +422,14 @@ class BaseOCLoss:
             n_filtered = r * (mask.numel() - mask.sum())
             mu = rnd.mean(dim=0, keepdim=True)
             var = ((rnd - mu) ** 2).sum(dim=0) / (r - 1)
-            loss = masked_mean(var, mask)
+            loss = masked_mean(var, mask, self.group)
         else:
             n_filtered = mask.numel() - mask.sum()
             if self.method == "lv":
-                loss = masked_var(rnd, mask)
+                loss = masked_var(rnd, mask, self.group)
             else:
-                loss = masked_mean(rnd, mask)
-        return loss, {"train/n_filtered": n_filtered}
+                loss = masked_mean(rnd, mask, self.group)
+        return loss, {"train/n_filtered": mesh.all_reduce(n_filtered, self.group)}
 
     @staticmethod
     @torch.no_grad()
@@ -399,6 +509,9 @@ class TimeReversalLoss(BaseOCLoss):
         if estimator is None:
             div, inference = divx_exact(self.inference_ctrl, s, x)
         else:
+            if probes is None and self._rows is not None:
+                probes = self._draw(lambda shp: hutchinson_probes(
+                    shp, estimator, generator, x.device, x.dtype), x.shape)
             div, inference = divx_hutchinson(
                 self.inference_ctrl, s, x, noise=None if probes is None else probes[None],
                 generator=generator, noise_type=estimator,
@@ -436,9 +549,9 @@ class TimeReversalLoss(BaseOCLoss):
             if dbs is not None:
                 db = dbs[k]
             else:
-                db = torch.randn(
-                    x.shape, generator=generator, device=x.device, dtype=x.dtype
-                ) * torch.sqrt(dt)
+                db = self._draw(lambda shp: torch.randn(
+                    shp, generator=generator, device=x.device, dtype=x.dtype
+                ), x.shape) * torch.sqrt(dt)
             gen = self.generative_ctrl(s, x)
             sde_ctrl = gen
             if change_sde_ctrl:
@@ -480,7 +593,7 @@ class TimeReversalLoss(BaseOCLoss):
         detached control with the same exploration draws."""
         rnd0 = initial_log_prob(x)
         if dbs is None:
-            dbs = self.draw_noise(ts, x, generator)
+            dbs = self.draw_noise(ts, x, generator, rows=self._rows)
         explore = self._explore_inputs(ts, x, explore, generator)
         xs, x_T = self._phase1(ts, x, dbs, explore)
 
@@ -506,7 +619,7 @@ class TimeReversalLoss(BaseOCLoss):
     ):
         """The training loss; `explore` (ξ, υ) overrides the exploration
         draws of an lv method (as `dbs` the noise)."""
-        x = self._repeat_traj(x)
+        x, dbs, explore, probes = self._enter(x, dbs, explore, probes)
         if self.two_phase:
             return self._two_phase_loss(
                 ts, x, terminal_unnorm_log_prob, initial_log_prob,
@@ -533,7 +646,10 @@ class TimeReversalLoss(BaseOCLoss):
         self, ts, x, terminal_unnorm_log_prob, initial_log_prob=None,
         return_traj: bool = False, dbs=None, generator=None,
     ) -> RolloutResult:
-        return self.simulate(
+        """The evaluation rollout of the whole batch (gathered from the
+        ranks' rows with a group)."""
+        x, dbs, _, _ = self._enter(x, dbs, train=False)
+        return self._gather(self.simulate(
             ts, x,
             terminal_unnorm_log_prob=terminal_unnorm_log_prob,
             initial_log_prob=initial_log_prob,
@@ -542,7 +658,7 @@ class TimeReversalLoss(BaseOCLoss):
             return_traj=return_traj,
             dbs=dbs,
             generator=generator,
-        )
+        ))
 
 
 class ReferenceSDELoss(BaseOCLoss):
@@ -590,9 +706,9 @@ class ReferenceSDELoss(BaseOCLoss):
             if dbs is not None:
                 db = dbs[k]
             else:
-                db = torch.randn(
-                    x.shape, generator=generator, device=x.device, dtype=x.dtype
-                ) * torch.sqrt(dt)
+                db = self._draw(lambda shp: torch.randn(
+                    shp, generator=generator, device=x.device, dtype=x.dtype
+                ), x.shape) * torch.sqrt(dt)
             gen = self.generative_ctrl(s, x)
             sde_ctrl = gen
             if change_sde_ctrl:
@@ -628,7 +744,7 @@ class ReferenceSDELoss(BaseOCLoss):
     ):
         """lv/lv_traj loss with the trajectory rollout outside autograd."""
         if dbs is None:
-            dbs = self.draw_noise(ts, x, generator)
+            dbs = self.draw_noise(ts, x, generator, rows=self._rows)
         explore = self._explore_inputs(ts, x, explore, generator)
         xs, x_T = self._phase1(ts, x, dbs, explore)
 
@@ -652,7 +768,7 @@ class ReferenceSDELoss(BaseOCLoss):
     ):
         """The training loss; `explore` (ξ, υ) overrides the exploration
         draws of an lv method (as `dbs` the noise)."""
-        x = self._repeat_traj(x)
+        x, dbs, explore, _ = self._enter(x, dbs, explore)
         if self.two_phase:
             return self._two_phase_loss(
                 ts, x, terminal_unnorm_log_prob, reference_log_prob,
@@ -678,7 +794,10 @@ class ReferenceSDELoss(BaseOCLoss):
         self, ts, x, terminal_unnorm_log_prob, reference_log_prob=None,
         return_traj: bool = False, dbs=None, generator=None,
     ) -> RolloutResult:
-        return self.simulate(
+        """The evaluation rollout of the whole batch (gathered from the
+        ranks' rows with a group)."""
+        x, dbs, _, _ = self._enter(x, dbs, train=False)
+        return self._gather(self.simulate(
             ts, x,
             terminal_unnorm_log_prob=terminal_unnorm_log_prob,
             reference_log_prob=reference_log_prob,
@@ -687,7 +806,7 @@ class ReferenceSDELoss(BaseOCLoss):
             return_traj=return_traj,
             dbs=dbs,
             generator=generator,
-        )
+        ))
 
 
 class ExponentialIntegratorSDELoss(BaseOCLoss):
@@ -734,9 +853,9 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
             if dbs is not None:
                 noise = dbs[k]
             else:
-                noise = torch.randn(
-                    x.shape, generator=generator, device=x.device, dtype=x.dtype
-                )
+                noise = self._draw(lambda shp: torch.randn(
+                    shp, generator=generator, device=x.device, dtype=x.dtype
+                ), x.shape)
             gen = self.generative_ctrl(ts[k], x)
             if change_sde_ctrl:
                 sde_ctrl = self.explore_sde_ctrl(gen.detach(), ts[k], x, _at(xi, k), _at(ups, k))
@@ -788,7 +907,7 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
         """Two-phase lv for the exponential-integrator update rule."""
         sigma = self.sigma
         if dbs is None:
-            dbs = self.draw_noise(ts, x, generator, scale_sqrt_dt=False)
+            dbs = self.draw_noise(ts, x, generator, scale_sqrt_dt=False, rows=self._rows)
         explore = self._explore_inputs(ts, x, explore, generator)
         xs, x_T = self._phase1(ts, x, dbs, explore)
 

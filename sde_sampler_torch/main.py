@@ -22,6 +22,15 @@ Unless `wandb.mode=disabled`, a run opens a wandb run (`utils/wandb.py`, a
 no-op without the wandb package) whose id hashes `out_dir`, so a requeued
 job resumes the same run and, with `restore_ckpt_from_wandb`, its latest
 checkpoint artifact.
+
+Data parallelism: `n_devices=W` > 1 runs the job as W processes, the ranks
+of one `torch.distributed` group (`parallel/mesh.py::spawn`), which meet
+through a file store in out_dir. Rank r runs on cuda:(r % cards), or on the
+CPU with `device=cpu`. Rank 0 alone writes config.yaml, main.log and
+metrics.jsonl and opens the wandb run; the other ranks log to stderr,
+tagged with their rank. Each job of a multirun with `n_devices` > 1 spawns
+its own group. Such a run returns a `SpawnedRun` (rank 0's final
+metrics) in place of the solver.
 """
 from __future__ import annotations
 
@@ -31,9 +40,12 @@ import itertools
 import logging
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
+import torch.distributed as dist
 import yaml
 
+from sde_sampler_torch.parallel import mesh
 from sde_sampler_torch.utils import wandb as wandb_shim
 from sde_sampler_torch.utils.config import compose, instantiate, locate
 
@@ -122,26 +134,39 @@ def multirun(overrides: list[str]) -> list:
     return results
 
 
-def compose_run(overrides: list[str]) -> dict:
-    """Compose the config, create out_dir, log to out_dir/main.log and write
-    the resolved config.yaml."""
-    cfg = compose(CONF_DIR, "base", overrides)
+def _out_dir(cfg: dict) -> Path:
+    """The config's out_dir, by default logs/<date>/<time>."""
     if cfg.get("out_dir"):
-        out_dir = Path(cfg["out_dir"])
-    else:
-        now = datetime.datetime.now()
-        out_dir = REPO_ROOT / "logs" / now.strftime("%Y-%m-%d") / now.strftime("%H-%M-%S")
-    out_dir.mkdir(parents=True, exist_ok=True)
+        return Path(cfg["out_dir"])
+    now = datetime.datetime.now()
+    return REPO_ROOT / "logs" / now.strftime("%Y-%m-%d") / now.strftime("%H-%M-%S")
+
+
+def compose_run(overrides: list[str], rank: int | None = None, cfg: dict | None = None) -> dict:
+    """Compose the config (unless `cfg` is the one composed from these
+    overrides), create out_dir, log to out_dir/main.log and write the
+    resolved config.yaml. `rank`: this process's rank in a data-parallel
+    run, whose log lines carry it; a rank other than 0 writes nothing and
+    logs to stderr only."""
+    if cfg is None:
+        cfg = compose(CONF_DIR, "base", overrides)
+    out_dir = _out_dir(cfg)
     cfg["out_dir"] = str(out_dir)
+    handlers = [logging.StreamHandler()]
+    if not rank:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        handlers.append(logging.FileHandler(out_dir / "main.log"))
+    tag = "" if rank is None else f"[rank {rank}]"
     logging.basicConfig(
         level=logging.INFO,
-        format="[%(asctime)s][%(levelname)s] %(message)s",
-        handlers=[logging.StreamHandler(), logging.FileHandler(out_dir / "main.log")],
+        format=f"[%(asctime)s]{tag}[%(levelname)s] %(message)s",
+        handlers=handlers,
         force=True,
     )
     logging.info("Output directory: %s", out_dir)
-    with open(out_dir / "config.yaml", "w") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False)
+    if not rank:
+        with open(out_dir / "config.yaml", "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
     return cfg
 
 
@@ -172,14 +197,48 @@ def make_solver(overrides: list[str]):
     return locate(cfg["solver"]["_target_"])(cfg)
 
 
+class SpawnedRun(NamedTuple):
+    """What a run of n_devices ranks returns in place of its solver."""
+
+    last_metrics: dict  # rank 0's final metrics
+
+
+def _rank_run(rank: int, overrides: list[str]) -> dict:
+    """A spawned rank's job: `main` with its group up; its final metrics."""
+    return dict(main(overrides).last_metrics)
+
+
+def spawn_run(overrides: list[str], cfg: dict) -> SpawnedRun:
+    """The job as n_devices ranks, on out_dir fixed here once (the ranks
+    would otherwise each stamp their own default)."""
+    out_dir = _out_dir(cfg)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    overrides = [ov for ov in overrides if not ov.startswith("out_dir=")]
+    overrides.append(f"out_dir={out_dir}")
+    metrics = mesh.spawn(_rank_run, cfg["n_devices"], device=cfg.get("device") or "cuda",
+                         args=(overrides,), store_dir=out_dir)
+    return SpawnedRun(metrics[0])
+
+
 def main(argv: list[str] | None = None):
-    """Run one job and return the solver after its final evaluation; with
-    -m, run the multirun and return each job's final metrics (in process)
-    or exit code (subprocess launchers)."""
+    """Run one job and return the solver after its final evaluation (a
+    `SpawnedRun` for n_devices > 1); with -m, run the multirun and return
+    each job's final metrics (in process) or exit code (subprocess
+    launchers)."""
     overrides = list(argv if argv is not None else sys.argv[1:])
     if "-m" in overrides or "--multirun" in overrides:
         return multirun([ov for ov in overrides if ov not in ("-m", "--multirun")])
-    cfg = init_wandb(compose_run(overrides), overrides)
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else None
+    cfg = None
+    if rank is None:
+        cfg = compose(CONF_DIR, "base", overrides)
+        if (cfg.get("n_devices") or 1) > 1:
+            return spawn_run(overrides, cfg)
+    cfg = compose_run(overrides, rank, cfg)
+    if not rank:
+        cfg = init_wandb(cfg, overrides)
+    if rank is not None:  # a resumed wandb run may have merged its config
+        cfg = mesh.broadcast_object(cfg, dist.group.WORLD)
     try:
         solver = locate(cfg["solver"]["_target_"])(cfg)
         solver.setup()

@@ -31,7 +31,18 @@ TrainState pytree through one jitted step; here the state is the control
   `ckpt_file` the run's latest artifact is restored into `out_dir` before
   the local checkpoints are searched when `restore_ckpt_from_wandb`;
 - at the end of a run, one log line with the kernel launches and scan-route
-  phase 1s of the run (`ops/build.py`'s counts since the solver was built).
+  phase 1s of the run (`ops/build.py`'s counts since the solver was built);
+- data parallelism, `n_devices` > 1 (`parallel/mesh.py`): the solver runs
+  in each rank of a process group that the entry point started. Rank 0's
+  parameters are broadcast at set-up; after each backward pass the ranks'
+  gradients are summed in one all-reduce of one flat buffer, so the
+  guards, the clip, Adam, the EMA and the schedules read global values and
+  take the same steps on every rank (the parameters stay equal bit for
+  bit). The losses take the whole batch and keep their rows
+  (`losses/oc.py`); the evaluation's Sinkhorn shards its rows over the
+  group. Rank 0 alone writes metrics.jsonl, the plots and the checkpoints,
+  which every rank loads; after code that runs on rank 0 alone and may
+  draw (the plots), every rank takes rank 0's generator state.
 
 Randomness comes from explicit generators: `self.generator` on the device
 (prior samples, noise, reference samples) and a CPU generator for the
@@ -39,6 +50,7 @@ parameter init, both seeded from `seed`.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -54,6 +66,7 @@ from sde_sampler_torch.distr.base import Distribution
 from sde_sampler_torch.eval import plots as plots_lib
 from sde_sampler_torch.eval.metrics import get_metrics
 from sde_sampler_torch.ops import build
+from sde_sampler_torch.parallel import mesh
 from sde_sampler_torch.utils import wandb as wandb_shim
 from sde_sampler_torch.utils.common import CKPT_DIR, Results
 from sde_sampler_torch.utils.config import instantiate
@@ -299,9 +312,15 @@ class Solver:
             raise NotImplementedError(
                 "the port runs float32 matmuls in full precision only"
             )
-        if (cfg.get("n_devices") or 1) > 1:
-            raise NotImplementedError("data parallelism is not ported yet")
+        # the data-parallel group: None on one device; raises unless the
+        # entry point started a group of n_devices ranks
+        self.group = mesh.get_group(cfg.get("n_devices"))
+        self.rank = mesh.rank(self.group)
         self.device = resolve_device(cfg.get("device"))
+        if self.group is not None:
+            described = mesh.describe(self.group)
+            if self.rank == 0:
+                logging.info("Data parallelism: %s", described)
         seed = int(cfg.get("seed", 0))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.init_generator = torch.Generator().manual_seed(seed)
@@ -313,6 +332,9 @@ class Solver:
                 name: instantiate(loss_cfg)
                 for name, loss_cfg in cfg["eval_sample_losses"].items()
             }
+            for loss in self.eval_sample_losses.values():
+                if hasattr(loss, "group"):  # the Sinkhorn shards its rows
+                    loss.group = self.group
 
         self.plot_results: bool = cfg.get("plot_results", True)
         if self.plot_results:
@@ -368,10 +390,22 @@ class Solver:
             metrics["eval/metrics_time"] = time.perf_counter() - start
         return metrics
 
+    def on_rank0(self, fn, default=None):
+        """fn() on rank 0 alone (default elsewhere); every rank then takes
+        rank 0's generator state, which fn may have drawn from."""
+        out = fn() if self.rank == 0 else default
+        mesh.sync_generator(self.generator, self.group)
+        return out
+
     def get_plots(self, results: Results) -> dict:
         """The evaluation's plots: the results' own, and with samples the
         marginals, densities and trajectories (`eval/plots.py`) and the
-        target's (`target.plots`)."""
+        target's (`target.plots`). Rank 0 alone plots."""
+        if self.group is not None:
+            return self.on_rank0(lambda: self._get_plots(results), {})
+        return self._get_plots(results)
+
+    def _get_plots(self, results: Results) -> dict:
         plots = dict(results.plots)
         if results.samples is not None and self.plot_results:
             plots.update(
@@ -397,13 +431,19 @@ class Solver:
             plots_lib.save_fig(fig, self.out_dir / name)
         if step is not None:
             metrics["train/step"] = step
-        self.metrics_file.parent.mkdir(parents=True, exist_ok=True)
-        with self.metrics_file.open(mode="a") as f:
-            f.write(json.dumps(metrics) + "\n")
+        self.write_metrics(metrics)
         wandb_plots = {k: wandb_shim.format_fig(fig) for k, fig in plots.items()}
         wandb_shim.log({**metrics, **wandb_plots}, step=step)
         logging.info("Metrics:\n%s", yaml.dump(metrics))
         return metrics
+
+    def write_metrics(self, metrics: dict) -> None:
+        """Append a metrics.jsonl line (rank 0 alone)."""
+        if self.rank != 0:
+            return
+        self.metrics_file.parent.mkdir(parents=True, exist_ok=True)
+        with self.metrics_file.open(mode="a") as f:
+            f.write(json.dumps(metrics) + "\n")
 
     def run(self) -> Results:
         raise NotImplementedError
@@ -422,7 +462,15 @@ class Solver:
         launches = {k: v - self._launches_at_start[k]
                     for k, v in self._launch_counts().items() if v != self._launches_at_start[k]}
         logging.info("Kernel launches of this run: %s", json.dumps(launches))
+        digest = self.param_digest()
+        if self.group is not None and digest:
+            logging.info("Parameter digest of rank %d: %s", self.rank, digest)
         return results
+
+    def param_digest(self) -> str:
+        """sha256 of the trained parameters' bytes ("" for a solver without
+        any), which the ranks of a group hold equal."""
+        return ""
 
     # -- checkpoint protocol ------------------------------------------------
     def state_dict(self) -> dict:
@@ -442,7 +490,10 @@ class Solver:
                     setattr(self, key, state[key])
 
     def store_checkpoint(self, suffix="") -> Path:
+        """Write the checkpoint (rank 0 alone: the ranks' states are equal)."""
         path = self.ckpt_dir / f"ckpt{suffix}.pt"
+        if self.rank != 0:
+            return path
         logging.info("Save checkpoint at %s", path)
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".pt.tmp")
@@ -454,10 +505,11 @@ class Solver:
 
     def load_checkpoint(self, ckpt_file=None):
         if ckpt_file is None:
-            if self.restore_ckpt_from_wandb:
+            if self.restore_ckpt_from_wandb and self.rank == 0:
                 # preemption resume: this run's latest checkpoint artifact
                 # (run id = hash of out_dir) before the local files
                 wandb_shim.restore_ckpt(self.out_dir)
+            mesh.barrier(self.group)  # the other ranks read what rank 0 wrote
             ckpt_file = latest_checkpoint(self.ckpt_dir)
         if ckpt_file is not None:
             logging.info("Loading checkpoint %s", ckpt_file)
@@ -492,6 +544,7 @@ class Trainable(Solver):
             # checkpoint converted by scripts/import_torch_ckpt.py)
             load_solver_params(self.modules, load_params_file(cfg["params_file"]))
         self.params = [p for p in self.modules.parameters()]
+        mesh.replicate(self.params, self.group)  # rank 0's parameters on every rank
         self.optimizer = self.optim_cfg.build(
             [
                 {
@@ -575,11 +628,7 @@ class Trainable(Solver):
         if self.scale_loss is not None:
             loss = self.scale_loss * loss
         loss.backward()
-        grads = [
-            torch.zeros_like(p) if p.grad is None else p.grad for p in self.params
-        ]
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        grads = self.reduce_grads()
         # the norms of this step's gradients and of the parameters before its
         # update (device tensors: no host sync)
         watched = {} if self.model_watcher is None else self.model_watcher.metrics(self.modules)
@@ -628,6 +677,24 @@ class Trainable(Solver):
         )
         return metrics
 
+    def reduce_grads(self) -> list[torch.Tensor]:
+        """The parameters' gradients (zeros where none), summed over the
+        ranks with a group: one all-reduce of one flat buffer."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if self.group is not None:
+            flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), self.group)
+            grads = [part.view_as(p) for part, p in
+                     zip(flat.split([p.numel() for p in self.params]), self.params)]
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        return grads
+
+    def param_digest(self) -> str:
+        h = hashlib.sha256()
+        for p in self.params:
+            h.update(p.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
     @property
     def n_steps(self) -> int:
         return self._host_step
@@ -657,9 +724,7 @@ class Trainable(Solver):
                 loss = self.scale_loss * loss
             loss.backward()
             losses.append(loss.detach())
-            grads.append(torch.cat([
-                (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
-                for p in self.params]))
+            grads.append(torch.cat([g.reshape(-1) for g in self.reduce_grads()]))
         for p in self.params:
             p.grad = None
         loss_var = torch.stack(losses).var(correction=1)
@@ -751,8 +816,7 @@ class Trainable(Solver):
             metrics["train/n_filtered_cumulative"] = int(self.n_filtered)
             wandb_shim.log(metrics, step=self.n_steps)
             logging.info("Train metrics:\n%s", yaml.dump(metrics))
-            with self.metrics_file.open(mode="a") as f:
-                f.write(json.dumps(metrics) + "\n")
+            self.write_metrics(metrics)
         if not last_step:
             if self.n_steps % self.eval_interval == 0:
                 self.evaluate()

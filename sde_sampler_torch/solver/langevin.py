@@ -4,8 +4,11 @@ Port of `sde_sampler_tpu/solver/langevin.py`: prior samples, a rollout of
 the overdamped Langevin SDE by the configured integrator over the output
 grid `eval_timesteps`, then the burn-in-discarded time averages of the
 expectation functions. There is nothing to train: the results carry no
-weights and no log Z estimates. The JAX package shards the chains over its
-device mesh; the port runs them on one device.
+weights and no log Z estimates. With `n_devices` > 1 the chains are
+sharded over the ranks, as the JAX package shards them over its mesh: each
+rank integrates its block of the chains, drawing every normal at the
+global shape (`eq/integrator.py`), and the expectations are taken over the
+chains gathered on every rank.
 """
 from __future__ import annotations
 
@@ -37,7 +40,9 @@ class LangevinSolver(Solver):
         start_time = time.time()
         x = self.prior.sample((self.cfg["eval_batch_size"],), generator=self.generator)
         ts = self.eval_ts
-        xs = self.integrator.integrate(self.sde, ts=ts, x_init=x, generator=self.generator)
+        sharded = {} if self.group is None else {"group": self.group}
+        xs = self.integrator.integrate(self.sde, ts=ts, x_init=x, generator=self.generator,
+                                       **sharded)
         sync(self.device)
         metrics = {"eval/sample_time": time.time() - start_time}
 

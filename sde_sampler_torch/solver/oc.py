@@ -11,7 +11,17 @@ its exponential integrator takes α and σ from the loss. With
 `plot_results`, an evaluation also rolls out `traj_batch_size` (default
 512) trajectories for the evolution plots and, for a solver with an
 inference SDE and a target with a sampler, plots that SDE's trajectories
-from target samples (`_inference_plots`).
+from target samples (`_inference_plots`, on rank 0 alone).
+
+With a data-parallel group (`n_devices` > 1) the solver draws the whole
+training, evaluation, trajectory and subtrajectory batches, as on one
+device, and the loss keeps this rank's rows of them and of every draw, and
+gathers the evaluation's rollout (`losses/oc.py`): the JAX package's
+`shard_batch` calls of `compute_loss_traced`, `_eval_impl` and the
+subtrajectory step land in the loss's `_enter`. Phase 1 keeps the fused
+rollout on each rank's rows, where the JAX package's mesh run takes its
+scan (it never wired its Pallas kernel under pjit, and the port's kernels
+work row by row).
 
 The subtrajectory window. The JAX package runs a subtrajectory on a
 power-of-two bucket of the time grid, clipped to [ts[idx_init],
@@ -78,6 +88,7 @@ class TrainableDiff(Trainable):
             generative_ctrl=lambda t, x: ctrl(t, x, clips=gen_clips),
             ctrl_module=ctrl,
             ctrl_clips=gen_clips,
+            group=self.group,
         )
         if self.inference_ctrl is not None:
             inference, inf_clips = self.inference_ctrl, clips.get("inference_ctrl")
@@ -144,7 +155,7 @@ class TrainableDiff(Trainable):
         )
         if (self.plot_results and getattr(self, "inference_sde", None) is not None
                 and hasattr(self.target, "sample")):
-            results.plots.update(self._inference_plots())
+            results.plots.update(self.on_rank0(self._inference_plots, {}))
         return results
 
     def _inference_plots(self) -> dict:

@@ -7,6 +7,12 @@ from the repository root, so a child finds the package without PYTHONPATH
 (which `clean_pythonpath` drops); relative paths in its overrides resolve
 against the root. A child runs on the card unless its overrides say
 `device=cpu`; without a card it fails, and so does the sweep.
+
+A job whose overrides say `n_devices=W` (W > 1) is one process that spawns
+its W ranks itself (`sde_sampler_torch/main.py`), under every launcher: a
+pool slot then holds the W ranks, and a Slurm job asks for one task with W
+cards (`--gpus-per-task=W`, unless `gres` says otherwise or the job runs
+on the CPU).
 """
 from __future__ import annotations
 
@@ -26,6 +32,14 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 def job_command(job: list[str]) -> list[str]:
     """The command that runs one job in its own process."""
     return [sys.executable, "-m", "sde_sampler_torch.main", *job]
+
+
+def job_cards(job: list[str]) -> int:
+    """The cards a job's ranks take: its n_devices (1 without), 0 on the CPU."""
+    values = dict(ov.split("=", 1) for ov in job if "=" in ov)
+    if values.get("device") == "cpu":
+        return 0
+    return max(int(values.get("n_devices") or 1), 1)
 
 
 class SequentialLauncher:
@@ -153,6 +167,9 @@ class SlurmLauncher:
         ):
             if value:
                 lines.append(f"#SBATCH --{flag}={value}")
+        if not self.gres and job_cards(job) > 1:
+            # the one task spawns the job's ranks, a card each
+            lines.append(f"#SBATCH --gpus-per-task={job_cards(job)}")
         lines.append("")
         # submitit enforces max_num_timeout on the client; here the script
         # stops once SLURM_RESTART_COUNT exceeds it

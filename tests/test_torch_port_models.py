@@ -232,7 +232,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     smooth NICE flow and the alanine dipeptide, DIS, PIS and DDS with score
     nets of d outputs, and the setup hooks and the model watcher composed
     from conf/ and built, and the entry points with their launchers, sweep,
-    wandb shim and NICE trainer, load no JAX module."""
+    wandb shim and NICE trainer, and the data-parallel layer, load no JAX
+    module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sde_sampler_torch\n"
@@ -265,7 +266,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "          'solver.langevin', 'eq.integrator', 'distr.rings', 'distr.rosenbrock',\n"
         "          'distr.img', 'distr.cox', 'distr.nice', 'distr.aladip', 'distr.aladip_ff',\n"
         "          'distr.aladip_transform', 'utils.debug', 'utils.watch', 'main', 'sweep',\n"
-        "          'train_nice', 'utils.launcher', 'utils.wandb'):\n"
+        "          'train_nice', 'utils.launcher', 'utils.wandb', 'parallel.mesh'):\n"
         "    assert 'sde_sampler_torch.' + m in sys.modules, m\n"
         "print('ok')\n"
     )
