@@ -25,7 +25,11 @@ prints nvcc's register and spill report. Phases:
            net of d outputs, the lerp form's in both bodies, the score
            form's and kernel 2's, each also with a table of equal rows,
            which must give the one-output instance's bits), softmin and
-           transport at 10k for d = 2, 5, 50 and at 100k x 100k, softmin's
+           transport at 10k for d = 2, 5 (rows in registers) and 17, 50, 60,
+           196 (the wide body, which each of these must launch; d = 60 also
+           at the alanine dipeptide's 4096 evaluation; there transport is
+           also held to float64 within WIDE_TRANSPORT_F64_RTOL), and at
+           100k x 100k, softmin's
            edges at 100k (a column split of -inf duals, rows that see only
            -inf) and transport's (a column split of -inf duals, every dual
            -inf, two calls that must give the same bits);
@@ -61,12 +65,13 @@ prints nvcc's register and spill report. Phases:
                         launches a step;
              nice_smooth_dis  the smooth NICE flow (d = 196) under DIS, 20
                         steps, a 10k evaluation and its Sinkhorn through
-                        softmin's run-time-width path; the given-score form
+                        the Sinkhorn kernels' wide body; the given-score form
                         in the generic body, 200 launches a step;
              aladip_vacuum_dis  the alanine dipeptide (d = 60, the native
                         force field's autograd score) under DIS at its batch
                         512, 20 steps, a 4096 evaluation and its Sinkhorn
-                        against the validation set; the given-score form in
+                        against the validation set (the Sinkhorn kernels'
+                        wide body); the given-score form in
                         the generic body, 200 launches a step;
              funnel_dis_lerp_dim, funnel_pis_score_dim,
              funnel_dds_score_dim  DIS, PIS and DDS with a score net of d
@@ -80,7 +85,10 @@ prints nvcc's register and spill report. Phases:
                         port's Brownian tree, 500 chains over T = 1; it logs
                         its accepted and rejected steps;
              dds_euler, pis (funnel), mw_dds (d = 5, kernel 2),
-             mw_50d_dis (d = 50, the generic body), dw_shift_pis (d = 1),
+             mw_50d_dis (d = 50, the generic body and the Sinkhorn
+             kernels' wide body, which these three paths of d > 16 must take
+             for every Sinkhorn launch and no other path may take),
+             dw_shift_pis (d = 1),
              gmm_dis_no_score (the ClippedCtrl), gmm_bridge (the
              LerpTargetCtrl on the scaled BM, a LerpPriorCtrl inference
              control), gmm_bridge_subtraj (PotentialCtrl generative and
@@ -151,7 +159,12 @@ prints nvcc's register and spill report. Phases:
            every step), alone (a given score's on one fixed score) and as
            its plain version at its path's shapes
            (the funnel rollouts in each body), softmin and transport at
-           100k for d = 2 and 50, and one full Sinkhorn evaluation, whose
+           100k for d = 2, 50, 60 and 196, each beside its bound (at d = 50
+           the wide body also against its plain version, with its time, and
+           beside a library yardstick the port never calls: torch.cdist in
+           its default mode and torch.logsumexp over the same 1024-row
+           chunks), one whole 100k Sinkhorn at d = 50 (eval/sinkhorn.py,
+           eps = 1e-3) and one full Sinkhorn evaluation, whose
            transport kernel must lie within TRANSPORT_F64_RTOL of float64
            on the same funnel samples and duals; print each kernel's
            launches per paper-scale DIS run, computed from
@@ -223,6 +236,11 @@ TOL = {"rollout_step": (1e-5, 1e-5), "rollout": (1e-3, 1e-3),
 # eps and passed through the convex exp, biases every float32 form upwards
 # (the kernel 1.1e-3 to 1.6e-3 above float64 in the readings of PERF.md §6)
 TRANSPORT_F64_RTOL = 2e-3
+# the wide body's transport (d > 16) from float64, relative, on the 10k
+# clouds of the kernels phase: the sound kernel lay within 1.15e-5 of it
+# (the plain float32 version within 2.4e-6), the kernels rejected in its
+# design 1.8e-5 to 1.3e-4 from it (PERF.md §6, PR 14)
+WIDE_TRANSPORT_F64_RTOL = 3e-5
 
 KERNELS = ("rollout", "rollout_exp", "softmin", "transport")
 REPLACES = {
@@ -249,6 +267,9 @@ LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb", "eval/log_norm
 FINITE_LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb_finite",
                      "eval/log_norm_const_lb_ito_finite"]
 SINKHORN = ("softmin", "transport")
+# the Sinkhorn kernels' wide body (d > 16), which the paths of d > 16 take
+# for every launch and no other path takes
+WIDE_SINKHORN = ("softmin.wide", "transport.wide")
 PATHS = {
     "dis": dict(target="funnel", solver="dis", kernels=("rollout.lerp.funnel", *SINKHORN),
                 steps=None, eval=None, log_z=LOG_Z_KEYS),
@@ -262,7 +283,8 @@ PATHS = {
                     steps=None, eval=None, log_z=LOG_Z_KEYS),
     "mw_dds": dict(target="mw", solver="dds", kernels=("rollout_exp.score.wells", *SINKHORN),
                    steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
-    "mw_50d_dis": dict(target="mw_50d", solver="dis", kernels=("rollout.lerp.wells", *SINKHORN),
+    "mw_50d_dis": dict(target="mw_50d", solver="dis",
+                       kernels=("rollout.lerp.wells", *SINKHORN, *WIDE_SINKHORN),
                        steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
                        generic=True),
     "dw_shift_pis": dict(target="dw_shift", solver="pis",
@@ -296,9 +318,9 @@ PATHS = {
                     kernels=("rollout.lerp.given.wide",), steps=SHORT_STEPS, eval=SHORT_EVAL,
                     log_z=FINITE_LOG_Z_KEYS, sinkhorn=False, per_step="rollout.lerp.given"),
     "nice_smooth_dis": dict(target="nice_smooth", solver="dis",
-                            kernels=("rollout.lerp.given", *SINKHORN), steps=SHORT_STEPS,
-                            eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, generic=True,
-                            per_step="rollout.lerp.given"),
+                            kernels=("rollout.lerp.given", *SINKHORN, *WIDE_SINKHORN),
+                            steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                            generic=True, per_step="rollout.lerp.given"),
     "rosenbrock_dis": dict(target="rosenbrock", solver="dis",
                            kernels=("rollout.lerp.rosenbrock",), steps=SHORT_STEPS,
                            eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, sinkhorn=False,
@@ -313,9 +335,9 @@ PATHS = {
     # Sinkhorn at 4096 against draws from the validation set
     "aladip_vacuum_dis": dict(target="aladip_vacuum", solver="dis",
                               overrides=[f"train_batch_size={ALADIP_BATCH}"],
-                              kernels=("rollout.lerp.given", *SINKHORN), steps=SHORT_STEPS,
-                              eval=ALADIP_EVAL, log_z=FINITE_LOG_Z_KEYS, generic=True,
-                              per_step="rollout.lerp.given"),
+                              kernels=("rollout.lerp.given", *SINKHORN, *WIDE_SINKHORN),
+                              steps=SHORT_STEPS, eval=ALADIP_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                              generic=True, per_step="rollout.lerp.given"),
     # score nets of one output per coordinate (conf/model/lerp_dim.yaml,
     # score_dim.yaml): the per-coordinate instances of kernels 1 and 2
     "funnel_dis_lerp_dim": dict(target="funnel", solver="dis",
@@ -404,10 +426,15 @@ INSTANCES = {
     "rollout.lerp.dim": dict(form="lerp", target="funnel", bodies=True, score_dim=True),
     "rollout.score.dim": dict(form="score", target="funnel", score_dim=True),
     "rollout_exp.score.dim": dict(form="exp", target="funnel", score_dim=True),
+    # the Sinkhorn kernels' wide body (d > 16: mw_50d, the alanine dipeptide,
+    # NICE), checked at 10k and timed at 100k x 100k, d = 50
+    "softmin.wide": dict(sinkhorn=True),
+    "transport.wide": dict(sinkhorn=True),
 }
 # the NICE and Cox instance of the given score counts its launches on
 # their paths
 INSTANCES["rollout.lerp.given"]["paths"] = ("nice_smooth_dis", "cox_dis")
+ROLLOUT_INSTANCES = [label for label, spec in INSTANCES.items() if not spec.get("sinkhorn")]
 WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
 
 
@@ -729,8 +756,8 @@ def rollout_inputs(device, rng):
 
 
 def pair_inputs(device, rng, n, d, n_inf):
-    """Point clouds and the duals of one Sinkhorn iteration (so that the
-    plan carries mass); the first n_inf duals are -inf."""
+    """Point clouds and the duals of one Sinkhorn iteration
+    (so that the plan carries mass); the first n_inf duals are -inf."""
     import numpy as np
     import torch
 
@@ -820,7 +847,7 @@ def phase_kernels(device, report):
 
     # the instances of the mixture, the wells, the ClippedCtrl and the
     # LerpTargetCtrl, each at its path's shapes
-    for i, label in enumerate(INSTANCES):
+    for i, label in enumerate(ROLLOUT_INSTANCES):
         run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
         check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
         if INSTANCES[label].get("wide_bits"):
@@ -890,23 +917,49 @@ def phase_kernels(device, report):
                 fail(f"{label}: equal rows do not give the one-output instance's bits ({body})")
         report[label]["equal_rows_bits"] = True
 
-    for name in ("softmin", "transport"):
+    for name in ("softmin", "transport", *WIDE_SINKHORN):
         report[name] = {"max_abs_err": 0.0}
-    # the new paths' evaluation widths at their 10k evaluation: gmm (2),
-    # mw (5), mw_50d (50, the run-time-width path)
-    for d in (2, 5, 50):
-        n = SHORT_EVAL
-        x, y, u, v = pair_inputs(device, rng, n, d, n // 100)
+    # the paths' evaluation widths at their 10k evaluation: gmm (2), mw (5),
+    # and the wide body's: 17, mw_50d (50), the alanine dipeptide (60, also
+    # at its 4096 evaluation) and NICE (196), each held to its plain
+    # version within TOL. Above d = 16 transport is also held to float64
+    # within WIDE_TRANSPORT_F64_RTOL.
+    # The widths checked before the wide body (2, 5, 50) draw from `rng` in
+    # their old order, so that every later check sees the inputs it saw then;
+    # the new widths draw from a generator of their own.
+    import numpy as np
+
+    new_rng = np.random.default_rng(SEED + 80)
+    for n, d in ((SHORT_EVAL, 2), (SHORT_EVAL, 5), (SHORT_EVAL, 17), (SHORT_EVAL, 50),
+                 (SHORT_EVAL, 60), (SHORT_EVAL, 196), (ALADIP_EVAL, 60)):
+        r = rng if d in (2, 5, 50) else new_rng
+        x, y, u, v = pair_inputs(device, r, n, d, n // 100)
+        wide = build.FORM_LAUNCHES["softmin.wide"], build.FORM_LAUNCHES["transport.wide"]
         got, want = sk.softmin(x, y, v, EPS), sk.softmin_plain(x, y, v, EPS)
         ok, err = within(got, want, *TOL["softmin"])
         got_t, want_t = sk.transport_cost(x, y, u, v, EPS), sk.transport_cost_plain(x, y, u, v, EPS)
+        took = (build.FORM_LAUNCHES["softmin.wide"] - wide[0],
+                build.FORM_LAUNCHES["transport.wide"] - wide[1])
+        if took != ((1, 1) if d > 16 else (0, 0)):
+            fail(f"softmin and transport at d = {d} launched the wide body {took} times")
+        if d > 16:
+            exact = float(sk.transport_cost_plain(*(t.double() for t in (x, y, u, v)), EPS))
+            rel_k, rel_p = (float(got_t) - exact) / exact, (float(want_t) - exact) / exact
+            print(f"kernel transport (n = m = {n}, d {d}): kernel {float(got_t):.7g}, plain "
+                  f"float32 {float(want_t):.7g}, float64 {exact:.7g}; relative to float64: "
+                  f"kernel {rel_k:.3e}, plain float32 {rel_p:.3e}", flush=True)
+            if not abs(rel_k) <= WIDE_TRANSPORT_F64_RTOL:
+                fail(f"transport at d = {d} is {rel_k:.3e} from float64, beyond "
+                     f"{WIDE_TRANSPORT_F64_RTOL:g}")
         ok_t, err_t = within(got_t, want_t, *TOL["transport"])
         print(f"kernel softmin / transport (n = m = {n}, d {d}): max_abs_err {err:.3e} / "
               f"{err_t:.3e} on {float(want_t):.6g}", flush=True)
         if not (ok and ok_t) or not bool(torch.isfinite(got).all()):
             fail(f"softmin or transport disagrees with its plain version at n = {n}, d = {d}")
-        report["softmin"]["max_abs_err"] = max(report["softmin"]["max_abs_err"], err)
-        report["transport"]["max_abs_err"] = max(report["transport"]["max_abs_err"], err_t)
+        names = ("softmin", "transport") + (WIDE_SINKHORN if d > 16 else ())
+        for name in names:
+            e = err if name.startswith("softmin") else err_t
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], e)
     for d in (DIM, 1):
         n, n_inf = EVAL_BATCH, EVAL_BATCH // 100
         x, y, u, v = pair_inputs(device, rng, n, d, n_inf)
@@ -1030,6 +1083,11 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         count = build.FORM_LAUNCHES[key] if "." in key else build.LAUNCHES[key]
         if count <= 0:
             fail(f"kernel {key} was not launched on the {path} path")
+    for key in WIDE_SINKHORN:
+        # d > 16: every Sinkhorn launch in the wide body; else none
+        want = build.LAUNCHES[key.split(".")[0]] if key in spec["kernels"] else 0
+        if build.FORM_LAUNCHES[key] != want:
+            fail(f"{path}: {build.FORM_LAUNCHES[key]} launches of {key}, expected {want}")
     scan_calls = build.ROUTES["route.scan"]
     if spec.get("scan"):
         # phase 1 through the scan route once per optimizer step, and no
@@ -1923,7 +1981,7 @@ def phase_timing(solvers, device, report):
 
     # the new instances at their paths' shapes: through the wrapper, the
     # kernel alone in the body its shape takes, the plain twin
-    for i, label in enumerate(INSTANCES):
+    for i, label in enumerate(ROLLOUT_INSTANCES):
         run, plain, prepare, x0i, tsi, noisei, work = seeded_instance(
             device, label, SEED + 10 + i)
         prepared = prepare(x0i, tsi, noisei)
@@ -1963,10 +2021,16 @@ def phase_timing(solvers, device, report):
           f"{k[f'generic_d{WIDE_POTENTIAL_DIM}_ms']:.3f} ms alone (bound "
           f"{k[f'generic_d{WIDE_POTENTIAL_DIM}_bound_ms']:.4f} ms)", flush=True)
 
-    # softmin and transport at the mixture's and mw_50d's widths, 100k x 100k
-    # (the kernels alone; the plain versions take tens of seconds there)
-    for d in (2, 50):
-        x, y, u, v = pair_inputs(device, rng, EVAL_BATCH, d, 0)
+    # softmin and transport at the mixture's width and the wide body's (mw_50d,
+    # the alanine dipeptide, NICE), 100k x 100k, the kernels alone; at d = 50
+    # the wide body also against its plain version (tens of seconds there)
+    # and a library yardstick. d = 60 and 196 draw from a generator of their
+    # own, so that the later draws of `rng` are those of the runs before them.
+    import numpy as np
+
+    new_rng = np.random.default_rng(SEED + 90)
+    for d in (2, 50, 60, 196):
+        x, y, u, v = pair_inputs(device, rng if d in (2, 50) else new_rng, EVAL_BATCH, d, 0)
         widths = report.setdefault("sinkhorn_kernels_by_d", {})
         widths[d] = {
             "softmin_ms": cuda_ms(lambda: sk.softmin(x, y, v, EPS), reps=5),
@@ -1974,9 +2038,27 @@ def phase_timing(solvers, device, report):
             "softmin_bound_ms": bound(*pair_work(EVAL_BATCH, EVAL_BATCH, d, 6, EVAL_BATCH))[0],
             "transport_bound_ms": bound(*pair_work(EVAL_BATCH, EVAL_BATCH, d, 8, 1))[0],
         }
-        print(f"time softmin / transport at 100k x 100k, d {d}: {widths[d]['softmin_ms']:.3f} "
-              f"/ {widths[d]['transport_ms']:.3f} ms (bounds {widths[d]['softmin_bound_ms']:.4f} "
-              f"/ {widths[d]['transport_bound_ms']:.4f} ms)", flush=True)
+        w = widths[d]
+        print(f"time softmin / transport at 100k x 100k, d {d}: {w['softmin_ms']:.3f} "
+              f"/ {w['transport_ms']:.3f} ms (bounds {w['softmin_bound_ms']:.4f} "
+              f"/ {w['transport_bound_ms']:.4f} ms; {w['softmin_ms'] / w['softmin_bound_ms']:.2f}"
+              f" / {w['transport_ms'] / w['transport_bound_ms']:.2f}x)", flush=True)
+        if d == 50:
+            time_wide_body(x, y, u, v, w, report)
+
+    # one whole 100k Sinkhorn at d = 50 (eval/sinkhorn.py, eps = 1e-3), as an
+    # mw_50d evaluation runs it
+    x, y = pair_inputs(device, new_rng, EVAL_BATCH, 50, 0)[:2]
+    sinkhorn = Sinkhorn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    value = float(sinkhorn(x, y))
+    total = time.perf_counter() - start
+    print(f"Sinkhorn 100k vs 100k at d 50 (eps {sinkhorn.eps:g}): {total:.3f} s, "
+          f"{sinkhorn.n_iters} iterations, value {value:.6g}", flush=True)
+    if not math.isfinite(value):
+        fail("the 100k Sinkhorn at d = 50 is not finite")
+    report["sinkhorn_d50"] = {"seconds": total, "iterations": sinkhorn.n_iters, "value": value}
 
     x, y, u, v = pair_inputs(device, rng, EVAL_BATCH, DIM, 0)
     for name, fn, plain, per_pair, n_out in (
@@ -2056,6 +2138,60 @@ def phase_timing(solvers, device, report):
                                              warmup=1)
     finally:
         ro.phase1_route = choose
+
+
+def softmin_yardstick(x, y, dual, eps, row_chunk: int = 1024):
+    """softmin by torch.cdist in its default mode (matrix products past 25
+    rows, in float32: TF32 is off for them) and torch.logsumexp over the
+    plain version's row chunks: a library yardstick, which the port never
+    calls."""
+    import torch
+
+    out = torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
+    for r0 in range(0, x.shape[0], row_chunk):
+        z = (-torch.cdist(x[r0 : r0 + row_chunk], y) + dual[None, :]) / eps
+        out[r0 : r0 + row_chunk] = eps * torch.logsumexp(z, dim=1)
+    return out
+
+
+def time_wide_body(x, y, u, v, widths, report):
+    """The wide body at 100k x 100k, d = 50 (mw_50d's evaluation): each
+    kernel against its plain version (TOL) with the plain version's time,
+    beside its bound, and softmin beside the library yardstick."""
+    import torch
+
+    from sde_sampler_torch.ops import sinkhorn as sk
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("the yardstick's matrix products must run in float32, not TF32")
+    n, d = x.shape
+    got = {}
+    for name, fn, plain, per_pair, n_out in (
+        ("softmin.wide", lambda: sk.softmin(x, y, v, EPS),
+         lambda: sk.softmin_plain(x, y, v, EPS), 6, n),
+        ("transport.wide", lambda: sk.transport_cost(x, y, u, v, EPS),
+         lambda: sk.transport_cost_plain(x, y, u, v, EPS), 8, 1),
+    ):
+        k = report[name]
+        got[name] = fn()
+        want, k["plain_ms"] = timed(plain)
+        ok, err = within(got[name], want, *TOL[name.split(".")[0]])
+        k["max_abs_err"] = max(k.get("max_abs_err", 0.0), err)
+        k["ms"] = widths[f"{name.split('.')[0]}_ms"]
+        k["bound_ms"], k["bound_by"] = bound(*pair_work(n, n, d, per_pair, n_out))
+        value = f"value {float(want):.6g}, " if want.dim() == 0 else ""
+        print(f"kernel {name} (n = m = {n}, d {d}): {value}max_abs_err {err:.3e}; "
+              f"{k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
+              f"by {k['bound_by']})", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version at n = m = {n}, d = {d}")
+    k = report["softmin.wide"]
+    k["yardstick_ms"] = cuda_ms(lambda: softmin_yardstick(x, y, v, EPS), reps=3)
+    yard = softmin_yardstick(x, y, v, EPS)
+    k["yardstick_max_abs_diff"] = float((yard - got["softmin.wide"]).abs().max())
+    print(f"yardstick softmin at d {d} (torch.cdist default mode + torch.logsumexp, 1024-row "
+          f"chunks): {k['yardstick_ms']:.3f} ms against the kernel's {k['ms']:.3f} ms; max "
+          f"|diff| {k['yardstick_max_abs_diff']:.3e}", flush=True)
 
 
 def paper_scale_launches(sinkhorn_iters: int) -> dict:
@@ -2153,6 +2289,7 @@ def main():
             "kernel_ms": k.get("kernel_ms"), "generic_body_ms": k.get("generic_body_ms"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,
+            "yardstick_ms": k.get("yardstick_ms"),
         })
     report["seconds"] = time.perf_counter() - run_start
     print(f"phases {args.phases} done in {report['seconds']:.1f} s", flush=True)

@@ -13,8 +13,9 @@ imported: the CPU tests import it.
 Each C launch entry point launches on the caller's stream, allocates
 nothing and returns `cudaGetLastError()`; `check` raises on a non-zero
 code. The kernels' shapes and tiling are decided on the C side: a launch
-reports the body it took (`rollout*_launch`), and `softmin_scratch` and
-`transport_scratch` size the scratch that the Sinkhorn wrappers allocate.
+reports the body it took (`rollout*_launch`, `softmin_launch`,
+`transport_launch`), and `softmin_scratch` and `transport_scratch` size the
+scratch that the Sinkhorn wrappers allocate.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ NVCC_FLAGS = ARCH_FLAGS + [
 # once more under "<kernel>.<form>.generic", those of the wide body (a given
 # score too wide for the generic one) under "<kernel>.<form>.<target>.wide",
 # and those of a per-coordinate score net under "<kernel>.<form>.dim", so a
-# run shows which instance it took.
+# run shows which instance it took. The Sinkhorn kernels count the launches
+# of their wide body (d > 16) once more under "<kernel>.wide".
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
@@ -65,7 +67,7 @@ FORM_LAUNCHES: dict[str, int] = {
                 *(f"{kernel}.{form}.{target}" for target in targets),
                 *((f"{kernel}.{form}.given.wide",) if "given" in targets else ()),
                 *((f"{kernel}.{form}.dim",) if form in SCORE_DIM_INSTANCES[kernel] else ()))
-}
+} | {"softmin.wide": 0, "transport.wide": 0}
 
 
 # Phase-1 rollouts that took a route other than a kernel: "route.scan"
@@ -88,8 +90,11 @@ def count_route(route: str) -> None:
 def count_launch(name: str, form: str | None = None, target: str | None = None,
                  body: str = "fast", per_coord: bool = False) -> None:
     """One launch of kernel `name`, of its `form` and `target`, in `body`
-    ("fast", "generic" or "wide"), with a per-coordinate score net or not."""
+    ("fast", "generic" or "wide"; a Sinkhorn kernel's "staged" or "wide"),
+    with a per-coordinate score net or not."""
     LAUNCHES[name] += 1
+    if form is None and body == "wide":
+        FORM_LAUNCHES[f"{name}.wide"] += 1
     if form is not None:
         FORM_LAUNCHES[f"{name}.{form}"] += 1
         if per_coord:
@@ -115,14 +120,14 @@ SIGNATURES = {
     # T, K, the table's width and height, the sscore columns; clips, four
     # target scalars; target, body; used body; stream
     "rollout_exp_launch": [_PTR] * 12 + [_I32] * 9 + [_F32] * 6 + [_I32] * 2 + [_OUT, _PTR],
-    # n, m, d; splits, cols (out)
-    "softmin_scratch": [_I32] * 3 + [_OUT, _OUT],
-    # x, y, dual, out, scratch; n, m, d; eps; stream
-    "softmin_launch": [_PTR] * 5 + [_I32] * 3 + [_F32, _PTR],
-    # n, m, d; splits, cols (out)
-    "transport_scratch": [_I32] * 3 + [_OUT, _OUT],
-    # x, y, u, v, total, scratch; n, m, d; eps; stream
-    "transport_launch": [_PTR] * 6 + [_I32] * 3 + [_F32, _PTR],
+    # n, m, d; splits, cols, rows per block (out)
+    "softmin_scratch": [_I32] * 3 + [_OUT] * 3,
+    # x, y, dual, out, scratch; n, m, d; eps; used body; stream
+    "softmin_launch": [_PTR] * 5 + [_I32] * 3 + [_F32, _OUT, _PTR],
+    # n, m, d; splits, cols, rows per block (out)
+    "transport_scratch": [_I32] * 3 + [_OUT] * 3,
+    # x, y, u, v, total, scratch; n, m, d; eps; used body; stream
+    "transport_launch": [_PTR] * 6 + [_I32] * 3 + [_F32, _OUT, _PTR],
 }
 RESTYPES = {"softmin_scratch": ctypes.c_longlong, "transport_scratch": ctypes.c_longlong}
 

@@ -10,9 +10,14 @@ through `torch.cdist(..., compute_mode="donot_use_mm_for_euclid_dist")`,
 never the quadratic form whose cancellation broke the TPU's d = 1 path.
 
 Both kernels split the columns across blocks so that a 100k-row problem
-fills the card. The kernel library sizes the splits and the scratch
-(packed columns and per-split partials); `softmin_plan` and
-`transport_plan` read them and the wrappers allocate the scratch.
+fills the card. The kernel library picks the body by width (d <= 16: rows
+held in registers against staged column records; d > 16: the wide body, a
+register-blocked tile of 128 rows by 128 columns over k-major copies of
+both clouds) and sizes the splits, the rows per block and the scratch
+(packed columns, for the wide body also packed rows, and per-split
+partials); `softmin_plan` and `transport_plan` read them and the wrappers
+allocate the scratch. A launch reports its body, and a wide one counts
+once more under "softmin.wide" or "transport.wide".
 """
 from __future__ import annotations
 
@@ -29,22 +34,27 @@ ROW_CHUNK = 1024  # rows per dense (ROW_CHUNK, m) tile of the plain versions
 class SplitPlan(NamedTuple):
     splits: int
     cols: int  # split s holds columns [s * cols, (s + 1) * cols), the last fewer
+    rows: int  # rows per block
     scratch_floats: int
 
 
+# the body a launch reports: rows in registers (d <= 16) or the wide body
+BODY_NAMES = {0: "staged", 1: "wide"}
+
+
 def _plan(kernel: str, n: int, m: int, d: int) -> SplitPlan:
-    splits, cols = ctypes.c_int(0), ctypes.c_int(0)
+    splits, cols, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     scratch = getattr(build.library(), f"{kernel}_scratch")
-    floats = scratch(n, m, d, ctypes.byref(splits), ctypes.byref(cols))
+    floats = scratch(n, m, d, ctypes.byref(splits), ctypes.byref(cols), ctypes.byref(rows))
     if floats < 0:
         raise ValueError(f"{kernel} takes no n={n}, m={m}, d={d}")
-    return SplitPlan(splits.value, cols.value, floats)
+    return SplitPlan(splits.value, cols.value, rows.value, floats)
 
 
 def softmin_plan(n: int, m: int, d: int) -> SplitPlan:
-    """The softmin kernel's column splits and scratch for n rows of width d
-    against m columns, as the kernel library sizes them (needs the library,
-    so a CUDA build)."""
+    """The softmin kernel's column splits, rows per block and scratch for n
+    rows of width d against m columns, as the kernel library sizes them
+    (needs the library, so a CUDA build)."""
     return _plan("softmin", n, m, d)
 
 
@@ -107,12 +117,13 @@ def _softmin_launch(x, y, dual, eps: float) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     scratch = torch.empty(softmin_plan(n, m, d).scratch_floats, dtype=torch.float32,
                           device=x.device)
+    body = ctypes.c_int(-1)
     code = build.library().softmin_launch(
         x.data_ptr(), y.data_ptr(), dual.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        n, m, d, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        n, m, d, float(eps), ctypes.byref(body), torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(code, "softmin")
-    build.count_launch("softmin")
+    build.count_launch("softmin", body=BODY_NAMES[body.value])
     return out
 
 
@@ -136,11 +147,12 @@ def _transport_launch(x, y, u, v, eps: float) -> torch.Tensor:
     total = torch.empty((), dtype=torch.float32, device=x.device)
     scratch = torch.empty(transport_plan(n, m, d).scratch_floats, dtype=torch.float32,
                           device=x.device)
+    body = ctypes.c_int(-1)
     code = build.library().transport_launch(
         x.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(), total.data_ptr(),
-        scratch.data_ptr(), n, m, d, float(eps),
+        scratch.data_ptr(), n, m, d, float(eps), ctypes.byref(body),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(code, "transport")
-    build.count_launch("transport")
+    build.count_launch("transport", body=BODY_NAMES[body.value])
     return total

@@ -53,7 +53,6 @@ from sde_sampler_torch.models.reparam import (
 from sde_sampler_torch.utils.common import get_timesteps
 
 pytestmark = pytest.mark.cuda
-TRANSPORT_BLOCK_ROWS = 512  # 128 threads x 4 rows (csrc/sinkhorn.cu)
 
 
 @pytest.fixture
@@ -175,17 +174,18 @@ def test_exp_rollout_kernel_matches_plain_twin(cuda, batch):
 
 
 @pytest.mark.parametrize("duals", ["random", "plan"])
-@pytest.mark.parametrize("d", [1, 10, 40])
+@pytest.mark.parametrize("d", [1, 10, 40, 50, 60, 196])
 def test_sinkhorn_kernels_match_plain_versions(cuda, d, duals):
-    """d = 40 takes the kernels' run-time-width path (d > 16).
+    """d = 40 and up take the kernels' wide body (d > 16); 50, 60 and 196
+    are the widths of mw_50d, the alanine dipeptide and NICE.
 
     Transport on random duals: at d = 1 many plan entries are normal floats
     and the kernel is held to the plain version. At d = 10 all plan entries
-    but one lie below float32's smallest normal, 2^-126, and at d = 40 all
+    but one lie below float32's smallest normal, 2^-126, and at d >= 40 all
     do: the kernel drops those (ex2.approx.ftz) where the plain version
     keeps them as subnormals, so there it is held to the sum over the
     normal entries alone (one entry at d = 10, whose exponent of about -117
-    in log2 units gets no averaging: rtol 1e-4; exactly 0 at d = 40). On
+    in log2 units gets no averaging: rtol 1e-4; exactly 0 at d >= 40). On
     the duals of one Sinkhorn iteration (`plan_duals`) the plan carries
     mass at every d."""
     from sde_sampler_torch.ops.sinkhorn import (
@@ -299,23 +299,27 @@ def test_generic_rollout_body_matches_plain_twin(cuda, form):
     torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", [1, 10, 12, 16, 17, 400])
+@pytest.mark.parametrize("d", [1, 10, 12, 16, 17, 50, 60, 196, 400])
 @pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
 def test_softmin_kernel_splits_and_edges(cuda, d, case):
-    """n = 1000 rows (not a multiple of the 512-row block) against m = 5001
-    columns in four column splits, the last one ragged; d = 1..16 hold the
-    rows in registers, d = 17 and 400 take the run-time-width path, which
-    stages nothing in shared memory. d = 400 is drawn at standard deviation
-    sqrt(10 / d), so that its distances are of the order of d = 10's and
-    the same absolute tolerance applies. "dead_split": every dual of the
-    second split is -inf (it merges as no contribution); "all_inf": every
-    row sees only -inf and gives -inf."""
+    """n = 1000 rows (no multiple of the block's rows, 512 for d <= 16, 128
+    for the wide body) against m = 5001 columns in column splits, the last
+    one ragged, as the library plans them; d = 1..16 hold the rows in
+    registers, d = 17 and up take the wide body (a register-blocked tile
+    over k-major copies of both clouds). d > 17 is drawn at standard
+    deviation sqrt(10 / d), so that its distances are of the order of
+    d = 10's and the same absolute tolerance applies. "dead_split": every
+    dual of the second split is -inf (it merges as no contribution);
+    "all_inf": every row sees only -inf and gives -inf."""
     from sde_sampler_torch.ops import build
     from sde_sampler_torch.ops.sinkhorn import softmin, softmin_plain, softmin_plan
 
     n, m, eps = 1000, 5001, 1e-2
     plan = softmin_plan(n, m, d)
-    assert plan.splits == 4 and m % plan.cols and n % 512
+    assert plan.rows == (512 if d <= 16 else 128)
+    # four splits for d <= 16; the wide body plans at least as many
+    assert (plan.splits == 4) if d <= 16 else (plan.splits >= 4)
+    assert m % plan.cols and n % plan.rows
     rng = np.random.default_rng(100 + d)
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
     scale = 1.0 if d <= 17 else math.sqrt(10 / d)
@@ -326,10 +330,11 @@ def test_softmin_kernel_splits_and_edges(cuda, d, case):
         dual[:7] = -math.inf
     elif case == "all_inf":
         dual[:] = -math.inf
-    before = build.LAUNCHES["softmin"]
+    before, wide = build.LAUNCHES["softmin"], build.FORM_LAUNCHES["softmin.wide"]
     got = softmin(x, y, dual, eps)
     torch.cuda.synchronize()
     assert build.LAUNCHES["softmin"] == before + 1
+    assert build.FORM_LAUNCHES["softmin.wide"] == wide + (d > 16)
     want = softmin_plain(x, y, dual, eps)
     if case == "all_inf":
         assert bool((got == -math.inf).all()) and bool((want == -math.inf).all())
@@ -338,15 +343,15 @@ def test_softmin_kernel_splits_and_edges(cuda, d, case):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [1, 10, 16, 17, 400])
+@pytest.mark.parametrize("d", [1, 10, 16, 17, 50, 60, 196, 400])
 @pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
 def test_transport_kernel_splits_and_edges(cuda, d, case):
-    """n = 1000 rows against m = 5001 columns in four column splits, the
-    last one ragged; d = 1..16 hold the rows in registers, d = 17 and 400
-    take the run-time-width path. d = 400 is drawn at standard deviation
-    sqrt(10 / d), as in the softmin test. "dead_split": every column dual
-    of the second split is -inf, and a few rows' duals too; "all_inf":
-    every dual is -inf, and the cost is exactly 0."""
+    """n = 1000 rows against m = 5001 columns in column splits, the last
+    one ragged, as the library plans them; d = 1..16 hold the rows in
+    registers, d = 17 and up take the wide body. d > 17 is drawn at
+    standard deviation sqrt(10 / d), as in the softmin test. "dead_split":
+    every column dual of the second split is -inf, and a few rows' duals
+    too; "all_inf": every dual is -inf, and the cost is exactly 0."""
     from sde_sampler_torch.ops import build
     from sde_sampler_torch.ops.sinkhorn import (
         transport_cost,
@@ -356,7 +361,10 @@ def test_transport_kernel_splits_and_edges(cuda, d, case):
 
     n, m, eps = 1000, 5001, 1e-2
     plan = transport_plan(n, m, d)
-    assert plan.splits == 4 and m % plan.cols
+    assert plan.rows == (512 if d <= 16 else 128)
+    # four splits for d <= 16; the wide body plans at least as many
+    assert (plan.splits == 4) if d <= 16 else (plan.splits >= 4)
+    assert m % plan.cols and n % plan.rows
     rng = np.random.default_rng(200 + d)
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
     scale = 1.0 if d <= 17 else math.sqrt(10 / d)
@@ -369,10 +377,11 @@ def test_transport_kernel_splits_and_edges(cuda, d, case):
     elif case == "all_inf":
         u[:] = -math.inf
         v[:] = -math.inf
-    before = build.LAUNCHES["transport"]
+    before, wide = build.LAUNCHES["transport"], build.FORM_LAUNCHES["transport.wide"]
     got = transport_cost(x, y, u, v, eps)
     torch.cuda.synchronize()
     assert build.LAUNCHES["transport"] == before + 1
+    assert build.FORM_LAUNCHES["transport.wide"] == wide + (d > 16)
     want = transport_cost_plain(x, y, u, v, eps)
     if case == "all_inf":
         assert float(got) == 0.0 and float(want) == 0.0
@@ -392,6 +401,45 @@ def test_transport_kernel_is_deterministic(cuda):
     u, v = plan_duals(x, y, 1e-2)
     first = transport_cost(x, y, u, v, 1e-2)
     assert all(torch.equal(transport_cost(x, y, u, v, 1e-2), first) for _ in range(3))
+
+
+def test_wide_transport_kernel_is_deterministic(cuda):
+    """The same at d = 50 in the wide body: its threads' partials are
+    folded into the same fixed double-precision tree."""
+    from sde_sampler_torch.ops.sinkhorn import transport_cost
+
+    rng = np.random.default_rng(8)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    x, y = f(rng.normal(size=(3000, 50))), f(rng.normal(size=(20000, 50)) + 0.3)
+    u, v = plan_duals(x, y, 1e-2)
+    first = transport_cost(x, y, u, v, 1e-2)
+    assert float(first) > 0
+    assert all(torch.equal(transport_cost(x, y, u, v, 1e-2), first) for _ in range(3))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+def test_wide_body_rows_past_the_row_tile(cuda, n):
+    """Row counts that leave the last 128-row block partly empty (n = 1 and
+    127 fill no block): the padded rows write no softmin output and carry a
+    -inf u, so they add nothing to the transport cost."""
+    from sde_sampler_torch.ops.sinkhorn import (
+        softmin,
+        softmin_plain,
+        transport_cost,
+        transport_cost_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    d, eps = 50, 1e-2
+    scale = math.sqrt(10 / d)
+    x, y = f(rng.normal(size=(n, d)) * scale), f((rng.normal(size=(999, d)) + 0.3) * scale)
+    u, v = plan_duals(x, y, eps)
+    torch.testing.assert_close(softmin(x, y, v, eps), softmin_plain(x, y, v, eps),
+                               atol=1e-5, rtol=0)
+    want = transport_cost_plain(x, y, u, v, eps)
+    assert float(want) > 0
+    torch.testing.assert_close(transport_cost(x, y, u, v, eps), want, atol=0, rtol=1e-5)
 
 
 @pytest.mark.parametrize(
@@ -489,16 +537,58 @@ def test_transport_plan_covers_every_column_once(cuda, n, m):
         assert (owner[lo:hi] == -1).all()
         owner[lo:hi] = s
     assert (owner >= 0).all()
-    assert plan.scratch_floats == m_pad * 12 + 2 * plan.splits * -(-n // TRANSPORT_BLOCK_ROWS)
+    assert plan.rows == 512  # 128 threads x 4 rows
+    assert plan.scratch_floats == m_pad * 12 + 2 * plan.splits * -(-n // plan.rows)
+
+
+@pytest.mark.parametrize("d", [17, 50, 196])
+@pytest.mark.parametrize("n", [1, 777, 100_000])
+@pytest.mark.parametrize("m", [1, 777, 100_000])
+def test_wide_plans_cover_every_column_once(cuda, d, n, m):
+    """The wide body's splits (d > 16): each a multiple of the 128-column
+    tile, none empty, together covering m rounded up to the tile; blocks of
+    128 rows. The scratch holds the k-major columns and rows (d rounded up
+    to the 8-coordinate slice, rows to whole blocks), the columns' duals,
+    then softmin's max and sum per row and split, or transport's double per
+    row block and split."""
+    from sde_sampler_torch.ops.sinkhorn import softmin_plan, transport_plan
+
+    m_pad, d_pad = -(-m // 128) * 128, -(-d // 8) * 8
+    sm, tr = softmin_plan(n, m, d), transport_plan(n, m, d)
+    assert sm[:3] == tr[:3]  # one plan for both kernels
+    for plan in (sm, tr):
+        assert plan.rows == 128 and plan.cols % 128 == 0
+        owner = np.full(m_pad, -1)
+        for s in range(plan.splits):
+            lo, hi = s * plan.cols, min((s + 1) * plan.cols, m_pad)
+            assert hi > lo, "empty split"
+            assert (owner[lo:hi] == -1).all()
+            owner[lo:hi] = s
+        assert (owner >= 0).all()
+    packed = d_pad * (m_pad + -(-n // 128) * 128) + m_pad
+    assert sm.scratch_floats == packed + 2 * sm.splits * n
+    assert tr.scratch_floats == packed + 2 * tr.splits * -(-n // 128)
 
 
 def test_softmin_plan_fills_the_card_at_the_evaluation_size(cuda):
     from sde_sampler_torch.ops.sinkhorn import softmin_plan
 
     plan = softmin_plan(100_000, 100_000, 10)
-    row_blocks = -(-100_000 // 512)
+    row_blocks = -(-100_000 // plan.rows)
     assert row_blocks * plan.splits >= 132 * 16
     assert plan.cols >= 1024
+
+
+@pytest.mark.parametrize("n,m", [(100_000, 100_000), (10_000, 10_000), (4096, 4096),
+                                 (50_000, 100_000)])
+def test_wide_plan_fills_the_card(cuda, n, m):
+    """The wide body at the evaluation's 100k, the short paths' 10k, the
+    alanine dipeptide's 4096 and a data-parallel rank's 50k x 100k: at least
+    one wave of two blocks on each of the 132 SMs."""
+    from sde_sampler_torch.ops.sinkhorn import softmin_plan, transport_plan
+
+    for plan in (softmin_plan(n, m, 50), transport_plan(n, m, 50)):
+        assert -(-n // plan.rows) * plan.splits >= 2 * 132
 
 
 # The (form, target) instances beyond the funnel's: form, target, d. The

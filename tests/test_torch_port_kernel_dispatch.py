@@ -73,10 +73,12 @@ def rollout_inputs(d, B=5, T=4, seed=0):
 
 class FakeLibrary:
     """Stands in for the kernel library: records each launch's arguments,
-    reports the body `body` and returns `code`."""
+    reports the body `body` (a Sinkhorn launch `sinkhorn_body`) and returns
+    `code`."""
 
-    def __init__(self, body="fast", code=0):
+    def __init__(self, body="fast", code=0, sinkhorn_body="staged"):
         self.calls, self.body, self.code = [], body, code
+        self.sinkhorn_body = sinkhorn_body
 
     def _launch(self, *args):
         self.calls.append(args)
@@ -85,16 +87,17 @@ class FakeLibrary:
 
     rollout_launch = rollout_exp_launch = _launch
 
-    def softmin_scratch(self, n, m, d, splits, cols):
-        splits._obj.value, cols._obj.value = 3, 1024
+    def softmin_scratch(self, n, m, d, splits, cols, rows):
+        splits._obj.value, cols._obj.value, rows._obj.value = 3, 1024, 512
         return 17 * n + m
 
-    def transport_scratch(self, n, m, d, splits, cols):
-        splits._obj.value, cols._obj.value = 5, 2048
+    def transport_scratch(self, n, m, d, splits, cols, rows):
+        splits._obj.value, cols._obj.value, rows._obj.value = 5, 2048, 128
         return 13 * m + 2 * n
 
     def _record(self, *args):
         self.calls.append(args)
+        args[-2]._obj.value = {"staged": 0, "wide": 1}[self.sinkhorn_body]  # the `body` out
         return self.code
 
     softmin_launch = transport_launch = _record
@@ -319,7 +322,7 @@ def test_softmin_launch_allocates_the_scratch_the_library_sizes(fake_library, mo
     assert args[5:8] == (n, m, d) and args[8] == pytest.approx(0.1)
     assert sizes == [n, 17 * n + m]  # out, then the scratch
     assert out.shape == (n,)
-    assert sk.softmin_plan(n, m, d) == (3, 1024, 17 * n + m)
+    assert sk.softmin_plan(n, m, d) == (3, 1024, 512, 17 * n + m)
     assert build.LAUNCHES["softmin"] == launches + 1
 
 
@@ -347,8 +350,24 @@ def test_transport_launch_allocates_the_scratch_the_library_sizes(fake_library, 
     pointers = [t.data_ptr() for t in (x, y, u, v, *made)]
     assert list(args[:6]) == pointers
     assert args[6:9] == (n, m, d) and args[9] == pytest.approx(0.1)
-    assert sk.transport_plan(n, m, d) == (5, 2048, 13 * m + 2 * n)
+    assert sk.transport_plan(n, m, d) == (5, 2048, 128, 13 * m + 2 * n)
     assert build.LAUNCHES["transport"] == launches + 1
+
+
+@pytest.mark.parametrize("reported", ["staged", "wide"])
+@pytest.mark.parametrize("name", ["softmin", "transport"])
+def test_sinkhorn_launch_counts_the_body_the_library_reports(fake_library, name, reported):
+    """The library picks the body by width and reports it: every launch
+    counts under the kernel, a wide one once more under "<kernel>.wide"."""
+    fake_library.sinkhorn_body = reported
+    x, y, u, v = transport_inputs(40, 30, 20)
+    before, wide = build.LAUNCHES[name], build.FORM_LAUNCHES[f"{name}.wide"]
+    if name == "softmin":
+        sk._softmin_launch(x, y, v, 0.1)
+    else:
+        sk._transport_launch(x, y, u, v, 0.1)
+    assert build.LAUNCHES[name] == before + 1
+    assert build.FORM_LAUNCHES[f"{name}.wide"] == wide + (reported == "wide")
 
 
 def test_failed_transport_launch_raises_and_counts_nothing(fake_library):

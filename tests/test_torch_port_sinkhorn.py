@@ -86,11 +86,14 @@ def test_minus_inf_duals_stay_finite_where_jax_does():
     assert torch.all(out == -math.inf)
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_sinkhorn_matches_jax(weighted):
+@pytest.mark.parametrize("weighted,d", [(False, 5), (True, 5), (False, 50)],
+                         ids=["False", "True", "d50"])
+def test_sinkhorn_matches_jax(weighted, d):
+    """d = 50 is the width of `target=mw_50d`, which the kernels take through
+    their wide body on the card."""
     rng = np.random.default_rng(3)
-    x = rng.normal(size=(300, 5)).astype(np.float32)
-    y = (rng.normal(size=(300 if not weighted else 217, 5)) + 0.25).astype(np.float32)
+    x = rng.normal(size=(300, d)).astype(np.float32)
+    y = (rng.normal(size=(300 if not weighted else 217, d)) + 0.25).astype(np.float32)
     kw = dict(eps=1e-2, max_iters=60, stop_thresh=1e-6)
     w = {}
     if weighted:
@@ -133,6 +136,12 @@ def split_softmin(x, y, dual, eps, cols, chunk=16):
             s = s * np.exp2(mx - base) + np.exp2(zc - base[:, None]).sum(axis=1)
             mx = mn
         parts.append((mx, s))
+    return merge_softmin_partials(parts, eps)
+
+
+def merge_softmin_partials(parts, eps):
+    """softmin_merge_kernel: the splits' (max, sum) partials of each row
+    into eps * ln 2 * (M + log2 S), or -inf where every partial is -inf."""
     pm = np.stack([p[0] for p in parts])
     ps = np.stack([p[1] for p in parts])
     big = pm.max(axis=0)
@@ -213,6 +222,175 @@ def test_split_log2_transport_matches_jax_kernel_and_plain(case):
     if case == "all_inf":
         assert got == 0.0 and plain == 0.0
         return
+    want = float(sp.transport_cost_pallas(*map(jnp.asarray, (x, y, u, v)), EPS, interpret=True))
+    assert got == pytest.approx(want, rel=1e-3)
+    assert got == pytest.approx(f64_truth(x, y, v, u, EPS)[1], rel=1e-5)
+    assert got == pytest.approx(plain, rel=1e-5)
+
+
+# The wide body of csrc/sinkhorn.cu (d > 16): blocks of WIDE_TILE rows walk
+# tiles of WIDE_TILE columns; in a tile, each of the 16 threads of a row
+# holds the 8 columns LANES[t] (t * 4 + q and 64 + t * 4 + q, q < 4), and the
+# squared distances are summed over k-slices of K_SLICE coordinates, the
+# last one only up to d.
+WIDE_TILE, K_SLICE = 128, 8
+LANES = np.array([[t * 4 + q for q in range(4)] + [64 + t * 4 + q for q in range(4)]
+                  for t in range(16)])
+
+
+def wide_padded(y, dual, scale):
+    """The columns padded to whole tiles and their duals times `scale`
+    (softmin's log2 domain, transport's natural units), -inf past m."""
+    m = y.shape[0]
+    m_pad = -(-m // WIDE_TILE) * WIDE_TILE
+    v2 = np.full(m_pad, -np.inf, np.float32)
+    v2[:m] = dual * scale
+    y_pad = np.zeros((m_pad, y.shape[1]), np.float32)
+    y_pad[:m] = y
+    return y_pad, v2
+
+
+def wide_distances(x, y_pad):
+    """c = sq * rsqrt(sq), 0 below the smallest normal, from the squared
+    distances summed in float32 slice by slice in the order k = 0..d-1 (the
+    kernel's fma rounds each term once, this twice)."""
+    d = x.shape[1]
+    sq = np.zeros((x.shape[0], y_pad.shape[0]), np.float32)
+    for k0 in range(0, d, K_SLICE):
+        for k in range(k0, min(k0 + K_SLICE, d)):
+            df = x[:, k, None] - y_pad[None, :, k]
+            sq += df * df
+    tiny = np.finfo(np.float32).tiny
+    return np.where(sq >= tiny, sq / np.sqrt(np.maximum(sq, tiny)), np.float32(0))
+
+
+def online_merge(mx, s, mo, so):
+    """Two running (max, sum) pairs into one, rescaled against 0 where both
+    maxima are -inf."""
+    mn = np.maximum(mx, mo)
+    base = np.where(mn == -np.inf, np.float32(0), mn)
+    return mn, s * np.exp2(mx - base) + so * np.exp2(mo - base)
+
+
+def wide_softmin(x, y, dual, eps, cols):
+    """The wide body's softmin in float32 numpy: each thread's online max
+    moved once per tile over its 8 columns, then the 16 threads of a row
+    merged by butterfly (partner t ^ 8, ^ 4, ^ 2, ^ 1), then the splits of
+    `cols` columns (a multiple of the tile)."""
+    k2 = np.float32(1.4426950408889634) / np.float32(eps)
+    y_pad, v2 = wide_padded(y, dual, k2)
+    z = (-wide_distances(x, y_pad) * k2 + v2[None]).astype(np.float32)
+    parts = []
+    for j0 in range(0, y_pad.shape[0], cols):
+        mx = np.full((x.shape[0], 16), -np.inf, np.float32)
+        s = np.zeros((x.shape[0], 16), np.float32)
+        for t0 in range(j0, min(j0 + cols, y_pad.shape[0]), WIDE_TILE):
+            zt = z[:, t0 + LANES]  # (n, thread, its 8 columns)
+            mn = np.maximum(mx, zt.max(axis=-1))
+            base = np.where(mn == -np.inf, np.float32(0), mn)
+            acc = s * np.exp2(mx - base)
+            for j in range(LANES.shape[1]):
+                acc = acc + np.exp2(zt[..., j] - base)
+            mx, s = mn, acc
+        for o in (8, 4, 2, 1):
+            partner = np.arange(16) ^ o
+            mx, s = online_merge(mx, s, mx[:, partner], s[:, partner])
+        parts.append((mx[:, 0], s[:, 0]))
+    return merge_softmin_partials(parts, eps)
+
+
+def wide_transport(x, y, u, v, eps, cols):
+    """The wide body's transport in float32 numpy: the exponent in natural
+    units, ((u_i - c) + v_j) * log2(e)/eps, exp2 flushed to 0 below the
+    smallest normal, each thread's float32 sum per row over its 8 columns
+    of every tile of a split of `cols` columns, then the partials totalled
+    in float64."""
+    k2 = np.float32(1.4426950408889634) / np.float32(eps)
+    y_pad, v_pad = wide_padded(y, v, np.float32(1))
+    c = wide_distances(x, y_pad)
+    plan = np.exp2((((u[:, None] - c) + v_pad[None]) * k2).astype(np.float32))
+    terms = np.where(plan >= np.finfo(np.float32).tiny, plan, np.float32(0)) * c
+    total = 0.0
+    for j0 in range(0, y_pad.shape[0], cols):
+        acc = np.zeros((x.shape[0], 16), np.float32)
+        for t0 in range(j0, min(j0 + cols, y_pad.shape[0]), WIDE_TILE):
+            for j in range(LANES.shape[1]):
+                acc = acc + terms[:, t0 + LANES[:, j]]
+        total += float(acc.astype(np.float64).sum())
+    return total
+
+
+def plan_duals64(x, y, eps):
+    """The duals after one Sinkhorn iteration from uniform weights, in
+    float64 then cast to float32: at d > 16 random duals leave every plan
+    entry below float32's smallest normal, these carry mass."""
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+
+    def softmin64(a, b, dual):
+        z = (-np.sqrt(((a[:, None] - b[None]) ** 2).sum(-1)) + dual[None]) / eps
+        zmax = z.max(axis=1, keepdims=True)
+        return eps * (np.log(np.exp(z - zmax).sum(axis=1)) + zmax[:, 0])
+
+    n, m = x.shape[0], y.shape[0]
+    u = eps * math.log(1 / n) - softmin64(x64, y64, np.full(m, eps * math.log(1 / m)))
+    v = eps * math.log(1 / m) - softmin64(y64, x64, u)
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [17, 50])
+@pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
+def test_wide_softmin_matches_jax_kernel_f64_and_plain(d, case):
+    """The wide body's order of operations (emulated with no invalid float
+    operation) at widths that are no multiple of the k-slice, against the
+    JAX Pallas softmin in interpret mode, float64 truth and the port's plain
+    version: 1e-5 absolute. Three splits of one tile, the last ragged;
+    "dead_split": the second split sees only -inf; "all_inf": every row
+    gives -inf."""
+    x, y, dual, _ = clouds(d, n=130, m=301)
+    cols = WIDE_TILE
+    if case == "dead_split":
+        dual[cols : 2 * cols] = -np.inf
+        dual[:3] = -np.inf
+    elif case == "all_inf":
+        dual[:] = -np.inf
+    with np.errstate(invalid="raise"):
+        got = wide_softmin(x, y, dual, EPS, cols)
+    plain = softmin_plain(*map(torch.from_numpy, (x, y, dual)), EPS).numpy()
+    if case == "all_inf":
+        assert (got == -np.inf).all() and (plain == -np.inf).all()
+        return
+    want = np.asarray(sp.softmin_pallas(*map(jnp.asarray, (x, y, dual)), EPS, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, f64_truth(x, y, dual, np.zeros(130, np.float32), EPS)[0],
+                               atol=1e-5)
+    np.testing.assert_allclose(got, plain, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [17, 50])
+@pytest.mark.parametrize("case", ["ragged", "dead_split", "all_inf"])
+def test_wide_transport_matches_jax_kernel_f64_and_plain(d, case):
+    """The wide body's transport sum (emulated with no invalid float
+    operation) on the duals of one Sinkhorn iteration, against the JAX
+    Pallas transport cost in interpret mode (1e-3 relative, the JAX
+    cancellation bar above), float64 truth and the port's plain version
+    (1e-5 relative); all -inf duals give exactly 0."""
+    x, y = clouds(d, n=130, m=301)[:2]
+    u, v = plan_duals64(x, y, EPS)
+    cols = WIDE_TILE
+    if case == "dead_split":
+        v[cols : 2 * cols] = -np.inf
+        v[:7] = -np.inf
+        u[:5] = -np.inf
+    elif case == "all_inf":
+        u[:] = -np.inf
+        v[:] = -np.inf
+    with np.errstate(invalid="raise"):
+        got = wide_transport(x, y, u, v, EPS, cols)
+    plain = float(transport_cost_plain(*map(torch.from_numpy, (x, y, u, v)), EPS))
+    if case == "all_inf":
+        assert got == 0.0 and plain == 0.0
+        return
+    assert got > 0
     want = float(sp.transport_cost_pallas(*map(jnp.asarray, (x, y, u, v)), EPS, interpret=True))
     assert got == pytest.approx(want, rel=1e-3)
     assert got == pytest.approx(f64_truth(x, y, v, u, EPS)[1], rel=1e-5)
