@@ -19,9 +19,11 @@ prints nvcc's register and spill report. Phases:
            PotentialCtrl's, the rings', the Rosenbrock's, the
            CancelDriftCtrl's and the image's in both bodies, the
            PotentialCtrl's also at d = 50; the given score at d = 196 in
-           the generic body and in the wide one, which must give its bits,
+           the wide body and in the generic one, whose bits it must give,
            at d = 1600 in the wide body and at the alanine dipeptide's
-           d = 60 and batch 512; the per-coordinate instances of a score
+           d = 60 and batch 512 in the generic body; mw_50d's generic body
+           and Cox's wide body also at a ragged batch of 2047, with the
+           plan of each, which must cover every row once; the per-coordinate instances of a score
            net of d outputs, the lerp form's in both bodies, the score
            form's and kernel 2's, each also with a table of equal rows,
            which must give the one-output instance's bits), softmin and
@@ -63,13 +65,13 @@ prints nvcc's register and spill report. Phases:
                         config's 800-step grid (no sampler: no Sinkhorn);
                         kernel 1's given-score form in the wide body, 200
                         launches a step;
-             nice_smooth_dis  the smooth NICE flow (d = 196) under DIS, 20
+             nice_smooth_dis  the smooth NICE flow (d = 196) under DIS, 5
                         steps, a 10k evaluation and its Sinkhorn through
                         the Sinkhorn kernels' wide body; the given-score form
-                        in the generic body, 200 launches a step;
+                        in the wide body, 200 launches a step;
              aladip_vacuum_dis  the alanine dipeptide (d = 60, the native
                         force field's autograd score) under DIS at its batch
-                        512, 20 steps, a 4096 evaluation and its Sinkhorn
+                        512, 5 steps, a 4096 evaluation and its Sinkhorn
                         against the validation set (the Sinkhorn kernels'
                         wide body); the given-score form in
                         the generic body, 200 launches a step;
@@ -102,7 +104,7 @@ prints nvcc's register and spill report. Phases:
              kernel 2's loss; DDS has no SDE for the dropout's neutral
              control) and gmm_pis_multilevel (a MultilevelNet: factor 5,
              4 levels): phase 1 through the scan route (no kernel
-             instance), which each must take once per optimizer step; 20
+             instance), which each must take once per optimizer step; 10
              steps, 10k eval and its Sinkhorn through the kernels. Every
              other path must take the scan route no time;
            then the plots: with matplotlib on the card, a gmm_dis
@@ -150,7 +152,7 @@ prints nvcc's register and spill report. Phases:
            steps, the rings DIS, Rosenbrock DIS and langevin_init EulerDDS
            steps, the image, Cox, NICE and alanine-dipeptide DIS steps (the
            last three, 200 launches and scores a step, over three windows
-           of two, with their card memory peak and the share of the step
+           of one step, with their card memory peak and the share of the step
            that goes when their target score is replaced by zeros), and
            the mixture SubtrajBridge's, on the whole trajectory and on a
            subtrajectory (with a profiler breakdown; for the Bridge also
@@ -158,7 +160,10 @@ prints nvcc's register and spill report. Phases:
            through its wrapper (a given score's with the target's score
            every step), alone (a given score's on one fixed score) and as
            its plain version at its path's shapes
-           (the funnel rollouts in each body), softmin and transport at
+           (the funnel rollouts in each body; the tiled bodies' rows of
+           PERF.md §6, 1d, 1k, 1l and 1o, with their bound ratio and plan,
+           a given score's also by the profiler's device time, NICE's also
+           in the generic body and Cox's also at 8 rows a block), softmin and transport at
            100k for d = 2, 50, 60 and 196, each beside its bound (at d = 50
            the wide body also against its plain version, with its time, and
            beside a library yardstick the port never calls: torch.cdist in
@@ -174,7 +179,8 @@ prints nvcc's register and spill report. Phases:
            Without the main phase it times the kernels only.
 
 Each path prints the card memory it peaked at. `--paths a,b` drives only
-those paths (and times only their steps): a partial run, with no result
+those paths (and times only their steps), and `--phases timing --instances
+a,b` times only those rollout instances: a partial run, with no result
 line. It prints the card's name and power limit, a `kernels` JSON line, and,
 when every phase ran, as its last line `{"ok": true, "device": {...}}`.
 Any failure exits non-zero before that line. Without a CUDA card, or without the port beside this
@@ -211,8 +217,12 @@ EPS = 1e-3  # Sinkhorn eps (eval/sinkhorn.py default)
 DDS_GRID = dict(start=0.0, end=12.8, dt=0.05, rescale_t="cosine")
 DDS_ALPHA, DDS_SIGMA = 1.0, 1.0
 SHORT_STEPS, SHORT_EVAL = 20, 10_000  # the EulerDDS and PIS paths
+# the host-bound paths, cut to fit the run's time limit: NICE's and the
+# alanine dipeptide's 200 autograd scores a step, and the scan route
+GIVEN_STEPS, SCAN_STEPS = 5, 10
 # the alanine dipeptide's batch and evaluation (results/r4/aladip_vacuum_dis)
 ALADIP_BATCH, ALADIP_EVAL = 512, 4096
+RAGGED_BATCH = 2047  # the tiled bodies' rows past the last full block
 
 # Tolerances of kernel vs plain version, both float32 on the card:
 # - rollout: the two sum the 64-wide products in another order (sequential
@@ -258,7 +268,8 @@ SOURCES = {
 # The paths of the main phase: target, solver, the kernels (by
 # "<kernel>.<form>.<target>" for the rollouts) each must launch, its depth
 # (None: the full --train-steps and --eval-batch), the log Z keys it is held
-# to, and whether its rollout takes the generic body (d > 16). After 20
+# to, and whether its rollout takes the generic body (mw_50d and the
+# alanine dipeptide; NICE and Cox take the wide body). After 20
 # steps the EulerDDS control is barely trained, and about a quarter of its
 # evaluation trajectories reach rnd >= max_rnd (2389 of 10000 at seed 0 on
 # an H100): there a single overflowing trajectory would make the plain LB
@@ -318,9 +329,9 @@ PATHS = {
                     kernels=("rollout.lerp.given.wide",), steps=SHORT_STEPS, eval=SHORT_EVAL,
                     log_z=FINITE_LOG_Z_KEYS, sinkhorn=False, per_step="rollout.lerp.given"),
     "nice_smooth_dis": dict(target="nice_smooth", solver="dis",
-                            kernels=("rollout.lerp.given", *SINKHORN, *WIDE_SINKHORN),
-                            steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
-                            generic=True, per_step="rollout.lerp.given"),
+                            kernels=("rollout.lerp.given.wide", *SINKHORN, *WIDE_SINKHORN),
+                            steps=GIVEN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                            per_step="rollout.lerp.given"),
     "rosenbrock_dis": dict(target="rosenbrock", solver="dis",
                            kernels=("rollout.lerp.rosenbrock",), steps=SHORT_STEPS,
                            eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, sinkhorn=False,
@@ -336,7 +347,7 @@ PATHS = {
     "aladip_vacuum_dis": dict(target="aladip_vacuum", solver="dis",
                               overrides=[f"train_batch_size={ALADIP_BATCH}"],
                               kernels=("rollout.lerp.given", *SINKHORN, *WIDE_SINKHORN),
-                              steps=SHORT_STEPS, eval=ALADIP_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                              steps=GIVEN_STEPS, eval=ALADIP_EVAL, log_z=FINITE_LOG_Z_KEYS,
                               generic=True, per_step="rollout.lerp.given"),
     # score nets of one output per coordinate (conf/model/lerp_dim.yaml,
     # score_dim.yaml): the per-coordinate instances of kernels 1 and 2
@@ -364,22 +375,22 @@ PATHS = {
     # through the kernels
     "gmm_dis_densenet": dict(target="gmm", solver="dis",
                              overrides=["model/base@base_model=densenet"], kernels=SINKHORN,
-                             steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                             steps=SCAN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
                              scan=True),
     "funnel_dis_explore": dict(target="funnel", solver="dis",
                                overrides=["loss.sde_ctrl_noise=0.1", "loss.sde_ctrl_dropout=0.5"],
-                               kernels=SINKHORN, steps=SHORT_STEPS, eval=SHORT_EVAL,
+                               kernels=SINKHORN, steps=SCAN_STEPS, eval=SHORT_EVAL,
                                log_z=FINITE_LOG_Z_KEYS, scan=True),
     "funnel_dds_explore": dict(target="funnel", solver="dds",
                                overrides=["loss.sde_ctrl_noise=0.1"], kernels=SINKHORN,
-                               steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                               steps=SCAN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
                                scan=True),
     "gmm_pis_multilevel": dict(
         target="gmm", solver="pis",
         overrides=["generative_ctrl.base_model._target_=sde_sampler_tpu.models.mlp.MultilevelNet",
                    "~generative_ctrl.base_model.num_layers",
                    "~generative_ctrl.base_model.channels"],
-        kernels=SINKHORN, steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, scan=True),
+        kernels=SINKHORN, steps=SCAN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, scan=True),
 }
 # the paths whose phase 1 takes the scan route
 SCAN_PATHS = [path for path, spec in PATHS.items() if spec.get("scan")]
@@ -404,9 +415,9 @@ INSTANCES = {
     "rollout.lerp.rosenbrock": dict(form="lerp", target="rosenbrock", bodies=True),
     "rollout.cancel_drift.gmm": dict(form="cancel_drift", target="gmm", bodies=True),
     "rollout.lerp.img": dict(form="lerp", target="img", bodies=True),
-    # the given-score form: at NICE's d = 196 the generic body by shape, and
-    # the wide body, which must give its bits; at Cox's d = 1600 the wide
-    # body by shape
+    # the given-score form: at NICE's d = 196 the wide body by shape, and
+    # the generic body, whose bits it must give; at Cox's d = 1600 the wide
+    # body by shape (its launches count NICE's too)
     "rollout.lerp.given": dict(form="lerp", target="nice_smooth", wide_bits=True),
     # (the configs' last layers: small, the score net's bias 1; the seeded
     # net's full-size last layers drive the states out of the posterior,
@@ -435,6 +446,9 @@ INSTANCES = {
 # their paths
 INSTANCES["rollout.lerp.given"]["paths"] = ("nice_smooth_dis", "cox_dis")
 ROLLOUT_INSTANCES = [label for label, spec in INSTANCES.items() if not spec.get("sinkhorn")]
+# the PERF.md §6 rows of the tiled bodies: their plans are printed with their times
+TILED_ROWS = {"rollout.lerp.wells": "row 1d", "rollout.lerp.given": "row 1k",
+              "rollout.lerp.given.wide": "row 1l", "rollout.lerp.given.d60": "row 1o"}
 WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
 
 
@@ -611,14 +625,14 @@ TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0, "rings": 12, "rose
                 "img": 8, "given": 0}
 
 
-def seeded_instance(device, label, seed, dim=None):
+def seeded_instance(device, label, seed, dim=None, batch=None):
     """A rollout instance of INSTANCES at its path's shapes, with weights and
     inputs from a numpy seed: the path's control (conf/model/*.yaml, clips
     10/10), SDE (conf/sde/*.yaml) and grid, x0 from its prior (0 for the
     PIS Dirac). Returns (run, plain, prepare, x0, ts, noise, work), run,
     plain and prepare (the checked inputs and tables of a launch) taking
     (x0, ts, noise). `dim` replaces the target's dimension for a form
-    without a target (the PotentialCtrl)."""
+    without a target (the PotentialCtrl), `batch` the path's batch."""
     import numpy as np
     import torch
 
@@ -685,7 +699,7 @@ def seeded_instance(device, label, seed, dim=None):
     else:
         ts = torch.linspace(0.0, sde.terminal_t, STEPS + 1, device=device)
     T = ts.shape[0] - 1
-    batch = spec.get("batch", BATCH)
+    batch = batch or spec.get("batch", BATCH)
     x0 = f(rng.standard_normal((batch, d)) * (0.0 if form == "score" else 1.0))
     noise = f(rng.standard_normal((T, batch, d)))
     if form == "exp":
@@ -851,14 +865,14 @@ def phase_kernels(device, report):
         run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
         check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
         if INSTANCES[label].get("wide_bits"):
-            # the wide body where the generic one fits: against the plain
-            # twin, and the generic body's bits
-            check_rollout(f"{label}, wide body",
-                          lambda x, t, n: ro._launch(prepare(x, t, n), "wide"),
-                          plain, x0i, tsi, noisei, f"{label}.wide_body", report)
+            # the generic body where the wide one is taken by shape: against
+            # the plain twin, and the wide body's bits
+            check_rollout(f"{label}, generic body",
+                          lambda x, t, n: ro._launch(prepare(x, t, n), "generic"),
+                          plain, x0i, tsi, noisei, f"{label}.generic_body", report)
             k = report[label]
-            k["wide_body_max_abs_err"] = report.pop(f"{label}.wide_body")["max_abs_err"]
-            k["max_abs_err"] = max(k["max_abs_err"], k["wide_body_max_abs_err"])
+            k["generic_body_max_abs_err"] = report.pop(f"{label}.generic_body")["max_abs_err"]
+            k["max_abs_err"] = max(k["max_abs_err"], k["generic_body_max_abs_err"])
             prepared = prepare(x0i, tsi, noisei)
             wide, generic = ro._launch(prepared, "wide"), ro._launch(prepared, "generic")
             k["wide_vs_generic_body"] = max(float((a - b).abs().max())
@@ -882,6 +896,27 @@ def phase_kernels(device, report):
               f"{k['fast_vs_generic_body']:.3e}", flush=True)
         if k["fast_vs_generic_body"] != 0.0:
             fail(f"{label}: the fast and generic bodies give different bits")
+
+    # the tiled bodies at a ragged batch (2047, no multiple of the plan's
+    # rows): mw_50d's generic body and Cox's wide body, each by shape, and
+    # the plan at the paths' batch and at 2047 rows
+    for label, body in (("rollout.lerp.wells", "generic"), ("rollout.lerp.given.wide", "wide")):
+        run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(
+            device, label, SEED + 50, batch=RAGGED_BATCH)
+        key = "rollout.lerp.generic" if body == "generic" else "rollout.lerp.given.wide"
+        before = build.FORM_LAUNCHES[key]
+        check_rollout(f"{label} at B {RAGGED_BATCH}", run, plain, x0i, tsi, noisei, "ragged",
+                      report)
+        if build.FORM_LAUNCHES[key] <= before:
+            fail(f"{label} at B = {RAGGED_BATCH} did not take the {body} body")
+        k = report[label]
+        k["ragged_max_abs_err"] = report.pop("ragged")["max_abs_err"]
+        k["max_abs_err"] = max(k["max_abs_err"], k["ragged_max_abs_err"])
+        plan = ro.rollout_plan(prepare(x0i, tsi, noisei))
+        k["ragged_plan"] = plan._asdict()
+        print(f"kernel {label} at B {RAGGED_BATCH}: plan {k['ragged_plan']}", flush=True)
+        if plan.rows * (plan.blocks - 1) >= RAGGED_BATCH or plan.rows * plan.blocks < RAGGED_BATCH:
+            fail(f"{label}: the plan {plan} does not cover {RAGGED_BATCH} rows once")
 
     # the PotentialCtrl past the fast body's widths: the generic body by shape
     label = "rollout.potential.none"
@@ -1794,6 +1829,12 @@ def kernel_ms(fn, n: int = 5) -> dict[str, float]:
     return per_kernel
 
 
+def rollout_device_ms(fn, n: int = 3) -> float:
+    """Device ms per call of fn() in kernel 1's and 2's bodies (torch.profiler)."""
+    fn()
+    return sum(ms for name, ms in kernel_ms(fn, n).items() if "rollout_" in name)
+
+
 def step_breakdown(solver, step_ms: float, n: int = 5) -> dict:
     """Device time per optimizer step by kernel name (torch.profiler), and
     the device's idle share of the unprofiled step time."""
@@ -1887,7 +1928,7 @@ def time_steps(solver, n_em_steps: int, label: str, windows: int = 5, per_window
             "breakdown": step_breakdown(solver, step_ms, profiled)}
 
 
-def phase_timing(solvers, device, report):
+def phase_timing(solvers, device, report, instances=None):
     import torch
 
     from sde_sampler_torch.eval.sinkhorn import Sinkhorn
@@ -1911,16 +1952,17 @@ def phase_timing(solvers, device, report):
                 report[f"{path}_step"] = time_steps(
                     solver, solver.train_ts.shape[0] - 1, f"{path} (scan route)", windows=3,
                     per_window=2, profiled=1, warmup=1)
-        # the given-score paths: 200 launches and scores a step, seconds a window
+        # the given-score paths: 200 launches and scores a step, seconds a
+        # step for NICE and the alanine dipeptide (windows of one step)
         for path, key, label in (("cox_dis", "cox_step", "Cox DIS (whitened, d 1600)"),
                                  ("nice_smooth_dis", "nice_step", "NICE smooth DIS (d 196)"),
                                  ("aladip_vacuum_dis", "aladip_step", "AlaDip DIS (d 60)")):
             if path in solvers:
                 torch.cuda.reset_peak_memory_stats()
-                report[key] = time_steps(solvers[path], STEPS, label, windows=3, per_window=2,
-                                         profiled=2)
+                report[key] = time_steps(solvers[path], STEPS, label, windows=3, per_window=1,
+                                         profiled=1, warmup=1)
                 report[key]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-                report[key]["score"] = score_share(solvers[path], report[key]["ms"])
+                report[key]["score"] = score_share(solvers[path], report[key]["ms"], steps=1)
         if "gmm_dds_euler_langevin_init" in solvers:
             report["langevin_init_step"] = time_steps(
                 solvers["gmm_dds_euler_langevin_init"], STEPS, "GMM EulerDDS (langevin_init)")
@@ -1982,21 +2024,39 @@ def phase_timing(solvers, device, report):
     # the new instances at their paths' shapes: through the wrapper, the
     # kernel alone in the body its shape takes, the plain twin
     for i, label in enumerate(ROLLOUT_INSTANCES):
+        if instances is not None and label not in instances:
+            continue
         run, plain, prepare, x0i, tsi, noisei, work = seeded_instance(
             device, label, SEED + 10 + i)
         prepared = prepare(x0i, tsi, noisei)
         k = report[label]
         if prepared[1]["kind"] == "given":
             # through the wrapper: a score and a launch a step; alone: the
-            # same launches on one fixed score
+            # same launches on one fixed score, by CUDA events and by the
+            # profiler's device time of the rollout kernel (the host's
+            # launch interval can set the events' figure)
             score = prepared[1]["score_fn"](x0i).contiguous()
             fixed = (prepared[0], {**prepared[1], "score_fn": lambda x: score}, *prepared[2:])
-            k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=5, warmup=1)
+            k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=2, warmup=1)
             k["kernel_ms"] = cuda_ms(lambda: ro._launch(fixed), reps=5)
+            k["kernel_device_ms"] = rollout_device_ms(lambda: ro._launch(fixed))
+            print(f"time {label}: alone {k['kernel_ms']:.3f} ms by events, "
+                  f"{k['kernel_device_ms']:.3f} ms of device time", flush=True)
             if INSTANCES[label].get("wide_bits"):
-                k["wide_body_ms"] = cuda_ms(lambda: ro._launch(fixed, "wide"), reps=5)
-                print(f"time {label}: the wide body alone at the same shapes "
-                      f"{k['wide_body_ms']:.3f} ms", flush=True)
+                k["generic_body_ms"] = cuda_ms(lambda: ro._launch(fixed, "generic"), reps=5)
+                k["generic_body_device_ms"] = rollout_device_ms(
+                    lambda: ro._launch(fixed, "generic"))
+                print(f"time {label}: the generic body alone at the same shapes "
+                      f"{k['generic_body_ms']:.3f} ms ({k['generic_body_device_ms']:.3f} ms of "
+                      "device time)", flush=True)
+            if label == "rollout.lerp.given.wide":
+                # the wide body's plan (one block an SM) against 8 rows a
+                # block (twice the blocks, two an SM, each pass over the
+                # weights serving half the rows)
+                k["rows8_ms"] = cuda_ms(lambda: ro._launch(fixed, rows=8), reps=5)
+                k["rows8_device_ms"] = rollout_device_ms(lambda: ro._launch(fixed, rows=8))
+                print(f"time {label}: at 8 rows a block {k['rows8_ms']:.3f} ms "
+                      f"({k['rows8_device_ms']:.3f} ms of device time)", flush=True)
         else:
             k["ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=20, warmup=2)
             k["kernel_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=20, warmup=2)
@@ -2004,11 +2064,18 @@ def phase_timing(solvers, device, report):
         k["bound_ms"], k["bound_by"] = bound(*work)
         print(f"time {label} (d {x0i.shape[1]}, T {tsi.shape[0] - 1}): {k['ms']:.3f} ms "
               f"through its wrapper, {k['kernel_ms']:.3f} ms alone (plain {k['plain_ms']:.3f} "
-              f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']})", flush=True)
+              f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}; "
+              f"{k['kernel_ms'] / k['bound_ms']:.1f}x)", flush=True)
+        if label in TILED_ROWS:
+            plan = ro.rollout_plan(prepared)
+            k["plan"] = plan._asdict()
+            print(f"time {label} ({TILED_ROWS[label]}): the plan {k['plan']}", flush=True)
         if INSTANCES[label].get("bodies"):
             k["generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=5)
             print(f"time {label}: its generic body alone at the same shapes "
                   f"{k['generic_body_ms']:.3f} ms", flush=True)
+    if instances is not None:
+        return
     # the PotentialCtrl past the fast body's widths (the generic body by shape)
     label = "rollout.potential.none"
     _, _, prepare, x0i, tsi, noisei, work = seeded_instance(
@@ -2237,6 +2304,9 @@ def main():
     parser.add_argument("--phases", default="kernels,main,timing")
     parser.add_argument("--train-steps", type=int, default=220)
     parser.add_argument("--eval-batch", type=int, default=EVAL_BATCH)
+    parser.add_argument("--instances", default="",
+                        help="comma-separated INSTANCES labels: the timing phase times only "
+                             "these rollout instances (no result line)")
     parser.add_argument("--paths", default="",
                         help="comma-separated paths of the main phase, or its entry-point "
                              "phases (default: all; a subset gives no result line)")
@@ -2274,7 +2344,7 @@ def main():
         phase_kernels(device, report)
     solvers = phase_main(args, report) if "main" in phases else None
     if "timing" in phases:
-        phase_timing(solvers, device, report)
+        phase_timing(solvers, device, report, args.instances.split(",") if args.instances else None)
 
     kernels = []
     for name in (*KERNELS, *INSTANCES):
@@ -2286,7 +2356,8 @@ def main():
             "replaces": REPLACES[kernel], "launches": k.get("launches"),
             "launches_by_path": k.get("launches_by_path"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
-            "kernel_ms": k.get("kernel_ms"), "generic_body_ms": k.get("generic_body_ms"),
+            "kernel_ms": k.get("kernel_ms"), "kernel_device_ms": k.get("kernel_device_ms"),
+            "generic_body_ms": k.get("generic_body_ms"), "plan": k.get("plan"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,
             "yardstick_ms": k.get("yardstick_ms"),
@@ -2296,7 +2367,7 @@ def main():
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
-    if set(phases) != {"kernels", "main", "timing"} or args.paths:
+    if set(phases) != {"kernels", "main", "timing"} or args.paths or args.instances:
         print(f"partial run ({args.phases}; paths {args.paths or 'all'}): no result line",
               flush=True)
         return

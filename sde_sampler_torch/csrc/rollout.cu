@@ -1,4 +1,4 @@
-// The C entry points of the rollout kernels (rollout.cuh): kernel 1, the
+// The C entry point of the rollout kernels (rollout.cuh): kernel 1, the
 // EM rollout, in its LerpCtrl, ScoreCtrl, ClippedCtrl, LerpTargetCtrl,
 // PotentialCtrl and CancelDriftCtrl forms, and kernel 2, the exponential
 // integrator of a ScoreCtrl; the LerpCtrl and ScoreCtrl forms of both also
@@ -14,61 +14,71 @@ static int table_floats(int target, int K, int D) {
   return target == kGmm ? K * (2 * D + 1) : (target == kRings ? K : 0);
 }
 
-// Kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS) instance, 1 the
-// ScoreCtrl one, 3 the ClippedCtrl one (target kNoTarget), 4 the
-// LerpTargetCtrl one (Bridge; the prior arguments unused), 5 the
+// One launch, as the wrapper (ops/rollout.py) fills it; a ctypes structure
+// of the same fields mirrors it (ops/build.py::RolloutLaunch), so that the
+// given score's one launch a step sets only the pointers that move.
+//
+// update 0 is kernel 1, the EM rollout: form 0 is the LerpCtrl (DIS)
+// instance, 1 the ScoreCtrl one, 3 the ClippedCtrl one (target kNoTarget),
+// 4 the LerpTargetCtrl one (Bridge; the prior fields unused), 5 the
 // PotentialCtrl one (target kNoTarget; w_out (C, 1), b_out (1)), 6 the
-// CancelDriftCtrl one; target and t0..t3 as in Consts; `gmm` the target's
-// table (the mixture's, the rings' radii, the image's energy table of
-// tab_h rows of tab_w pixels) or a given score (B, D), K its count (the
-// mixture's components, or the radii); `body` and `used` as for `launch`.
-// A given score's launch runs one step (T = 1); where xs is x0, the state
-// before the step is not written again. score_cols is the columns of sscore
-// a step: 1, or D for a per-coordinate score net (the lerp and score forms
-// only), whose table `tab` then has kTab + D columns a step.
-extern "C" int rollout_launch(
-    const float* x0, const float* dbs, const float* tab, const float* temb,
-    const float* w_in, const float* w_hid, const float* b_hid,
-    const float* w_out, const float* b_out, const float* gmm, float* xs, float* x_T,
-    int B, int D, int C, int H, int T, int K, int tab_w, int tab_h, int score_cols,
-    float clip_model, float clip_score, float prior_loc, float prior_var, float t0, float t1,
-    float t2, float t3, int form, int target, int body, int* used, void* stream) {
-  if (score_cols != 1 && (score_cols != D || D < 2)) return (int)cudaErrorInvalidValue;
-  const bool per_coord = score_cols != 1;
-  const Args a{x0, dbs, tab, temb, w_in, w_hid, b_hid, w_out, b_out, gmm, xs, x_T,
-               B, D, C, H, T, target, per_coord,
-               {clip_model, clip_score, prior_loc, prior_var, t0, t1, t2, t3,
-                target == kGmm ? K : 0, table_floats(target, K, D), tab_w, tab_h},
-               (cudaStream_t)stream};
-  if (per_coord) {
-    if (form == kLerpEm) return launch_lerp_dim(a, body, used);
-    if (form == kScoreEm) return launch_score_dim(a, body, used);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (form == kLerpEm) return launch_lerp(a, body, used);
-  if (form == kScoreEm) return launch_score(a, body, used);
-  if (form == kLerpTargetEm) return launch_lerp_target(a, body, used);
-  if (form == kClippedEm && target == kNoTarget) return launch_clipped(a, body, used);
-  if (form == kPotentialEm && target == kNoTarget) return launch_potential(a, body, used);
-  if (form == kCancelDriftEm) return launch_cancel_drift(a, body, used);
-  return (int)cudaErrorInvalidValue;
-}
+// CancelDriftCtrl one. update 1 is kernel 2, the exponential integrator of
+// a ScoreCtrl (DDS; form and prior unused). target and t0..t3 as in Consts;
+// `gmm` the target's table (the mixture's, the rings' radii, the image's
+// energy table of tab_h rows of tab_w pixels) or a given score (B, D), K
+// its count (the mixture's components, or the radii). A given score's
+// launch runs one step (T = 1); where xs is x0, the state before the step
+// is not written again. score_cols is the columns of sscore a step: 1, or D
+// for a per-coordinate score net (the lerp and score forms only), whose
+// table `tab` then has kTab + D columns a step. `body` as for `launch`;
+// `rows`, rows a block of the generic or wide body (0: the plan's). `dry`:
+// plan only, launch nothing (not the potential form, whose bodies keep
+// their own fixed tiles). Out: `used`, the body, and the plan.
+struct RolloutLaunch {
+  const float *x0, *dbs, *tab, *temb, *w_in, *w_hid, *b_hid, *w_out, *b_out, *gmm;
+  float *xs, *x_T;
+  void* stream;
+  int B, D, C, H, T, K, tab_w, tab_h, score_cols;
+  int update, form, target, body, rows, dry;
+  float clip_model, clip_score, prior_loc, prior_var, t0, t1, t2, t3;
+  int used, plan_rows, plan_blocks, plan_smem, plan_slice;
+};
 
-// Kernel 2, the exponential-integrator rollout of a ScoreCtrl (DDS);
-// score_cols as for kernel 1.
-extern "C" int rollout_exp_launch(
-    const float* x0, const float* noise, const float* tab, const float* temb,
-    const float* w_in, const float* w_hid, const float* b_hid,
-    const float* w_out, const float* b_out, const float* gmm, float* xs, float* x_T,
-    int B, int D, int C, int H, int T, int K, int tab_w, int tab_h, int score_cols,
-    float clip_model, float clip_score, float t0, float t1, float t2, float t3, int target,
-    int body, int* used, void* stream) {
-  if (score_cols != 1 && (score_cols != D || D < 2)) return (int)cudaErrorInvalidValue;
-  const bool per_coord = score_cols != 1;
-  const Args a{x0, noise, tab, temb, w_in, w_hid, b_hid, w_out, b_out, gmm, xs, x_T,
-               B, D, C, H, T, target, per_coord,
-               {clip_model, clip_score, 0.0f, 1.0f, t0, t1, t2, t3, target == kGmm ? K : 0,
-                table_floats(target, K, D), tab_w, tab_h},
-               (cudaStream_t)stream};
-  return per_coord ? launch_exp_dim(a, body, used) : launch_exp(a, body, used);
+extern "C" int rollout_launch(RolloutLaunch* p) {
+  const int D = p->D, form = p->form, target = p->target;
+  if (p->score_cols != 1 && (p->score_cols != D || D < 2)) return (int)cudaErrorInvalidValue;
+  if (p->update != 0 && p->update != 1) return (int)cudaErrorInvalidValue;
+  if (p->dry && p->update == 0 && form == kPotentialEm) return (int)cudaErrorInvalidValue;
+  const bool per_coord = p->score_cols != 1;
+  const bool exp = p->update == 1;
+  Plan plan{0, 0, 0, 0};
+  const Args a{p->x0, p->dbs, p->tab, p->temb, p->w_in, p->w_hid, p->b_hid, p->w_out, p->b_out,
+               p->gmm, p->xs, p->x_T, p->B, D, p->C, p->H, p->T, target, per_coord,
+               {p->clip_model, p->clip_score, exp ? 0.0f : p->prior_loc,
+                exp ? 1.0f : p->prior_var, p->t0, p->t1, p->t2, p->t3,
+                target == kGmm ? p->K : 0, table_floats(target, p->K, D), p->tab_w, p->tab_h},
+               (cudaStream_t)p->stream, p->rows, p->dry != 0, &plan};
+  int used = 0, code = (int)cudaErrorInvalidValue;
+  if (exp) {
+    code = per_coord ? launch_exp_dim(a, p->body, &used) : launch_exp(a, p->body, &used);
+  } else if (per_coord) {
+    if (form == kLerpEm) code = launch_lerp_dim(a, p->body, &used);
+    if (form == kScoreEm) code = launch_score_dim(a, p->body, &used);
+  } else if (form == kLerpEm) {
+    code = launch_lerp(a, p->body, &used);
+  } else if (form == kScoreEm) {
+    code = launch_score(a, p->body, &used);
+  } else if (form == kLerpTargetEm) {
+    code = launch_lerp_target(a, p->body, &used);
+  } else if (form == kClippedEm && target == kNoTarget) {
+    code = launch_clipped(a, p->body, &used);
+  } else if (form == kPotentialEm && target == kNoTarget) {
+    code = launch_potential(a, p->body, &used);
+  } else if (form == kCancelDriftEm) {
+    code = launch_cancel_drift(a, p->body, &used);
+  }
+  p->used = used;
+  p->plan_rows = plan.rows, p->plan_blocks = plan.blocks;
+  p->plan_smem = plan.smem, p->plan_slice = plan.slice;
+  return code;
 }

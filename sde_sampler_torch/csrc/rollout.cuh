@@ -110,10 +110,12 @@
 // the rollout moves only the noise in and the states out (8 bytes per row,
 // step and coordinate). B = 2048 rows leave about 16 rows per SM, so a step
 // is a short chain of dependent layers on few warps: latency and
-// instruction count, not bandwidth, set its time.
+// instruction count, not bandwidth, set its time. A given score's one-step
+// launch also reads its score: at d = 1600 its bytes (state, noise, score
+// in, state out) bound it.
 //
-// Two bodies, chosen here by shape (or on request) and reported to the
-// wrapper, which counts the generic one apart:
+// Three bodies, chosen here by shape (or on request) and reported to the
+// wrapper, which counts the generic and the wide one apart:
 //
 // - rollout_fast_kernel, for width C = 64, H = 2 hidden layers (every model
 //   config of the repo) and d = 1..16, all compile-time. One block of 128
@@ -131,20 +133,36 @@
 //   run before the C-wide input layer (the mixture's log-weights one
 //   (row, component) pair a thread), the mixture's exponentials between
 //   its barrier and the next, so that the score's sum over components
-//   reads them with the out_layer. Each output keeps the generic body's
-//   sum order (acc = bias, then fmaf over j = 0..C-1) and both bodies share
+//   reads them with the out_layer. Each output keeps the tiled bodies' sum
+//   order (acc = bias, then fmaf over j = 0..C-1) and all bodies share
 //   the target and update code, so they give the same bits.
-// - rollout_generic_kernel<form, target, false>, any (C, H, d) whose
-//   weights fit shared memory: one block per 16 rows, threads over (row,
-//   channel) pairs, one dependent chain per output, tables read from device
-//   memory each step.
-// - rollout_generic_kernel<form, target, true>, the wide body, for a given
-//   score too wide for that (d = 1600: the input and output layers alone
-//   are 2 d C floats, 819 KB): 8 rows a block, the input and output
-//   layers' weights read from device memory. It computes every output as
-//   the generic body does and gives its bits.
+// - The tiled bodies, for every other shape, share one SGEMM-shaped tiling
+//   of the three kinds of layer (tile_fma, below): 256 threads, each
+//   owning a register tile of a layer's output, its operands read as
+//   float2s and float4s and the next ones loaded before its fmas. Rows a
+//   block come from a plan (launch_tiled): the generic body as many blocks
+//   as the card holds at once, at most 16 rows each, so that a batch of
+//   512 still fills it; the wide body one block an SM, each pass over its
+//   streamed weights serving the most rows. The out_layer's tiles update
+//   the coordinates they output in place.
+//   - rollout_generic_kernel<form, target>, any (C, H, d) whose weights fit
+//     shared memory: every weight, the state tile and step 0's noise are
+//     staged once by cp.async, later steps' noise arrives while the step
+//     before computes; H + 2 barriers a step. For the configs' net (C = 64,
+//     H = 2) its register path (128 threads, at most 8 rows a block) keeps
+//     each thread's two hidden columns in registers for the whole launch,
+//     as the fast body does, and reads no hidden weight in a step.
+//   - rollout_wide_kernel<form>, one step of a given score where the
+//     generic body would hold fewer than two blocks an SM (d = 196 and up
+//     at C = 64; d = 1600, whose input and output layers alone are 2 d C
+//     floats, 819 KB, does not fit at all): the hidden layers are staged,
+//     the input and output layers' weights stream through a
+//     double-buffered cp.async ring of 256-row or -column slices, so its
+//     shared memory does not grow with d.
+//   Both compute every output as the fast body does and give its bits.
+//   TF32 tensor cores would not: the products stay FP32 SIMT.
 //
-// This header holds both bodies and their launch code. Each control form's
+// This header holds the bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
 // (rollout_lerp.cu, rollout_lerp_target.cu, rollout_score.cu,
 // rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu, and the
@@ -163,10 +181,10 @@
 
 namespace sde_rollout {
 
-constexpr int kRows = 16;  // batch rows per block of the generic body
-constexpr int kWideRows = 8;  // batch rows per block of the wide body
 constexpr int kTab = 6;    // per-step scalars, see the header
 
+// the potential form's generic body (rollout_potential.cu): rows a block, threads
+constexpr int kRows = 16;
 constexpr int kGenericThreads = 256;
 constexpr int kFastRows = 8;         // batch rows per block of the fast body
 constexpr int kFastThreads = 128;    // 64 channels x 2 row groups
@@ -435,154 +453,7 @@ __device__ __forceinline__ float step_update(float x, float net, float target,
   }
 }
 
-// ---------------------------------------------------------------- generic
-
-// Floats of shared memory the generic body (wide = false) or the wide body
-// (wide = true) needs: the weights (the wide body keeps the input and output
-// layers' in device memory), and per row of its tile the state, net output,
-// two activation rows and the target's row reductions.
-__host__ __device__ constexpr size_t generic_smem_floats(int D, int C, int H, int RS, int n_tab,
-                                                         bool wide) {
-  return (wide ? 0 : (size_t)D * C + (size_t)C * D + D) + (size_t)H * C * C + (size_t)H * C +
-         (size_t)(wide ? kWideRows : kRows) * (2 * D + 2 * C + RS) + (size_t)n_tab;
-}
-
-// A weight of the generic (kGlobal = false: shared memory) or the wide body
-// (kGlobal = true: device memory, read through the read-only cache).
-template <bool kGlobal>
-__device__ __forceinline__ float ldw(const float* p) {
-  if constexpr (kGlobal) {
-    return __ldg(p);
-  } else {
-    return *p;
-  }
-}
-
-// kWide = false, the generic body: kRows rows a block, every weight staged
-// in shared memory. kWide = true, the wide body, for a state too wide for
-// that (the given-score targets at d = 1600: the input and output layers
-// alone take 2 d C floats): kWideRows rows a block, the input and output
-// layers' weights read from device memory, where they stay L2-resident.
-// Both compute every output the same way (acc = bias, then fmaf over j in
-// order), so they give the same bits. A given score (kGiven) is read from
-// device memory at the tile's rows: `gmm` is the score (B, D) of this
-// step's state.
-template <int kForm, int kTarget, bool kWide, bool kPerCoord>
-__global__ void __launch_bounds__(kGenericThreads) rollout_generic_kernel(
-    const float* __restrict__ x0, const float* __restrict__ dbs,
-    const float* __restrict__ tab, const float* __restrict__ temb,
-    const float* __restrict__ w_in, const float* __restrict__ w_hid,
-    const float* __restrict__ b_hid, const float* __restrict__ w_out,
-    const float* __restrict__ b_out, const float* __restrict__ gmm,
-    float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int C, int H, int T,
-    Consts cs) {
-  constexpr int R = kWide ? kWideRows : kRows;
-  extern __shared__ float sm[];
-  const int RS = row_floats(kTarget, cs.K, D);
-  const int n_gmm = cs.n_tab;
-  float* s_win = sm;                                    // (D, C) input_embed weight, (in, out)
-  float* s_whid = s_win + (kWide ? 0 : D * C);          // (H, C, C)
-  float* s_bhid = s_whid + H * C * C;                   // (H, C)
-  float* s_wout = s_bhid + H * C;                       // (C, D)
-  float* s_bout = s_wout + (kWide ? 0 : C * D);         // (D)
-  float* s_x = s_bout + (kWide ? 0 : D);                // (R, D) state tile
-  float* s_a = s_x + R * D;                             // (R, C) activations, ping
-  float* s_b = s_a + R * C;                             // (R, C) activations, pong
-  float* s_out = s_b + R * C;                           // (R, D) net output
-  float* s_row = s_out + R * D;                         // (R, RS) the target's row reductions
-  float* s_gmm = s_row + R * RS;                        // (n_tab) the target's table
-  const float* win = kWide ? w_in : s_win;
-  const float* wout = kWide ? w_out : s_wout;
-  const float* bout = kWide ? b_out : s_bout;
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, B - row0);
-  const size_t step_stride = (size_t)B * D;
-  const size_t tile_off = (size_t)row0 * D;
-  // the image's energy table stays in device memory; a given score is read
-  // at this tile's rows, D floats a row
-  const float* table = kTarget == kImg ? gmm : s_gmm;
-  const float* rows = kTarget == kGiven ? gmm + tile_off : s_row;
-  const int row_stride = kTarget == kGiven ? D : RS;
-  // a launch of one step of a given score writes its state before the step
-  // where it already lies (xs[k] is x0) only once
-  const bool write_xs = xs != x0;
-
-  if constexpr (!kWide) {
-    for (int i = tid; i < D * C; i += kGenericThreads) s_win[i] = w_in[i];
-    for (int i = tid; i < C * D; i += kGenericThreads) s_wout[i] = w_out[i];
-    for (int i = tid; i < D; i += kGenericThreads) s_bout[i] = b_out[i];
-  }
-  for (int i = tid; i < H * C * C; i += kGenericThreads) s_whid[i] = w_hid[i];
-  for (int i = tid; i < H * C; i += kGenericThreads) s_bhid[i] = b_hid[i];
-  for (int i = tid; i < n_gmm; i += kGenericThreads) s_gmm[i] = gmm[i];
-  for (int i = tid; i < R * D; i += kGenericThreads)
-    s_x[i] = i < nrows * D ? x0[tile_off + i] : 0.0f;
-  __syncthreads();
-
-  for (int k = 0; k < T; ++k) {
-    float* xs_k = xs + (size_t)k * step_stride + tile_off;
-    if (write_xs)
-      for (int i = tid; i < nrows * D; i += kGenericThreads) xs_k[i] = s_x[i];
-
-    // the target's row reductions of this step's state
-    row_phase<kTarget>(s_x, s_row, table, R, D, tid, kGenericThreads, cs);
-
-    // input_embed(x) + timestep_embed(s) (bias folded into temb), then GELU
-    const float* temb_k = temb + (size_t)k * C;
-    for (int i = tid; i < R * C; i += kGenericThreads) {
-      const int r = i / C, c = i - r * C;
-      float acc = temb_k[c];
-      for (int j = 0; j < D; ++j) acc = fmaf(ldw<kWide>(win + j * C + c), s_x[r * D + j], acc);
-      s_a[i] = gelu_exact(acc);
-    }
-    __syncthreads();
-
-    float* in = s_a;
-    float* out = s_b;
-    for (int l = 0; l < H; ++l) {
-      const float* W = s_whid + (size_t)l * C * C;
-      const float* bias = s_bhid + l * C;
-      for (int i = tid; i < R * C; i += kGenericThreads) {
-        const int r = i / C, c = i - r * C;
-        const float* a = in + r * C;
-        float acc = bias[c];
-        for (int j = 0; j < C; ++j) acc = fmaf(W[j * C + c], a[j], acc);
-        out[i] = gelu_exact(acc);
-      }
-      __syncthreads();
-      float* tmp = in;
-      in = out;
-      out = tmp;
-    }
-
-    for (int i = tid; i < R * D; i += kGenericThreads) {
-      const int r = i / D, c = i - r * D;
-      const float* a = in + r * C;
-      float acc = ldw<kWide>(bout + c);
-      for (int j = 0; j < C; ++j) acc = fmaf(ldw<kWide>(wout + j * D + c), a[j], acc);
-      s_out[i] = acc;
-    }
-    exp_phase<kTarget>(s_row, R, tid, kGenericThreads, cs);
-    __syncthreads();
-
-    const float* db_k = dbs + (size_t)k * step_stride + tile_off;
-    const float* st = tab + (size_t)k * tab_cols<kPerCoord>(D);
-    for (int i = tid; i < nrows * D; i += kGenericThreads) {
-      const int r = i / D, j = i - r * D;
-      const float target =
-          target_score<kTarget>(s_x[i], j, D, rows + r * row_stride, table, cs);
-      s_x[i] = step_update<kForm>(s_x[i], s_out[i], target, st,
-                                  step_sscore<kPerCoord>(st, j), db_k[i], cs);
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < nrows * D; i += kGenericThreads) x_T[tile_off + i] = s_x[i];
-}
-
-// ---------------------------------------------------------------- fast
+// ---------------------------------------------------------------- shared helpers
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -600,6 +471,644 @@ __device__ __forceinline__ void copy_in(float* dst, const float* src, int n) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
 }
+
+// Block-wide cp.async of `rows` rows of n floats (source rows `ld_src`
+// floats apart, destination rows `ld_dst` apart) into shared memory, in the
+// caller's commit group; 16 bytes at a time where both sides allow it.
+__device__ __forceinline__ void copy_rows_async(float* dst, int ld_dst, const float* src,
+                                                size_t ld_src, int rows, int n) {
+  const size_t addr = reinterpret_cast<size_t>(src) | reinterpret_cast<size_t>(dst);
+  if ((n | ld_dst | (int)(ld_src & 3)) % 4 == 0 && (addr & 15) == 0) {
+    const int q = n / 4;
+    for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+      const int r = i / q, c = 4 * (i - r * q);
+      cp_async16(dst + r * ld_dst + c, src + r * ld_src + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+      const int r = i / n, c = i - r * n;
+      cp_async4(dst + r * ld_dst + c, src + r * ld_src + c);
+    }
+  }
+}
+
+// The same for n contiguous floats.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  copy_rows_async(dst, n, src, (size_t)n, 1, n);
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// ---------------------------------------------------------------- tiled bodies
+
+// The generic and the wide body share one tiling of the net's products, an
+// SGEMM-shaped register tile (tile_fma): a thread owns TM rows by TN
+// adjacent columns of a layer's output (2 by 2 in the C-wide layers and the
+// generic body's out_layer, 4 by 4 in the wide body's out_layer). Per 4
+// steps of j it reads each of its rows' 4 activations as one float4
+// (warp-uniform: a broadcast) and each step's TN weights as one float2 or
+// float4 (the lanes' columns adjacent: conflict-free); two groups of
+// operands ping-pong, so that a group's loads issue before the previous
+// group's fmas. With at most 16 rows a multiprocessor there are 1024
+// outputs a C-wide layer: 4 a thread keeps 8 warps busy, two a scheduler,
+// which the card needs (a 4 x 2 tile on 4 warps ran 1.5x slower; PERF.md
+// §6). Each sum keeps the fast body's order: acc = bias (or the
+// time embedding), then fmaf over j = 0..K-1, so every body gives the same
+// bits.
+constexpr int kTileThreads = 256;
+constexpr int kLayerRows = 2;    // a thread's tile in the C-wide layers and the generic
+constexpr int kLayerCols = 2;    // body's out_layer: rows, columns
+constexpr int kWideInRows = 2;   // a thread's tile in the wide body's input layer
+constexpr int kWideInCols = 2;
+constexpr int kWideOutRows = 4;  // a thread's tile in the wide body's out_layer
+constexpr int kWideOutCols = 4;
+constexpr int kMaxRows = 16;     // rows a block at most
+constexpr int kWideStages = 2;   // the wide body's ring: a slice computes, the next lands
+constexpr int kWideTiles = 2;    // input-layer tiles a wide-body thread holds (C <= 128)
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+static_assert(kWideOutCols == 4, "the wide body's epilogue moves a row's 4 coordinates as a float4");
+static_assert(4 % kLayerRows == 0 && 4 % kWideInRows == 0 && 4 % kWideOutRows == 0,
+              "the wide body's rows pad to a multiple of 4");
+
+// TN = 2 or 4 adjacent floats from p (aligned to 4 TN bytes) into v.
+template <int TN>
+__device__ __forceinline__ void ld_cols(float (&v)[TN], const float* p) {
+  static_assert(TN == 2 || TN == 4, "a tile is 2 or 4 columns wide");
+  if constexpr (TN == 4) {
+    const float4 t = ld4(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+// One group of 4 steps of tile_fma: operands `a` (TM rows' float4s) and
+// `b` (4 steps' TN weights), and their fmas in the sum order.
+template <int TM, int TN>
+struct TileGroup {
+  float4 a[TM];
+  float b[4][TN];
+
+  __device__ __forceinline__ void load(const float* in, int ldi, const float* w, int ldw, int j) {
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) a[rr] = ld4(in + rr * ldi + j);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ld_cols<TN>(b[kk], w + (j + kk) * ldw);
+  }
+
+  __device__ __forceinline__ void fma(float (&acc)[TM][TN]) const {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int rr = 0; rr < TM; ++rr) {
+        const float v = (&a[rr].x)[kk];
+#pragma unroll
+        for (int cc = 0; cc < TN; ++cc) acc[rr][cc] = fmaf(b[kk][cc], v, acc[rr][cc]);
+      }
+    }
+  }
+};
+
+// acc[rr][cc] += w[j][cc] * in[rr][j] for j = 0..K-1 in order (fmaf), over
+// the TM rows of `in` (row stride ldi, a multiple of 4, rows 16-byte
+// aligned) and the TN columns that start at `w` (aligned to 4 TN bytes,
+// row stride ldw a multiple of 4). Two groups of operands ping-pong, so
+// that each group's loads issue before the previous group's fmas, with no
+// register copies.
+template <int TM, int TN>
+__device__ __forceinline__ void tile_fma(float (&acc)[TM][TN], const float* in, int ldi,
+                                         const float* w, int ldw, int K) {
+  const int K4 = K & ~3;
+  if (K4 > 0) {
+    TileGroup<TM, TN> g0, g1;
+    g0.load(in, ldi, w, ldw, 0);
+    int j = 0;
+    for (; j + 8 <= K4; j += 8) {
+      g1.load(in, ldi, w, ldw, j + 4);
+      g0.fma(acc);
+      if (j + 8 < K4) g0.load(in, ldi, w, ldw, j + 8);
+      g1.fma(acc);
+    }
+    if (j < K4) g0.fma(acc);  // the last group, loaded above
+  }
+  for (int j = K4; j < K; ++j) {
+    float b[TN];
+    ld_cols<TN>(b, w + j * ldw);
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) {
+      const float v = in[rr * ldi + j];
+#pragma unroll
+      for (int cc = 0; cc < TN; ++cc) acc[rr][cc] = fmaf(b[cc], v, acc[rr][cc]);
+    }
+  }
+}
+
+// out[r][c] = gelu(bias[c] + sum_j w[j][c] in[r][j]) for the RP rows (a
+// multiple of kLayerRows) and N columns of a block, a tile a thread at a
+// time; w's row stride ldw = pad4(N); `bias` in shared or device memory.
+template <int NT = kTileThreads>
+__device__ __forceinline__ void dense_gelu(float* out, int ldo, const float* in, int ldi,
+                                           const float* w, int ldw, const float* bias, int K,
+                                           int N, int RP) {
+  constexpr int TM = kLayerRows, TN = kLayerCols;
+  const int nq = (N + TN - 1) / TN, tiles = RP / TM * nq;
+  for (int t = threadIdx.x; t < tiles; t += NT) {
+    const int rt = t / nq, c0 = TN * (t - rt * nq);
+    float acc[TM][TN];
+#pragma unroll
+    for (int cc = 0; cc < TN; ++cc) {
+      const float b = bias[min(c0 + cc, N - 1)];
+#pragma unroll
+      for (int rr = 0; rr < TM; ++rr) acc[rr][cc] = b;
+    }
+    tile_fma<TM, TN>(acc, in + rt * TM * ldi, ldi, w + c0, ldw, K);
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) {
+#pragma unroll
+      for (int cc = 0; cc < TN; ++cc)
+        if (c0 + cc < N) out[(rt * TM + rr) * ldo + c0 + cc] = gelu_exact(acc[rr][cc]);
+    }
+  }
+}
+
+// The hidden layers (weights (H, C, pad4(C)), biases (H, pad4(C))),
+// ping-ponging between `in` and `out`, each followed by a barrier; returns
+// the buffer of the last activations. `wait_noise`: the last one first
+// waits for this step's noise copy (all but the newest cp.async group).
+template <int NT = kTileThreads>
+__device__ __forceinline__ float* hidden_layers(float* in, float* out, const float* whid,
+                                                const float* bhid, int C, int H, int RP,
+                                                bool wait_noise) {
+  const int CP = pad4(C);
+  for (int l = 0; l < H; ++l) {
+    dense_gelu<NT>(out, CP, in, CP, whid + (size_t)l * C * CP, CP, bhid + l * CP, C, C, RP);
+    if (wait_noise && l == H - 1) cp_async_wait<1>();
+    __syncthreads();
+    float* tmp = in;
+    in = out;
+    out = tmp;
+  }
+  return in;
+}
+
+// The generic body's path for the model configs' net (C = 64, H = 2, as the
+// fast body's): kRegThreads threads, each owning one channel of 4 rows, its
+// two hidden columns in registers for the whole launch (whid, loaded once
+// from shared memory), as the fast body keeps them; a warp's 32 channels
+// read the same rows, so the activations arrive as float4 broadcasts and
+// no weight is read from shared memory in a step. At most kRegRows rows a
+// block.
+constexpr int kRegThreads = 128;
+constexpr int kRegRows = kRegThreads / kFastC * 4;
+static_assert(kRegRows == 8, "two row groups of 4 rows");
+
+// Both hidden layers from register-resident weights (the thread's channel
+// c, rows 4 rg..4 rg + 3), each followed by a barrier; the last first waits
+// for this step's noise copy. Returns the buffer of the last activations.
+__device__ __forceinline__ float* hidden_layers_reg(float* in, float* out,
+                                                    const float (&whid)[kFastH][kFastC],
+                                                    const float (&bhid)[kFastH]) {
+  constexpr int CP = kFastC;
+  const int c = threadIdx.x % kFastC, r0 = 4 * (threadIdx.x / kFastC);
+#pragma unroll
+  for (int l = 0; l < kFastH; ++l) {
+    float acc[4];
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) acc[rr] = bhid[l];
+#pragma unroll
+    for (int j0 = 0; j0 < kFastC; j0 += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) a[rr] = ld4(in + (r0 + rr) * CP + j0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) acc[rr] = fmaf(whid[l][j0 + jj], (&a[rr].x)[jj], acc[rr]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) out[(r0 + rr) * CP + c] = gelu_exact(acc[rr]);
+    if (l == kFastH - 1) cp_async_wait<1>();  // this step's noise has landed
+    __syncthreads();
+    float* tmp = in;
+    in = out;
+    out = tmp;
+  }
+  return in;
+}
+
+// Float offsets of the generic body's shared memory at R rows a block (RP
+// = pad4(R) rows of tiles; kRegRows for the register path, `reg`), each array at a multiple of 4 floats: the
+// weights with rows padded to a multiple of 4 floats, two activation
+// buffers, the state tile (row stride D, as row_phase reads it, and a copy
+// of row stride pad4(D) for the input layer's float4 reads where D % 4 !=
+// 0), the noise of two steps, a given score's tile, the row reductions and
+// the target's table. `total` is the size in floats, -1 for shapes past
+// any block.
+struct GenericLayout {
+  int win, whid, bhid, wout, bout, a, b, xa, x, db, sc, row, gmm;
+  long long total;
+};
+
+__host__ __device__ inline GenericLayout generic_layout(int D, int C, int H, int R, int RS,
+                                                        int n_tab, bool given, bool reg) {
+  GenericLayout l{};
+  if ((long long)D * C > (1 << 24) || (long long)H * C * C > (1 << 24) || D > (1 << 20)) {
+    l.total = -1;
+    return l;
+  }
+  const int RP = reg ? kRegRows : pad4(R), CP = pad4(C), DP = pad4(D);
+  int o = 0;
+  l.win = o, o += D * CP;
+  l.whid = o, o += H * C * CP;
+  l.bhid = o, o += H * CP;
+  l.wout = o, o += C * DP;
+  l.bout = o, o += DP;
+  l.a = o, o += RP * CP;
+  l.b = o, o += RP * CP;
+  l.x = o, o += pad4(RP * D);
+  l.xa = l.x;
+  if (D % 4 != 0) l.xa = o, o += RP * DP;
+  l.db = o, o += 2 * pad4(RP * D);
+  l.sc = o, o += given ? pad4(RP * D) : 0;
+  l.row = o, o += pad4(RP * RS);
+  l.gmm = o, o += pad4(n_tab);
+  l.total = o;
+  return l;
+}
+
+// The generic body: any (C, H, d) whose weights fit shared memory, every
+// target and form, T steps in one launch. R rows a block (the plan's, at
+// most kMaxRows). The weights, the state tile, step 0's noise (and a given
+// score) are staged once by cp.async; step k+1's noise arrives by cp.async
+// while step k computes. A step: the target's row reductions and the input
+// layer, the mixture's exponentials and the hidden layers, then the C -> d
+// layer, whose tiles update the coordinates they output in place: H + 2
+// barriers. A given score (kGiven, T = 1) is staged at the tile's rows:
+// `gmm` is the score (B, D) of this step's state.
+template <int kForm, int kTarget, bool kPerCoord, bool kReg>
+__global__ void __launch_bounds__(kReg ? kRegThreads : kTileThreads) rollout_generic_kernel(
+    const float* __restrict__ x0, const float* __restrict__ dbs,
+    const float* __restrict__ tab, const float* __restrict__ temb,
+    const float* __restrict__ w_in, const float* __restrict__ w_hid,
+    const float* __restrict__ b_hid, const float* __restrict__ w_out,
+    const float* __restrict__ b_out, const float* __restrict__ gmm,
+    float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int C, int H, int T, int R,
+    Consts cs) {
+  constexpr int TM = kLayerRows, TN = kLayerCols;
+  constexpr int NT = kReg ? kRegThreads : kTileThreads;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int RS = row_floats(kTarget, cs.K, D);
+  const GenericLayout L = generic_layout(D, C, H, R, RS, cs.n_tab, kTarget == kGiven, kReg);
+  const int RP = kReg ? kRegRows : pad4(R), CP = pad4(C), DP = pad4(D);
+  float* s_win = sm + L.win;    // (D, CP) input_embed weight, (in, out)
+  float* s_whid = sm + L.whid;  // (H, C, CP)
+  float* s_bhid = sm + L.bhid;  // (H, CP)
+  float* s_wout = sm + L.wout;  // (C, DP)
+  float* s_bout = sm + L.bout;  // (DP)
+  float* s_a = sm + L.a;        // (RP, CP) activations, ping
+  float* s_b = sm + L.b;        // (RP, CP) activations, pong
+  float* s_x = sm + L.x;        // (RP, D) state tile
+  float* s_xa = sm + L.xa;      // (RP, DP) the input layer's copy (s_x where D % 4 == 0)
+  float* s_db = sm + L.db;      // 2 x (RP, D) noise
+  float* s_sc = sm + L.sc;      // (RP, D) a given score
+  float* s_row = sm + L.row;    // (RP, RS) the target's row reductions
+  float* s_gmm = sm + L.gmm;    // (n_tab) the target's table
+  const int db_floats = pad4(RP * D);
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, B - row0);
+  const int nx = nrows * D;  // valid floats of the tile
+  const size_t step_stride = (size_t)B * D;
+  const size_t tile_off = (size_t)row0 * D;
+  // the image's energy table stays in device memory
+  const float* table = kTarget == kImg ? gmm : s_gmm;
+  const float* rows = kTarget == kGiven ? s_sc : s_row;
+  const int row_stride = kTarget == kGiven ? D : RS;
+  // a launch of one step of a given score writes its state before the step
+  // where it already lies (xs[k] is x0) only once
+  const bool write_xs = xs != x0;
+
+  copy_rows_async(s_win, CP, w_in, (size_t)C, D, C);
+  copy_rows_async(s_whid, CP, w_hid, (size_t)C, H * C, C);
+  copy_rows_async(s_bhid, CP, b_hid, (size_t)C, H, C);
+  copy_rows_async(s_wout, DP, w_out, (size_t)D, C, D);
+  copy_async(s_bout, b_out, D);
+  if constexpr (kTarget != kImg && kTarget != kGiven) copy_async(s_gmm, gmm, cs.n_tab);
+  if constexpr (kTarget == kGiven) copy_async(s_sc, gmm + tile_off, nx);
+  copy_async(s_x, x0 + tile_off, nx);
+  copy_async(s_db, dbs + tile_off, nx);
+  for (int i = nx + tid; i < RP * D; i += NT) s_x[i] = 0.0f;  // rows past B
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // the register path's hidden columns, for the whole launch
+  float wreg[kFastH][kFastC], breg[kFastH];
+  if constexpr (kReg) {
+    const int c = tid % kFastC;
+#pragma unroll
+    for (int l = 0; l < kFastH; ++l) {
+      breg[l] = s_bhid[l * CP + c];
+#pragma unroll
+      for (int j = 0; j < kFastC; ++j) wreg[l][j] = s_whid[(l * kFastC + j) * CP + c];
+    }
+  }
+  if (s_xa != s_x) {
+    for (int i = tid; i < RP * DP; i += NT) {
+      const int r = i / DP, j = i - r * DP;
+      s_xa[i] = j < D ? s_x[r * D + j] : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  const int nq = (D + TN - 1) / TN;  // the out_layer's column groups
+  const int out_tiles = RP / TM * nq;
+  for (int k = 0; k < T; ++k) {
+    if (write_xs) {
+      float* xs_k = xs + (size_t)k * step_stride + tile_off;
+      for (int i = tid; i < nx; i += NT) xs_k[i] = s_x[i];
+    }
+    if (k + 1 < T)
+      copy_async(s_db + ((k + 1) & 1) * db_floats, dbs + (size_t)(k + 1) * step_stride + tile_off,
+                 nx);
+    cp_async_commit();  // one group per step, empty on the last
+
+    // the target's row reductions of this step's state
+    row_phase<kTarget>(s_x, s_row, table, RP, D, tid, NT, cs);
+
+    // input_embed(x) + timestep_embed(s) (bias folded into temb), then GELU
+    dense_gelu<NT>(s_a, CP, s_xa, DP, s_win, CP, temb + (size_t)k * C, D, C, RP);
+    if (H == 0) cp_async_wait<1>();  // this step's noise has landed
+    __syncthreads();
+    // the mixture's exponentials, read after the next barrier
+    exp_phase<kTarget>(s_row, RP, tid, NT, cs);
+    const float* act;
+    if constexpr (kReg)
+      act = hidden_layers_reg(s_a, s_b, wreg, breg);
+    else
+      act = hidden_layers<NT>(s_a, s_b, s_whid, s_bhid, C, H, RP, true);
+    if (kTarget == kGmm && H == 0) __syncthreads();
+
+    // out_layer, and the update of the coordinates each tile outputs
+    const float* st = tab + (size_t)k * tab_cols<kPerCoord>(D);
+    const float* db_k = s_db + (k & 1) * db_floats;
+    for (int t = tid; t < out_tiles; t += NT) {
+      const int rt = t / nq, o0 = TN * (t - rt * nq);
+      float acc[TM][TN];
+#pragma unroll
+      for (int cc = 0; cc < TN; ++cc) {
+        const float b = s_bout[o0 + cc];
+#pragma unroll
+        for (int rr = 0; rr < TM; ++rr) acc[rr][cc] = b;
+      }
+      tile_fma<TM, TN>(acc, act + rt * TM * CP, CP, s_wout + o0, DP, C);
+#pragma unroll
+      for (int rr = 0; rr < TM; ++rr) {
+        const int r = rt * TM + rr;
+#pragma unroll
+        for (int cc = 0; cc < TN; ++cc) {
+          const int o = o0 + cc;
+          if (r >= nrows || o >= D) continue;
+          const int i = r * D + o;
+          const float target =
+              target_score<kTarget>(s_x[i], o, D, rows + r * row_stride, table, cs);
+          const float x = step_update<kForm>(s_x[i], acc[rr][cc], target, st,
+                                             step_sscore<kPerCoord>(st, o), db_k[i], cs);
+          s_x[i] = x;
+          s_xa[r * DP + o] = x;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < nx; i += NT) x_T[tile_off + i] = s_x[i];
+}
+
+// Float offsets of the wide body's shared memory at R rows a block (RP =
+// pad4(R) rows of tiles) and slices of S: the hidden layers, two activation
+// buffers and a ring of kWideStages slices, each either an input-layer
+// slice (S rows of the (D, C) weight, rows padded to pad4(C), then the
+// tile's state at those S coordinates, (RP, S)) or an output-layer slice
+// (S columns of the (C, D) weight, (C, S), then their biases).
+struct WideLayout {
+  int whid, bhid, a, b, ring, stage;
+  long long total;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int C, int H, int R, int S) {
+  WideLayout l{};
+  if ((long long)H * C * C > (1 << 24) || C > 4096) {
+    l.total = -1;
+    return l;
+  }
+  const int RP = pad4(R), CP = pad4(C);
+  const int in_stage = S * CP + RP * S, out_stage = C * S + S;
+  int o = 0;
+  l.whid = o, o += H * C * CP;
+  l.bhid = o, o += H * CP;
+  l.a = o, o += RP * CP;
+  l.b = o, o += RP * CP;
+  l.stage = pad4(in_stage > out_stage ? in_stage : out_stage);
+  l.ring = o, o += kWideStages * l.stage;
+  l.total = o;
+  return l;
+}
+
+// The wide body: one step (T = 1) of a given score (`gmm`, the score (B, D)
+// of x0), for a state too wide for the generic body to stage (d = 1600:
+// the input and output layers alone are 2 d C floats, 819 KB) or whose
+// staging would hold fewer than two blocks an SM. The hidden layers are
+// staged; the input-layer weight (D, C) and the output-layer weight (C, D)
+// stream through a double-buffered ring of S-row or S-column slices by
+// cp.async, with the state's columns of each input slice, so that slice
+// s + 1 lands while slice s computes and the shared memory does not grow
+// with d. The input layer's sums stay in registers across its slices; the
+// out_layer's tiles (4 rows, 16 sums a thread) end in the update of the
+// coordinates they output, written to x_T (and the state before the step
+// to xs). The tile's noise and score are prefetched into L2 at the start,
+// and each output tile loads its operands before its fmas. Every sum keeps
+// the generic body's order, so the two give the same bits.
+template <int kForm, bool kPerCoord>
+__global__ void __launch_bounds__(kTileThreads) rollout_wide_kernel(
+    const float* __restrict__ x0, const float* __restrict__ dbs,
+    const float* __restrict__ tab, const float* __restrict__ temb,
+    const float* __restrict__ w_in, const float* __restrict__ w_hid,
+    const float* __restrict__ b_hid, const float* __restrict__ w_out,
+    const float* __restrict__ b_out, const float* __restrict__ gmm,
+    float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int C, int H, int R, int S,
+    Consts cs) {
+  constexpr int TM = kWideInRows, TN = kWideInCols, TO = kWideOutRows, TQ = kWideOutCols;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const WideLayout L = wide_layout(C, H, R, S);
+  const int RP = pad4(R), CP = pad4(C);
+  float* s_whid = sm + L.whid;  // (H, C, CP)
+  float* s_bhid = sm + L.bhid;  // (H, CP)
+  float* s_a = sm + L.a;        // (RP, CP) activations, ping
+  float* s_b = sm + L.b;        // (RP, CP) activations, pong
+  float* s_ring = sm + L.ring;  // kWideStages slices
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, B - row0);
+  const size_t tile_off = (size_t)row0 * D;
+  const bool write_xs = xs != x0;
+  const int n_in = (D + S - 1) / S;  // input slices, then as many output slices
+  const int n_slices = 2 * n_in;
+  const int nqc = (C + TN - 1) / TN;  // the input layer's column groups
+  const int in_tiles = RP / TM * nqc;
+  const int nqs = S / TQ;  // an output slice's column groups
+  const int out_tiles = RP / TO * nqs;
+
+  // the noise and score of the tile, read by the output slices, into L2
+  for (int i = 32 * tid; i < nrows * D; i += 32 * kTileThreads) {
+    prefetch_l2(dbs + tile_off + i);
+    prefetch_l2(gmm + tile_off + i);
+  }
+  auto load = [&](int s) {
+    float* st = s_ring + (s % kWideStages) * L.stage;
+    if (s < n_in) {
+      const int j0 = s * S, kk = min(S, D - j0);
+      copy_rows_async(st, CP, w_in + (size_t)j0 * C, (size_t)C, kk, C);
+      copy_rows_async(st + S * CP, S, x0 + tile_off + j0, (size_t)D, nrows, kk);
+    } else {
+      const int o0 = (s - n_in) * S, nn = min(S, D - o0);
+      copy_rows_async(st, S, w_out + o0, (size_t)D, C, nn);
+      copy_async(st + C * S, b_out + o0, nn);
+    }
+  };
+  copy_rows_async(s_whid, CP, w_hid, (size_t)C, H * C, C);
+  copy_rows_async(s_bhid, CP, b_hid, (size_t)C, H, C);
+  load(0);
+  cp_async_commit();
+
+  // the input layer's tiles of this thread, their sums kept across slices
+  float acc[kWideTiles][TM][TN];
+#pragma unroll
+  for (int i = 0; i < kWideTiles; ++i) {
+    const int t = tid + i * kTileThreads;
+    const int c0 = TN * (t % nqc);
+#pragma unroll
+    for (int cc = 0; cc < TN; ++cc) {
+      const float b = temb[min(c0 + cc, C - 1)];
+#pragma unroll
+      for (int rr = 0; rr < TM; ++rr) acc[i][rr][cc] = b;
+    }
+  }
+  const float* act = s_a;
+
+  for (int s = 0; s < n_slices; ++s) {
+    cp_async_wait<0>();  // slice s has landed
+    __syncthreads();     // ... for every thread, and slice s - 1 is done
+    if (s + 1 < n_slices) load(s + 1);
+    cp_async_commit();
+    const float* st = s_ring + (s % kWideStages) * L.stage;
+    if (s < n_in) {
+      // input_embed(x) + timestep_embed(s) (bias folded into temb)
+      const int kk = min(S, D - s * S);
+#pragma unroll
+      for (int i = 0; i < kWideTiles; ++i) {
+        const int t = tid + i * kTileThreads;
+        if (t >= in_tiles) continue;
+        const int rt = t / nqc, c0 = TN * (t - rt * nqc);
+        tile_fma<TM, TN>(acc[i], st + S * CP + rt * TM * S, S, st + c0, CP, kk);
+      }
+      if (s == n_in - 1) {
+#pragma unroll
+        for (int i = 0; i < kWideTiles; ++i) {
+          const int t = tid + i * kTileThreads;
+          if (t >= in_tiles) continue;
+          const int rt = t / nqc, c0 = TN * (t - rt * nqc);
+#pragma unroll
+          for (int rr = 0; rr < TM; ++rr) {
+#pragma unroll
+            for (int cc = 0; cc < TN; ++cc)
+              if (c0 + cc < C) s_a[(rt * TM + rr) * CP + c0 + cc] = gelu_exact(acc[i][rr][cc]);
+          }
+        }
+        __syncthreads();
+        act = hidden_layers(s_a, s_b, s_whid, s_bhid, C, H, RP, false);
+      }
+      continue;
+    }
+    // out_layer on this slice's columns, and the update of each coordinate
+    const int o0 = (s - n_in) * S, nn = min(S, D - o0);
+    for (int t = tid; t < out_tiles; t += kTileThreads) {
+      const int rt = t / nqs, q0 = TQ * (t - rt * nqs);
+      float xv[TO][TQ], dv[TO][TQ], sv[TO][TQ];
+      // a row's TQ = 4 coordinates as one float4 where they are whole and
+      // 16-byte aligned (D % 4 == 0), else one at a time
+      const bool vec = (D & 3) == 0 && q0 + TQ <= nn;
+#pragma unroll
+      for (int rr = 0; rr < TO; ++rr) {
+        const int r = rt * TO + rr;
+        const size_t i = tile_off + (size_t)r * D + o0 + q0;
+        if (vec && r < nrows) {
+          const float4 x4 = __ldg(reinterpret_cast<const float4*>(x0 + i));
+          const float4 d4 = __ldg(reinterpret_cast<const float4*>(dbs + i));
+          const float4 s4 = __ldg(reinterpret_cast<const float4*>(gmm + i));
+          xv[rr][0] = x4.x, xv[rr][1] = x4.y, xv[rr][2] = x4.z, xv[rr][3] = x4.w;
+          dv[rr][0] = d4.x, dv[rr][1] = d4.y, dv[rr][2] = d4.z, dv[rr][3] = d4.w;
+          sv[rr][0] = s4.x, sv[rr][1] = s4.y, sv[rr][2] = s4.z, sv[rr][3] = s4.w;
+          continue;
+        }
+#pragma unroll
+        for (int cc = 0; cc < TQ; ++cc) {
+          const bool ok = r < nrows && q0 + cc < nn;
+          xv[rr][cc] = ok ? x0[i + cc] : 0.0f;
+          dv[rr][cc] = ok ? dbs[i + cc] : 0.0f;
+          sv[rr][cc] = ok ? gmm[i + cc] : 0.0f;
+        }
+      }
+      float out[TO][TQ];
+#pragma unroll
+      for (int cc = 0; cc < TQ; ++cc) {
+        const float b = st[C * S + q0 + cc];
+#pragma unroll
+        for (int rr = 0; rr < TO; ++rr) out[rr][cc] = b;
+      }
+      tile_fma<TO, TQ>(out, act + rt * TO * CP, CP, st + q0, S, C);
+#pragma unroll
+      for (int rr = 0; rr < TO; ++rr) {
+        const int r = rt * TO + rr;
+        if (r >= nrows) continue;
+        float x1[TQ];
+#pragma unroll
+        for (int cc = 0; cc < TQ; ++cc) {
+          // the given score of this coordinate (target_score<kGiven> reads row[j])
+          const float target =
+              target_score<kGiven>(xv[rr][cc], 0, D, &sv[rr][cc], nullptr, cs);
+          x1[cc] = step_update<kForm>(xv[rr][cc], out[rr][cc], target, tab,
+                                      step_sscore<kPerCoord>(tab, min(o0 + q0 + cc, D - 1)),
+                                      dv[rr][cc], cs);
+        }
+        const size_t i = tile_off + (size_t)r * D + o0 + q0;
+        if (vec) {
+          *reinterpret_cast<float4*>(x_T + i) = make_float4(x1[0], x1[1], x1[2], x1[3]);
+          if (write_xs)
+            *reinterpret_cast<float4*>(xs + i) =
+                make_float4(xv[rr][0], xv[rr][1], xv[rr][2], xv[rr][3]);
+          continue;
+        }
+#pragma unroll
+        for (int cc = 0; cc < TQ; ++cc) {
+          if (q0 + cc >= nn) continue;
+          x_T[i + cc] = x1[cc];
+          if (write_xs) xs[i + cc] = xv[rr][cc];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- fast
 
 // Floats of shared memory the fast body needs at a given D and T, with RS
 // floats of row reductions a row, a target table of n_tab floats and TS
@@ -769,6 +1278,12 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   for (int i = tid; i < nx; i += NT) x_T[tile_off + i] = s_x[i];
 }
 
+// What a launch plans: rows a block, blocks, shared memory in bytes, and
+// the wide body's slice (0 for the other bodies).
+struct Plan {
+  int rows, blocks, smem, slice;
+};
+
 struct Args {
   const float *x0, *dbs, *tab, *temb, *w_in, *w_hid, *b_hid, *w_out, *b_out, *gmm;
   float *xs, *x_T;
@@ -776,13 +1291,150 @@ struct Args {
   bool per_coord;  // a per-coordinate sscore: the table has kTab + D columns
   Consts cs;
   cudaStream_t stream;
+  int rows;     // rows a block of the tiled bodies asked for (0: the plan's)
+  bool dry;     // plan only: launch nothing
+  Plan* plan;   // receives the plan (may be null)
 };
+
+// The multiprocessors of the current device.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 132;
+  }
+  return n;
+}
+
+// Rows a block: as many blocks as every multiprocessor holds (`occupancy`
+// of them at once, at least one) before any holds more, at most
+// `max_rows`. The wide body plans one block a multiprocessor
+// (occupancy 1): each pass over its streamed weights then serves the most
+// rows.
+inline int plan_rows(int B, int occupancy, int max_rows) {
+  const int slots = sm_count() * (occupancy > 1 ? occupancy : 1);
+  return min(max_rows, max(1, (B + slots - 1) / slots));
+}
+
+// Whether the generic body takes its register path: the model configs' net.
+inline bool reg_path(const Args& a) { return a.C == kFastC && a.H == kFastH; }
+
+// Shared memory (bytes) of the generic and the wide body at R rows a block
+// (-1 past any block).
+inline long long generic_smem(const Args& a, int R) {
+  const GenericLayout l = generic_layout(a.D, a.C, a.H, R, row_floats(a.target, a.cs.K, a.D),
+                                         a.cs.n_tab, a.target == kGiven, reg_path(a));
+  return l.total < 0 ? -1 : (long long)sizeof(float) * l.total;
+}
+
+inline long long wide_bytes(const Args& a, int R, int S) {
+  const WideLayout l = wide_layout(a.C, a.H, R, S);
+  return l.total < 0 ? -1 : (long long)sizeof(float) * l.total;
+}
+
+inline bool smem_fits(long long bytes) { return bytes >= 0 && bytes <= (long long)kMaxSmem; }
+
+// The wide body's slice: the longest of 256, 128 and 64 rows or columns
+// whose ring fits at kMaxRows rows a block (0 if none).
+inline int wide_slice(const Args& a) {
+  for (int S = 256; S >= 64; S /= 2)
+    if (smem_fits(wide_bytes(a, kMaxRows, S))) return S;
+  return 0;
+}
+
+inline long long wide_smem(const Args& a, int R) {
+  const int S = wide_slice(a);
+  return S > 0 ? wide_bytes(a, R, S) : -1;
+}
+
+// The most rows a block (up to `cap`) whose shared memory fits, 0 if none.
+template <typename Smem>
+int max_rows(const Args& a, Smem smem, int cap = kMaxRows) {
+  for (int R = cap; R >= 1; R -= (R > 4 ? 4 : 1))
+    if (smem_fits(smem(a, R))) return R;
+  return 0;
+}
+
+// The generic body takes any shape whose weights fit shared memory; the
+// wide body one step of a given score whose input-layer tiles at kMaxRows
+// rows its threads hold.
+inline int generic_cap(const Args& a) { return reg_path(a) ? kRegRows : kMaxRows; }
+
+inline bool generic_fits(const Args& a) { return max_rows(a, generic_smem, generic_cap(a)) > 0; }
+
+inline bool wide_fits(const Args& a) {
+  return a.target == kGiven && a.T == 1 && a.C >= 1 &&
+         kMaxRows / kWideInRows * ((a.C + kWideInCols - 1) / kWideInCols) <=
+             kWideTiles * kTileThreads &&
+         max_rows(a, wide_smem) > 0;
+}
+
+// By shape, a given score takes the wide body where the generic body would
+// hold fewer than two blocks a multiprocessor (d = 196 and up at C = 64).
+inline bool wide_by_shape(const Args& a) {
+  const long long generic = generic_smem(a, generic_cap(a));
+  return generic < 0 || !smem_fits(2 * generic + 2048);
+}
+
+// A tiled body's attributes, set once, and its occupancy at the largest
+// tile, read once per shared-memory size.
+struct TileCache {
+  cudaError_t attr;
+  long long bytes;
+  int occupancy;
+};
+
+template <typename Kernel>
+TileCache tile_cache(Kernel kernel) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return TileCache{err, -1, 1};
+}
+
+// Launch (or only plan) `kernel`, one of the tiled bodies, of `threads`
+// threads a block and at most `cap` rows, over the rows of a.B: rows a
+// block from the plan (or a.rows), `go(blocks, rows, smem)` launching it.
+// `slice` > 0: the wide body, one block a multiprocessor.
+template <typename Kernel, typename Smem, typename Launch>
+cudaError_t launch_tiled(const Args& a, Kernel kernel, TileCache& cache, Smem smem, int slice,
+                         int threads, int cap, Launch go) {
+  if (cache.attr != cudaSuccess) return cache.attr;
+  const int fit = max_rows(a, smem, cap);
+  if (fit == 0) return cudaErrorInvalidValue;
+  int rows = a.rows > 0 ? min(a.rows, fit) : 0;
+  if (rows == 0 && slice > 0) rows = plan_rows(a.B, 1, fit);
+  if (rows == 0) {
+    const long long bytes = smem(a, fit);
+    if (bytes != cache.bytes) {
+      int occupancy = 0;
+      cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy, kernel,
+                                                                      threads, bytes);
+      if (err != cudaSuccess) return err;
+      cache.occupancy = occupancy, cache.bytes = bytes;
+    }
+    rows = plan_rows(a.B, cache.occupancy, fit);
+  }
+  const long long bytes = smem(a, rows);
+  const int blocks = (a.B + rows - 1) / rows;
+  if (a.plan != nullptr) *a.plan = Plan{rows, blocks, (int)bytes, slice};
+  if (a.dry) return cudaSuccess;
+  go(blocks, rows, (size_t)bytes);
+  return cudaGetLastError();
+}
 
 template <int kForm, int kTarget, int D, bool kPerCoord>
 cudaError_t launch_fast(const Args& a) {
   const size_t smem =  // fast_fits
       sizeof(float) * fast_smem_floats(D, a.T, row_floats(kTarget, a.cs.K, D), a.cs.n_tab,
                                        tab_cols<kPerCoord>(D));
+  const int blocks = (a.B + kFastRows - 1) / kFastRows;
+  if (a.plan != nullptr) *a.plan = Plan{kFastRows, blocks, (int)smem, 0};
+  if (a.dry) return cudaSuccess;
   auto kernel = rollout_fast_kernel<kForm, kTarget, D, kPerCoord>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -791,27 +1443,44 @@ cudaError_t launch_fast(const Args& a) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int blocks = (a.B + kFastRows - 1) / kFastRows;
   kernel<<<blocks, kFastThreads, smem, a.stream>>>(
       a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out, a.b_out, a.gmm,
       a.xs, a.x_T, a.B, a.T, a.cs);
   return cudaGetLastError();
 }
 
-template <int kForm, int kTarget, bool kWide, bool kPerCoord>
+template <int kForm, int kTarget, bool kPerCoord, bool kReg>
+cudaError_t launch_generic_path(const Args& a) {
+  auto kernel = rollout_generic_kernel<kForm, kTarget, kPerCoord, kReg>;
+  static TileCache cache = tile_cache(kernel);
+  constexpr int threads = kReg ? kRegThreads : kTileThreads;
+  return launch_tiled(a, kernel, cache, generic_smem, 0, threads, kReg ? kRegRows : kMaxRows,
+                      [&](int blocks, int rows, size_t smem) {
+                        kernel<<<blocks, threads, smem, a.stream>>>(
+                            a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out,
+                            a.b_out, a.gmm, a.xs, a.x_T, a.B, a.D, a.C, a.H, a.T, rows, a.cs);
+                      });
+}
+
+// The generic body: its register path for the model configs' net, else the
+// tiled hidden layers.
+template <int kForm, int kTarget, bool kPerCoord>
 cudaError_t launch_generic(const Args& a) {
-  const size_t smem = sizeof(float) * generic_smem_floats(
-      a.D, a.C, a.H, row_floats(kTarget, a.cs.K, a.D), a.cs.n_tab, kWide);
-  auto kernel = rollout_generic_kernel<kForm, kTarget, kWide, kPerCoord>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int rows = kWide ? kWideRows : kRows;
-  const int blocks = (a.B + rows - 1) / rows;
-  kernel<<<blocks, kGenericThreads, smem, a.stream>>>(
-      a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out, a.b_out, a.gmm,
-      a.xs, a.x_T, a.B, a.D, a.C, a.H, a.T, a.cs);
-  return cudaGetLastError();
+  return reg_path(a) ? launch_generic_path<kForm, kTarget, kPerCoord, true>(a)
+                     : launch_generic_path<kForm, kTarget, kPerCoord, false>(a);
+}
+
+template <int kForm, bool kPerCoord>
+cudaError_t launch_wide(const Args& a) {
+  auto kernel = rollout_wide_kernel<kForm, kPerCoord>;
+  static TileCache cache = tile_cache(kernel);
+  const int S = wide_slice(a);
+  return launch_tiled(a, kernel, cache, wide_smem, S, kTileThreads, kMaxRows,
+                      [&](int blocks, int rows, size_t smem) {
+                        kernel<<<blocks, kTileThreads, smem, a.stream>>>(
+                            a.x0, a.dbs, a.tab, a.temb, a.w_in, a.w_hid, a.b_hid, a.w_out,
+                            a.b_out, a.gmm, a.xs, a.x_T, a.B, a.D, a.C, a.H, rows, S, a.cs);
+                      });
 }
 
 // The fast body takes C = 64, H = 2, D = 1..16 and tables that fit shared
@@ -823,18 +1492,14 @@ inline bool fast_fits(const Args& a) {
              kMaxSmem;
 }
 
-// The generic (wide = false) or wide body's shared memory fits a block.
-inline bool generic_fits(const Args& a, bool wide) {
-  return sizeof(float) * generic_smem_floats(a.D, a.C, a.H, row_floats(a.target, a.cs.K, a.D),
-                                             a.cs.n_tab, wide) <= kMaxSmem;
-}
-
-// `body`: kByShape takes the fast body where it fits, else the generic one
-// where it fits, else the wide one; kFastBody, kGenericBody or kWideBody
-// asks for one (each fails on a shape it does not take). *used receives the
-// body launched. kOnlyD > 0 instantiates the fast body at that D alone (a
-// target of one dimension) and no wide body; kOnlyD < 0 instantiates no
-// fast body (a given score) and the wide one. kPerCoord: the instances of a
+// `body`: kByShape takes the fast body where it fits; else, for a given
+// score, the wide body where it fits and the generic body would hold fewer
+// than two blocks a multiprocessor (wide_by_shape); else the generic body.
+// kFastBody, kGenericBody or kWideBody asks for one (each fails on a shape
+// it does not take). *used receives the body launched (or planned). kOnlyD
+// > 0 instantiates the fast body at that D alone (a target of one
+// dimension) and no wide body; kOnlyD < 0 instantiates no fast body (a
+// given score) and the wide one. kPerCoord: the instances of a
 // per-coordinate sscore (a.per_coord).
 template <int kForm, int kTarget, int kOnlyD = 0, bool kPerCoord = false>
 int launch(const Args& a, int body, int* used) {
@@ -843,17 +1508,26 @@ int launch(const Args& a, int body, int* used) {
   if (body != kByShape && body != kFastBody && body != kGenericBody && body != kWideBody)
     return (int)cudaErrorInvalidValue;
   const bool fits = kOnlyD >= 0 && fast_fits(a);
-  const bool wide_ok = kOnlyD < 0 && generic_fits(a, true);
-  if ((body == kFastBody && !fits) || (body == kWideBody && !wide_ok))
+  const bool wide_ok = kOnlyD < 0 && wide_fits(a);
+  const bool generic_ok = generic_fits(a);
+  if ((body == kFastBody && !fits) || (body == kWideBody && !wide_ok) ||
+      (body == kGenericBody && !generic_ok))
     return (int)cudaErrorInvalidValue;
   int chosen = body;
-  if (body == kByShape)
-    chosen = fits ? kFastBody
-                  : (generic_fits(a, false) || !wide_ok ? kGenericBody : kWideBody);
+  if (body == kByShape) {
+    if (fits)
+      chosen = kFastBody;
+    else if (wide_ok && (!generic_ok || wide_by_shape(a)))
+      chosen = kWideBody;
+    else if (generic_ok)
+      chosen = kGenericBody;
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   *used = chosen;
-  if (chosen == kGenericBody) return (int)launch_generic<kForm, kTarget, false, kPerCoord>(a);
+  if (chosen == kGenericBody) return (int)launch_generic<kForm, kTarget, kPerCoord>(a);
   if constexpr (kOnlyD < 0) {
-    return (int)launch_generic<kForm, kTarget, true, kPerCoord>(a);
+    return (int)launch_wide<kForm, kPerCoord>(a);
   } else if constexpr (kOnlyD > 0) {
     return a.D == kOnlyD ? (int)launch_fast<kForm, kTarget, kOnlyD, kPerCoord>(a)
                          : (int)cudaErrorInvalidValue;
@@ -897,8 +1571,9 @@ int launch_target(const Args& a, int body, int* used) {
       if (a.D != 2 || cs.tab_w < 3 || cs.tab_h < 3 || cs.n_tab != 0 || a.gmm == nullptr)
         return (int)cudaErrorInvalidValue;
       return launch<kForm, kImg, 2, kPerCoord>(a, body, used);
-    case kGiven:
-      if (a.gmm == nullptr || cs.n_tab != 0) return (int)cudaErrorInvalidValue;
+    case kGiven:  // one step a launch (a plan needs no score)
+      if ((a.gmm == nullptr && !a.dry) || cs.n_tab != 0 || a.T != 1)
+        return (int)cudaErrorInvalidValue;
       return launch<kForm, kGiven, -1, kPerCoord>(a, body, used);
     default:
       return (int)cudaErrorInvalidValue;

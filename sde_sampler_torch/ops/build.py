@@ -13,9 +13,10 @@ imported: the CPU tests import it.
 Each C launch entry point launches on the caller's stream, allocates
 nothing and returns `cudaGetLastError()`; `check` raises on a non-zero
 code. The kernels' shapes and tiling are decided on the C side: a launch
-reports the body it took (`rollout*_launch`, `softmin_launch`,
-`transport_launch`), and `softmin_scratch` and `transport_scratch` size the
-scratch that the Sinkhorn wrappers allocate.
+reports the body it took (`rollout_launch`, which also reports or, asked
+`dry`, only computes its plan; `softmin_launch`, `transport_launch`), and
+`softmin_scratch` and `transport_scratch` size the scratch that the
+Sinkhorn wrappers allocate.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ NVCC_FLAGS = ARCH_FLAGS + [
 # control form ("<kernel>.<form>") and by form and target
 # ("<kernel>.<form>.<target>"), and launches of the any-shape generic body
 # once more under "<kernel>.<form>.generic", those of the wide body (a given
-# score too wide for the generic one) under "<kernel>.<form>.<target>.wide",
+# score where the generic body would hold fewer than two blocks an SM:
+# d = 196 and up) under "<kernel>.<form>.<target>.wide",
 # and those of a per-coordinate score net under "<kernel>.<form>.dim", so a
 # run shows which instance it took. The Sinkhorn kernels count the launches
 # of their wide body (d > 16) once more under "<kernel>.wide".
@@ -107,19 +109,36 @@ def count_launch(name: str, form: str | None = None, target: str | None = None,
             FORM_LAUNCHES[f"{name}.{form}.{target}.wide"] += 1
 
 
+class RolloutLaunch(ctypes.Structure):
+    """The argument of `rollout_launch`, field for field the C structure of
+    `csrc/rollout.cu`: the tensors' pointers, the stream, the shapes and
+    the table's width and height, the sscore columns; the update (0: kernel
+    1, 1: kernel 2), form, target, body asked for, rows a block asked for (0:
+    the plan's), `dry` (plan only); the clips, prior and four target
+    scalars; out: the body used and the plan (rows a block, blocks, shared
+    memory bytes, the wide body's slice)."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "x0", "dbs", "tab", "temb", "w_in", "w_hid", "b_hid", "w_out", "b_out", "gmm",
+            "xs", "x_T", "stream")]
+        + [(name, ctypes.c_int) for name in (
+            "B", "D", "C", "H", "T", "K", "tab_w", "tab_h", "score_cols",
+            "update", "form", "target", "body", "rows", "dry")]
+        + [(name, ctypes.c_float) for name in (
+            "clip_model", "clip_score", "prior_loc", "prior_var", "t0", "t1", "t2", "t3")]
+        + [(name, ctypes.c_int) for name in (
+            "used", "plan_rows", "plan_blocks", "plan_smem", "plan_slice")]
+    )
+
+
 # The C entry points' arguments (pointers and the stream as void*, so that
 # ctypes does not cut them to 32 bits); each returns a cudaError_t.
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _OUT = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    # tensors and the target's table (or given score), xs, x_T; B, d, C, H,
-    # T, K, the table's width and height, the sscore columns; clips, prior,
-    # four target scalars; form, target, body; used body; stream
-    "rollout_launch": [_PTR] * 12 + [_I32] * 9 + [_F32] * 8 + [_I32] * 3 + [_OUT, _PTR],
-    # tensors and the target's table (or given score), xs, x_T; B, d, C, H,
-    # T, K, the table's width and height, the sscore columns; clips, four
-    # target scalars; target, body; used body; stream
-    "rollout_exp_launch": [_PTR] * 12 + [_I32] * 9 + [_F32] * 6 + [_I32] * 2 + [_OUT, _PTR],
+    # one launch (or plan) of kernel 1 or 2
+    "rollout_launch": [ctypes.POINTER(RolloutLaunch)],
     # n, m, d; splits, cols, rows per block (out)
     "softmin_scratch": [_I32] * 3 + [_OUT] * 3,
     # x, y, dual, out, scratch; n, m, d; eps; used body; stream

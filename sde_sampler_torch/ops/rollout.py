@@ -53,22 +53,25 @@ with torch on the tensors' device and launches the kernel for that one
 step (T = 1), which reads the score as a tensor: T launches a rollout.
 
 The wrappers raise on anything else. On the card, the kernel picks its
-body by shape (`csrc/rollout.cuh::fast_fits`): the fast body for the width,
+body by shape (`csrc/rollout.cuh::launch`): the fast body for the width,
 depth and dimensions of every model config of the repo (64 channels, 2
 hidden layers, d <= 16, tables that fit shared memory; never a given
-score), the generic body for any other whose weights fit shared memory,
-and the wide body, which reads the input and output layers from device
-memory, for a given score wider than that (d = 1600). It reports the body
-it took, and the wrapper counts the launch (`build.count_launch`: by
-kernel, by "<kernel>.<form>", by "<kernel>.<form>.<target>", and once more
-under "<kernel>.<form>.generic" for the generic body or
-"<kernel>.<form>.given.wide" for the wide one). Everything that depends
-only on the step start s = ts[k] is computed here, by plain torch on the
-tensors' device, as per-step tables; the kernel (`csrc/rollout.cuh`) or,
-for a CPU tensor, the plain twin (`rollout_plain`, `rollout_exp_plain`)
-then runs the whole loop. All return `xs` (T, B, d), the state before
-every step (xs[0] = x0), and `x_T`, the state after the last one. The
-rollouts are value-only: nothing here records a gradient.
+score), and otherwise one of two tiled bodies: the generic body, which
+stages every weight once and runs all T steps, for any shape whose weights
+fit shared memory, or, for a given score, the wide body, which streams the
+input and output layers through a ring of slices, where the generic body
+would hold fewer than two blocks a multiprocessor (d = 196 and up). Both
+choose their rows a block from the batch and the card
+(`rollout_plan`). A launch reports the body it took, and the wrapper counts
+it (`build.count_launch`: by kernel, by "<kernel>.<form>", by
+"<kernel>.<form>.<target>", and once more under "<kernel>.<form>.generic"
+for the generic body or "<kernel>.<form>.given.wide" for the wide one).
+Everything that depends only on the step start s = ts[k] is computed here,
+by plain torch on the tensors' device, as per-step tables; the kernel
+(`csrc/rollout.cuh`) or, for a CPU tensor, the plain twin (`rollout_plain`,
+`rollout_exp_plain`) then runs the whole loop. All return `xs` (T, B, d),
+the state before every step (xs[0] = x0), and `x_T`, the state after the
+last one. The rollouts are value-only: nothing here records a gradient.
 
 A loss's phase 1 picks its route from the configuration before anything
 runs (`phase1_route`): the kernel instance of `kernel_instance`, or the
@@ -580,62 +583,103 @@ def rollout_exp_plain(ctrl, x0, ts, noise, alpha, sigma, clips=None):
     return _run_plain(_prepare(ctrl, x0, ts, noise, clips, exp=(alpha, sigma)))
 
 
-def _launch(prepared, body: str = "shape"):
-    """Launch the rollout kernel of `prepared` on the inputs' stream: kernel
-    1 for an EM update, kernel 2 for the exponential integrator, in the body
-    asked for ("shape": the kernel picks); counts each launch under the body
-    the kernel reports and returns (xs, x_T). A given score takes one launch
-    a step, after its score."""
-    tensors, c, _, _ = prepared
-    x0, dbs, tab, temb, *weights, _ = tensors
-    xs, x_T = torch.empty_like(dbs), torch.empty_like(x0)
-    if c["kind"] != "given":
-        _launch_steps(prepared, tensors, xs, x_T, body)
-        return xs, x_T
-    T = dbs.shape[0]
-    x = x0
-    for k in range(T):
-        score = c["score_fn"](x).to(torch.float32).contiguous()
-        if score.shape != x.shape or score.device != x.device:
-            raise ValueError(f"the target score has shape {tuple(score.shape)} on "
-                             f"{score.device}, the state {tuple(x.shape)} on {x.device}")
-        out = x_T if k == T - 1 else xs[k + 1]
-        # xs[k] is x itself after the first step: the kernel leaves it
-        _launch_steps(prepared, [x, dbs[k : k + 1], tab[k : k + 1], temb[k : k + 1],
-                                 *weights, score], xs[k : k + 1], out, body)
-        x = out
-    return xs, x_T
+class RolloutPlan(NamedTuple):
+    """What a launch of kernel 1 or 2 takes, as the kernel library plans it:
+    its body, rows a block, blocks, shared memory in bytes and the wide
+    body's slice (its input-layer rows and output-layer columns; 0 for the
+    other bodies)."""
+    body: str
+    rows: int
+    blocks: int
+    smem_bytes: int
+    slice: int
 
 
-def _launch_steps(prepared, tensors, xs, x_T, body):
-    """One launch over the steps of `tensors` (in the order of `_prepare`),
-    writing xs and x_T."""
-    _, c, form, update = prepared
-    x0, dbs, temb, w_hid, target_tab = tensors[0], tensors[1], tensors[3], tensors[5], tensors[9]
+def _launch_args(prepared, body: str, rows: int) -> build.RolloutLaunch:
+    """The C launch structure of `prepared` (in the order of `_prepare`),
+    on the inputs' stream, for all its steps; a given score's loop moves
+    its pointers a step at a time."""
+    tensors, c, form, update = prepared
+    x0, dbs, tab, temb, _, w_hid, *_, target_tab = tensors
     T, B, d = dbs.shape
     # the table's count: the mixture's components, or the rings' radii
     K = target_tab.numel() // (2 * d + 1) if c["kind"] == "gmm" else (
         target_tab.numel() if c["kind"] == "rings" else 0)
-    lib = build.library()
-    target = TARGET_CODES[c["kind"]]
-    if update == "em":
-        name, launch_fn = "rollout", lib.rollout_launch
-        scalars = (c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"],
-                   *c["scalars"], FORM_CODES[form], target)
-    else:
-        name, launch_fn = "rollout_exp", lib.rollout_exp_launch
-        scalars = (c["clip_model"], c["clip_score"], *c["scalars"], target)
-    # the columns of sscore a step: one, or d after the six scalars
-    score_cols = tensors[2].shape[1] - 6 if tensors[2].shape[1] > 6 else 1
-    used = ctypes.c_int(0)
-    code = launch_fn(
-        *(t.data_ptr() for t in tensors), xs.data_ptr(), x_T.data_ptr(),
-        B, d, temb.shape[1], w_hid.shape[0], T, K, *c["dims"], score_cols, *scalars,
-        BODY_CODES[body], ctypes.byref(used), torch.cuda.current_stream(x0.device).cuda_stream,
+    return build.RolloutLaunch(
+        *(t.data_ptr() for t in tensors), 0, 0,
+        torch.cuda.current_stream(x0.device).cuda_stream,
+        B, d, temb.shape[1], w_hid.shape[0], T, K, *c["dims"],
+        # the columns of sscore a step: one, or d after the six scalars
+        tab.shape[1] - 6 if tab.shape[1] > 6 else 1,
+        int(update == "exp"), FORM_CODES[form], TARGET_CODES[c["kind"]], BODY_CODES[body], rows, 0,
+        c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"], *c["scalars"],
     )
-    build.check(code, name)
-    build.count_launch(name, form, c["kind"], body=BODY_NAMES[used.value],
-                       per_coord=score_cols > 1)
+
+
+def _call(args: build.RolloutLaunch, name: str) -> None:
+    build.check(build.library().rollout_launch(ctypes.byref(args)), name)
+
+
+def rollout_plan(prepared, body: str = "shape", rows: int = 0) -> RolloutPlan:
+    """The plan of a launch of `prepared` (kernel 1 or 2) in `body`, with
+    `rows` rows a block asked for (0: the library's choice), launching
+    nothing (needs the library, so a CUDA build); a given score's is that
+    of each of its one-step launches. Not the potential form, whose bodies
+    keep fixed tiles."""
+    args = _launch_args(prepared, body, rows)
+    if prepared[1]["kind"] == "given":
+        args.T = 1
+    args.dry = 1
+    _call(args, "rollout_plan")
+    return RolloutPlan(BODY_NAMES[args.used], args.plan_rows, args.plan_blocks, args.plan_smem,
+                       args.plan_slice)
+
+
+def _launch(prepared, body: str = "shape", rows: int = 0):
+    """Launch the rollout kernel of `prepared` on the inputs' stream: kernel
+    1 for an EM update, kernel 2 for the exponential integrator, in the body
+    asked for ("shape": the kernel picks) with `rows` rows a block of the
+    generic or wide body (0: the plan's); counts each launch under the body
+    the kernel reports and returns (xs, x_T). A given score takes one launch
+    a step, after its score: the launch structure is filled once, and each
+    step sets the pointers of its state, noise, table rows, score and
+    outputs."""
+    tensors, c, form, update = prepared
+    x0, dbs, tab, temb = tensors[:4]
+    xs, x_T = torch.empty_like(dbs), torch.empty_like(x0)
+    name = "rollout" if update == "em" else "rollout_exp"
+    args = _launch_args(prepared, body, rows)
+    per_coord = args.score_cols > 1
+    if c["kind"] != "given":
+        args.xs, args.x_T = xs.data_ptr(), x_T.data_ptr()
+        _call(args, name)
+        build.count_launch(name, form, c["kind"], body=BODY_NAMES[args.used], per_coord=per_coord)
+        return xs, x_T
+    T = dbs.shape[0]
+    args.T = 1
+    score_fn = c["score_fn"]
+    # bytes from one step's row of each input to the next
+    db_step, tab_step, temb_step = (t.stride(0) * t.element_size() for t in (dbs, tab, temb))
+    states = xs.unbind(0)
+    x = x0
+    for k in range(T):
+        score = score_fn(x)
+        if score.dtype != torch.float32 or not score.is_contiguous():
+            score = score.to(torch.float32).contiguous()
+        if score.shape != x.shape or score.device != x.device:
+            raise ValueError(f"the target score has shape {tuple(score.shape)} on "
+                             f"{score.device}, the state {tuple(x.shape)} on {x.device}")
+        out = x_T if k == T - 1 else states[k + 1]
+        # xs[k] is x itself after the first step: the kernel leaves it
+        args.x0, args.gmm = x.data_ptr(), score.data_ptr()
+        args.dbs = dbs.data_ptr() + k * db_step
+        args.tab = tab.data_ptr() + k * tab_step
+        args.temb = temb.data_ptr() + k * temb_step
+        args.xs, args.x_T = states[k].data_ptr(), out.data_ptr()
+        _call(args, name)
+        build.count_launch(name, form, "given", body=BODY_NAMES[args.used], per_coord=per_coord)
+        x = out
+    return xs, x_T
 
 
 @torch.no_grad()

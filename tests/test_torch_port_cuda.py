@@ -628,13 +628,14 @@ TARGET_INSTANCES = {
 }
 
 
-def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=False):
+def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=False, net=None):
     """The control of an instance with seeded weights, and its inputs: the
     last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl,
     ClippedCtrl and CancelDriftCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
     scaled BM of conf/sde/bm.yaml for the LerpTargetCtrl), a cosine grid
     with dt = 0 steps for kernel 2. `score_dim`: a score net of d outputs,
-    each its own. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
+    each its own; `net`: the base net's width and depth, if not the
+    configs'. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
     from sde_sampler_torch.ops import rollout as ro
 
     form, make_target, d = spec or TARGET_INSTANCES[name]
@@ -644,7 +645,7 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=Fals
         sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
     else:
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
-    base = FourierMLP(dim=d, dim_out=1 if form == "potential" else None)
+    base = FourierMLP(dim=d, dim_out=1 if form == "potential" else None, **(net or {}))
     if form == "clipped":
         ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
     elif form == "potential":
@@ -811,18 +812,20 @@ def test_unsupported_target_instances_raise_before_the_launch(cuda):
 
 # The given-score form (kernel 1 once a step, after the target's own score
 # on the card) on the whitened Cox target: at d = 196 (a 14 x 14 grid,
-# NICE's d) in the generic body that its shape takes and in the wide one,
+# NICE's d) in the wide body that its shape takes and in the generic one,
 # at the configs' d = 1600 in the wide body by shape; every form with a
 # score. (form, Cox's d, body asked for, body expected)
 GIVEN = {
-    "lerp.d196": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "generic"),
+    "lerp.d196": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "wide"),
     "lerp.d196.wide": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, "wide", "wide"),
+    "lerp.d196.generic": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, "generic",
+                          "generic"),
     "lerp.d1600": ("lerp", lambda: Cox(dim=1600, use_whitened=True), 1600, "shape", "wide"),
-    "score.d196": ("score", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "generic"),
-    "lerp_target.d196": ("lerp_target", lambda: Cox(dim=196), 196, "shape", "generic"),
+    "score.d196": ("score", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "wide"),
+    "lerp_target.d196": ("lerp_target", lambda: Cox(dim=196), 196, "shape", "wide"),
     "cancel_drift.d196": ("cancel_drift", lambda: Cox(dim=196, use_whitened=True), 196,
-                          "shape", "generic"),
-    "exp.d196": ("exp", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "generic"),
+                          "shape", "wide"),
+    "exp.d196": ("exp", lambda: Cox(dim=196, use_whitened=True), 196, "shape", "wide"),
 }
 
 
@@ -860,6 +863,145 @@ def test_given_score_instances_match_plain_twin(cuda, case):
     if want == "wide" and d == 196:
         xs_g, xT_g = ro._launch(prepare(x0, ts, noise), "generic")
         assert torch.equal(xs, xs_g) and torch.equal(x_T, xT_g)
+
+
+class GivenGauss(IsotropicGauss):
+    """A Gaussian whose score no kernel inlines (TARGETS is an exact-type
+    map): the given-score form at any d."""
+
+
+# The tiled bodies (rollout.cuh: the generic body, by shape past the fast
+# body; the wide body, one step of a given score, where the generic body
+# would hold fewer than two blocks an SM) at the widths past the fast body
+# (d = 17, 33, 50, 60 and 196 no multiple of the 64-wide slices and
+# items), at batches no multiple of the plan's rows (1, 509, 2047), with a
+# 32-wide and a 3-hidden-layer net, in the lerp, score and clipped forms,
+# kernel 2 and the given score. (form, target, d, batch, net, body by shape)
+TILED = {
+    "lerp.funnel.d17.b509": ("lerp", lambda: Funnel(dim=17, n_reference_samples=100), 17, 509,
+                             None, "generic"),
+    "score.wells.d33.b1": ("score", lambda: MultiWell(dim=33, n_double_wells=5,
+                                                      separation=4.0), 33, 1, None, "generic"),
+    "clipped.none.d50.b2047": ("clipped", None, 50, 2047, None, "generic"),
+    "lerp.wells.d50.b2047.c32": ("lerp", lambda: MultiWell(dim=50, n_double_wells=5,
+                                                           separation=2.0), 50, 2047,
+                                 dict(channels=32), "generic"),
+    "exp.wells.d50.b509.h3": ("exp", lambda: MultiWell(dim=50, n_double_wells=5,
+                                                       separation=4.0), 50, 509,
+                              dict(num_layers=5), "generic"),
+    "lerp.given.d60.b509.h3": ("lerp", lambda: GivenGauss(dim=60), 60, 509,
+                               dict(num_layers=5), "generic"),
+    "score.given.d60.b1": ("score", lambda: GivenGauss(dim=60), 60, 1, None, "generic"),
+    "score.given.d196.b2047": ("score", lambda: Cox(dim=196, use_whitened=True), 196, 2047,
+                               None, "wide"),
+    "lerp.given.d196.b509.c32.h3": ("lerp", lambda: Cox(dim=196, use_whitened=True), 196, 509,
+                                    dict(channels=32, num_layers=5), "wide"),
+    "clipped.none.d196.b509": ("clipped", None, 196, 509, None, "generic"),
+    "exp.given.d196.b1": ("exp", lambda: Cox(dim=196, use_whitened=True), 196, 1, None, "wide"),
+    "lerp.given.d1600.b509": ("lerp", lambda: Cox(dim=1600, use_whitened=True), 1600, 509,
+                              None, "wide"),
+    "lerp.given.d1600.b2047": ("lerp", lambda: Cox(dim=1600, use_whitened=True), 1600, 2047,
+                               None, "wide"),
+}
+
+
+@pytest.mark.parametrize("case", list(TILED))
+def test_tiled_bodies_match_plain_twin(cuda, case):
+    """By shape, the body the case names, counted as such; one step from the
+    plain twin's own states, then the whole rollout, within the rollouts'
+    tolerance; a second launch and launches at 1 and 5 rows a block give
+    the same bits; the plan covers every row once within the H100's
+    shared memory."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    form, make_target, d, batch, net, want = TILED[case]
+    prepare, x0, ts, noise = instance_setup(cuda, case, batch=batch, spec=(form, make_target, d),
+                                            net=net)
+    kernel = "rollout_exp" if form == "exp" else "rollout"
+    key = f"{kernel}.{'score' if form == 'exp' else form}"
+    given = "given" in case
+    T = noise.shape[0]
+    launches = T if given else 1
+    before = dict(build.FORM_LAUNCHES)
+    xs, x_T = ro._launch(prepare(x0, ts, noise))
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[f"{key}.generic"] == (
+        before[f"{key}.generic"] + launches * (want == "generic"))
+    if given:
+        assert build.FORM_LAUNCHES[f"{key}.given.wide"] == (
+            before[f"{key}.given.wide"] + launches * (want == "wide"))
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    assert bool(torch.isfinite(xs_p).all())
+    for k in (0, T // 2, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]))
+        torch.testing.assert_close(x1, xT_p if k == T - 1 else xs_p[k + 1], atol=1e-5,
+                                   rtol=1e-5)
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    for rows in (0, 1, 5):
+        again = ro._launch(prepare(x0, ts, noise), rows=rows)
+        assert torch.equal(again[0], xs) and torch.equal(again[1], x_T)
+    plan = ro.rollout_plan(prepare(x0, ts, noise))
+    assert plan.body == want and 1 <= plan.rows <= 16
+    assert plan.rows * (plan.blocks - 1) < batch <= plan.rows * plan.blocks
+    assert 0 < plan.smem_bytes <= 232448
+    assert plan.slice == (256 if want == "wide" else 0)
+
+
+@pytest.mark.parametrize("rows", [0, 1, 7, 16])
+def test_generic_body_gives_the_fast_bodys_bits_at_any_rows(cuda, rows):
+    """A forced generic launch at d <= 16 (the funnel at d = 10, and the
+    mixture at d = 2), at the plan's rows a block and at 1, 7 and 16, gives
+    the fast body's bits."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    for name in ("lerp.gmm", "score.wells"):
+        prepare, x0, ts, noise = instance_setup(cuda, name, batch=61)
+        fast = ro._launch(prepare(x0, ts, noise), "fast")
+        generic = ro._launch(prepare(x0, ts, noise), "generic", rows=rows)
+        assert torch.equal(fast[0], generic[0]) and torch.equal(fast[1], generic[1])
+    ctrl = lerp_ctrl().to(cuda)
+    rng = np.random.default_rng(3)
+    x0 = torch.tensor(rng.normal(size=(61, 10)), dtype=torch.float32, device=cuda)
+    ts = torch.linspace(0.0, 1.0, 201, device=cuda)
+    dbs = torch.tensor(rng.normal(size=(200, 61, 10)) * 0.07, dtype=torch.float32, device=cuda)
+    prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    fast, generic = ro._launch(prepared, "fast"), ro._launch(prepared, "generic", rows=rows)
+    assert torch.equal(fast[0], generic[0]) and torch.equal(fast[1], generic[1])
+
+
+@pytest.mark.parametrize("batch", [1, 509, 512, 2047, 2048])
+@pytest.mark.parametrize("d", [50, 60, 196, 1600])
+def test_rollout_plan_fills_the_card(cuda, d, batch):
+    """The tiled bodies' plan at mw_50d's shape (the generic body, 200 steps
+    in a launch), the alanine dipeptide's d = 60 (a given score, the
+    generic body) and NICE's and Cox's d = 196 and 1600 (a given score, the
+    wide body): every row in one block, at most 16 rows a block, within
+    the H100's shared memory. The generic body takes as many blocks as the
+    card holds at once, so that from a batch of 512 every multiprocessor
+    has work; the wide body one block a multiprocessor, each pass over its
+    streamed weights serving the most rows (at 2048 rows, 16 a block: 128
+    blocks)."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    if d == 50:
+        target, T, want = MultiWell(dim=50, n_double_wells=5, separation=2.0), 200, "generic"
+    else:
+        target = GivenGauss(dim=d) if d == 60 else Cox(dim=d, use_whitened=True)
+        T, want = 1, "generic" if d == 60 else "wide"
+    prepare, x0, ts, noise = instance_setup(cuda, f"lerp.plan.d{d}", batch=batch, T=T,
+                                            spec=("lerp", lambda: target, d))
+    plan = ro.rollout_plan(prepare(x0, ts, noise))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.body == want and 1 <= plan.rows <= 16
+    assert plan.rows * (plan.blocks - 1) < batch <= plan.rows * plan.blocks
+    assert 0 < plan.smem_bytes <= 232448
+    if want == "wide":
+        assert plan.rows == min(16, -(-batch // sms))
+    elif batch >= 512:
+        assert plan.blocks >= sms
 
 
 def test_image_score_casts_saturating_on_the_card(cuda):

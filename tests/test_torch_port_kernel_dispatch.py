@@ -72,20 +72,23 @@ def rollout_inputs(d, B=5, T=4, seed=0):
 
 
 class FakeLibrary:
-    """Stands in for the kernel library: records each launch's arguments,
-    reports the body `body` (a Sinkhorn launch `sinkhorn_body`) and returns
-    `code`."""
+    """Stands in for the kernel library: records each launch's arguments (a
+    rollout launch's structure as a namespace of its fields, as they were
+    at the call), reports the body `body` (a Sinkhorn launch
+    `sinkhorn_body`) and the plan `plan`, and returns `code`."""
 
     def __init__(self, body="fast", code=0, sinkhorn_body="staged"):
         self.calls, self.body, self.code = [], body, code
         self.sinkhorn_body = sinkhorn_body
+        self.plan = (16, 3, 4096, 0)
 
-    def _launch(self, *args):
-        self.calls.append(args)
-        args[-2]._obj.value = ro.BODY_CODES[self.body]  # the `used` out-parameter
+    def rollout_launch(self, args):
+        launch = args._obj
+        self.calls.append(types.SimpleNamespace(
+            **{name: getattr(launch, name) for name, _ in launch._fields_}))
+        launch.used = ro.BODY_CODES[self.body]
+        launch.plan_rows, launch.plan_blocks, launch.plan_smem, launch.plan_slice = self.plan
         return self.code
-
-    rollout_launch = rollout_exp_launch = _launch
 
     def softmin_scratch(self, n, m, d, splits, cols, rows):
         splits._obj.value, cols._obj.value, rows._obj.value = 3, 1024, 512
@@ -137,13 +140,13 @@ def test_rollout_launch_counts_the_body_the_kernel_reports(fake_library, form, r
     launches = build.LAUNCHES[name]
     xs, x_T = ro._launch(prepared)
     (args,) = fake_library.calls
-    assert len(args) == len(build.SIGNATURES[f"{name}_launch"])
-    # B, d, C, H, T, K after the twelve pointers
-    assert args[12:18] == (5, 7, 16, 1, 5, 0)
-    assert args[-3] == ro.BODY_CODES["shape"]
-    assert args[-4] == ro.TARGET_CODES["funnel"]
+    assert (args.B, args.D, args.C, args.H, args.T, args.K) == (5, 7, 16, 1, 5, 0)
+    assert args.body == ro.BODY_CODES["shape"] and args.rows == 0 and args.dry == 0
+    assert args.target == ro.TARGET_CODES["funnel"]
+    assert args.update == (form == "exp")
     if form != "exp":
-        assert args[-5] == ro.FORM_CODES[form]
+        assert args.form == ro.FORM_CODES[form]
+    assert (args.xs, args.x_T) == (xs.data_ptr(), x_T.data_ptr())
     assert xs.shape == (5, 5, 7) and x_T.shape == (5, 7)
     assert build.LAUNCHES[name] == launches + 1
     assert build.FORM_LAUNCHES[key] == before[key] + 1
@@ -193,29 +196,30 @@ def test_rollout_launch_passes_the_target_and_its_table(fake_library, case):
     ro._launch(prepared)
     (args,) = fake_library.calls
     table = prepared[0][9]
-    assert args[9] == table.data_ptr()
+    assert args.gmm == (table.data_ptr() or None)
     K = 3 if target in ("gmm", "rings") else 0
-    assert args[17] == K
-    assert args[18:20] == ((700, 700) if target == "img" else (0, 0))
-    assert args[-4] == ro.TARGET_CODES[target]
+    assert args.K == K
+    assert (args.tab_w, args.tab_h) == ((700, 700) if target == "img" else (0, 0))
+    assert args.target == ro.TARGET_CODES[target]
     if form != "exp":
-        assert args[-5] == ro.FORM_CODES[form]
-    scalars = args[-9:-5] if form != "exp" else args[-8:-4]
+        assert args.form == ro.FORM_CODES[form]
+    scalars = (args.t0, args.t1, args.t2, args.t3)  # float32 fields of the structure
+    f32 = lambda *values: tuple(float(np.float32(v)) for v in values)
     if target == "gmm":
         want = torch.cat([mixture.loc.reshape(-1), (1 / mixture.scale**2).reshape(-1),
                           torch.log(torch.tensor([0.25, 0.5, 0.25]))
                           - torch.log(mixture.scale).sum(-1)])
         torch.testing.assert_close(table, want)
     elif target == "wells":
-        assert scalars == (1.0, 3.0, 0.5, 0.0) and table.numel() == 0
+        assert scalars == f32(1.0, 3.0, 0.5, 0.0) and table.numel() == 0
     elif target == "rings":
         torch.testing.assert_close(table, torch.tensor([1.0, 3.0, 5.0]))
-        assert scalars == (50.0, 1e-8, 0.0, 0.0)
+        assert scalars == f32(50.0, 1e-8, 0.0, 0.0)
     elif target == "rosenbrock":
-        assert scalars == (4.0, 0.0, 0.0, 0.0) and table.numel() == 0
+        assert scalars == f32(4.0, 0.0, 0.0, 0.0) and table.numel() == 0
     elif target == "img":
         assert torch.equal(table, distr.pixel_energy.reshape(-1))
-        assert scalars == (300.0, 400.0, 90.0, 110.0)
+        assert scalars == f32(300.0, 400.0, 90.0, 110.0)
     else:
         assert table.numel() == 0
     assert build.FORM_LAUNCHES[key] == before + 1
@@ -249,12 +253,13 @@ def test_given_score_launches_once_per_step(fake_library, reported):
     tab, temb = prepared[0][2], prepared[0][3]
     for k, args in enumerate(fake_library.calls):
         state = x0 if k == 0 else xs[k]
-        assert seen[k] == state.data_ptr() == args[0]
-        assert args[1:4] == (dbs[k].data_ptr(), tab[k].data_ptr(), temb[k].data_ptr())
-        assert args[10] == xs[k].data_ptr()
-        assert args[11] == (x_T if k == T - 1 else xs[k + 1]).data_ptr()
-        assert args[12:18] == (5, d, 64, 2, 1, 0)
-        assert args[-4] == ro.TARGET_CODES["given"] and args[-5] == ro.FORM_CODES["score"]
+        assert seen[k] == state.data_ptr() == args.x0
+        assert (args.dbs, args.tab, args.temb) == (
+            dbs[k].data_ptr(), tab[k].data_ptr(), temb[k].data_ptr())
+        assert args.xs == xs[k].data_ptr()
+        assert args.x_T == (x_T if k == T - 1 else xs[k + 1]).data_ptr()
+        assert (args.B, args.D, args.C, args.H, args.T, args.K) == (5, d, 64, 2, 1, 0)
+        assert args.target == ro.TARGET_CODES["given"] and args.form == ro.FORM_CODES["score"]
     assert build.FORM_LAUNCHES["rollout.score.given"] == before["rollout.score.given"] + T
     assert build.FORM_LAUNCHES["rollout.score.given.wide"] == (
         before["rollout.score.given.wide"] + T * (reported == "wide"))
@@ -267,7 +272,7 @@ def test_rollout_launch_passes_a_requested_body(fake_library, body):
     fake_library.body = body
     ro._launch(prepared_rollout("lerp"), body)
     (args,) = fake_library.calls
-    assert args[-3] == ro.BODY_CODES[body]
+    assert args.body == ro.BODY_CODES[body]
 
 
 @pytest.mark.parametrize("reported", ["fast", "generic"])
@@ -287,16 +292,39 @@ def test_potential_rollout_launch_passes_its_one_output_net(fake_library, report
     before = dict(build.FORM_LAUNCHES)
     ro._launch(prepared)
     (args,) = fake_library.calls
-    assert args[7] == w_out.data_ptr() and args[8] == b_out.data_ptr()
+    assert args.w_out == w_out.data_ptr() and args.b_out == b_out.data_ptr()
     # B, d, C, H, T, K, the table's width and height, one sscore column
-    assert args[12:21] == (5, d, 16, 2, 6, 0, 0, 0, 1)
-    assert args[21] == 2.5 and math.isinf(args[22])
-    assert args[-5] == ro.FORM_CODES["potential"] == 5
-    assert args[-4] == ro.TARGET_CODES["none"]
+    assert (args.B, args.D, args.C, args.H, args.T, args.K, args.tab_w, args.tab_h,
+            args.score_cols) == (5, d, 16, 2, 6, 0, 0, 0, 1)
+    assert args.clip_model == 2.5 and math.isinf(args.clip_score)
+    assert args.form == ro.FORM_CODES["potential"] == 5
+    assert args.target == ro.TARGET_CODES["none"]
     for key in ("rollout.potential", "rollout.potential.none"):
         assert build.FORM_LAUNCHES[key] == before[key] + 1
     assert build.FORM_LAUNCHES["rollout.potential.generic"] == (
         before["rollout.potential.generic"] + (reported == "generic"))
+
+
+@pytest.mark.parametrize("given", [False, True])
+def test_rollout_plan_asks_for_a_dry_launch(fake_library, given):
+    """`rollout_plan` passes the launch's structure with `dry` set, the body
+    and rows asked for (a given score's as one step), reads back the body
+    and plan the library reports, and counts no launch."""
+    fake_library.body, fake_library.plan = ("wide", (8, 256, 102912, 64)) if given else (
+        "generic", (6, 342, 81920, 0))
+    d = 16
+    x0, ts, dbs = rollout_inputs(d, T=5)
+    sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
+    target = Cox(dim=d, use_whitened=True) if given else Funnel(dim=d, n_reference_samples=100)
+    ctrl = ScoreCtrl(base_model=FourierMLP(dim=d, channels=32), target_score=target.score)
+    prepared = ro._prepare(ctrl, x0, ts, dbs, None, sde)
+    before = dict(build.LAUNCHES), dict(build.FORM_LAUNCHES)
+    plan = ro.rollout_plan(prepared, "shape", rows=3)
+    (args,) = fake_library.calls
+    assert args.dry == 1 and args.rows == 3 and args.body == ro.BODY_CODES["shape"]
+    assert args.T == (1 if given else 5) and args.C == 32
+    assert plan == ro.RolloutPlan(fake_library.body, *fake_library.plan)
+    assert (build.LAUNCHES, build.FORM_LAUNCHES) == before
 
 
 def test_failed_rollout_launch_raises_and_counts_nothing(fake_library):

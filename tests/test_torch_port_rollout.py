@@ -5,8 +5,9 @@ must match the JAX kernel `fused_sim_rollout` in interpret mode and the
 lax.scan reference at B 32, T 12, with the parameters carried across and
 the same numpy noise: the flagship stack (LerpCtrl over FourierMLP and a
 TimeEmbed score net, VP SDE, funnel target), and each other (form, target)
-case of the kernel: the LerpCtrl on the grid mixture (d = 2) and on a
-MultiWell with Gaussian coordinates (d = 6), the score-free ClippedCtrl,
+case of the kernel: the LerpCtrl on the grid mixture (d = 2), on a
+MultiWell with Gaussian coordinates (d = 6) and on `mw_50d` (d = 50, the
+generic body's shape on the card), the score-free ClippedCtrl,
 the LerpCtrl on the rings (d = 2) and on the Rosenbrock (d = 15, whose
 score the JAX package takes by `jax.grad`), the CancelDriftCtrl of
 `model=langevin_init` on the mixture and the rings, and at d = 1, where the JAX kernel refuses the shape and only its scan
@@ -73,6 +74,9 @@ TARGETS = {
     "gmm": lambda: (JGMM(name="grid"), GMM(name="grid"), 2),
     "mw": lambda: (JMultiWell(dim=6, n_double_wells=2, separation=2.0, shift=0.5),
                    MultiWell(dim=6, n_double_wells=2, separation=2.0, shift=0.5), 6),
+    # conf/target/mw_50d.yaml
+    "mw_50d": lambda: (JMultiWell(dim=50, n_double_wells=5, separation=2.0),
+                       MultiWell(dim=50, n_double_wells=5, separation=2.0), 50),
     "dw_shift": lambda: (JDoubleWell(separation=2.0, shift=1.5),
                          DoubleWell(separation=2.0, shift=1.5), 1),
     "gauss_shift": lambda: (JIsoGauss(dim=1, loc=3.0, scale=1.0),
@@ -170,6 +174,8 @@ CASES = [
     pytest.param("lerp", "gmm", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.gmm"),
     pytest.param("clipped", "gmm", {"clip_model": 0.3}, id="clipped.gmm"),
     pytest.param("lerp", "mw", {"clip_model": 5.0, "clip_score": 10.0}, id="lerp.wells"),
+    pytest.param("lerp", "mw_50d", {"clip_model": 5.0, "clip_score": 10.0},
+                 id="lerp.wells.mw_50d"),
     pytest.param("score", "dw_shift", {"clip_model": 5.0, "clip_score": 10.0},
                  id="score.wells.d1"),
     pytest.param("lerp", "gauss_shift", None, id="lerp.gmm.d1"),
