@@ -18,7 +18,9 @@ prints nvcc's register and spill report. Phases:
            given-score form (INSTANCES; the LerpTargetCtrl's, the
            PotentialCtrl's, the rings', the Rosenbrock's, the
            CancelDriftCtrl's and the image's in both bodies, the
-           PotentialCtrl's also at d = 50; the given score at d = 196 in
+           PotentialCtrl's also at d = 16 in both bodies and at d = 50 in
+           the generic body, there also at a ragged batch of 2047 with its
+           plan; the given score at d = 196 in
            the wide body and in the generic one, whose bits it must give,
            at d = 1600 in the wide body and at the alanine dipeptide's
            d = 60 and batch 512 in the generic body; mw_50d's generic body
@@ -56,6 +58,10 @@ prints nvcc's register and spill report. Phases:
                         step of kernel 1), half the steps on a subtrajectory
                         that ends at T, 220 steps, 100k evaluation; it logs
                         how many steps took a subtrajectory and their lengths;
+             mw_50d_dis_subtraj  the same on mw_50d (d = 50), 20 steps, a
+                        10k evaluation: the potential form's generic body,
+                        once per optimizer step, and the Sinkhorn kernels'
+                        wide body;
              rings_dis  the rings (d = 2) under DIS, 220 steps, 100k
                         evaluation (no sampler: no Sinkhorn);
              img_dis    the image (d = 2) under DIS, 220 steps, 100k
@@ -88,8 +94,8 @@ prints nvcc's register and spill report. Phases:
                         its accepted and rejected steps;
              dds_euler, pis (funnel), mw_dds (d = 5, kernel 2),
              mw_50d_dis (d = 50, the generic body and the Sinkhorn
-             kernels' wide body, which these three paths of d > 16 must take
-             for every Sinkhorn launch and no other path may take),
+             kernels' wide body, which the paths of d > 16 must take for
+             every Sinkhorn launch and no other path may take),
              dw_shift_pis (d = 1),
              gmm_dis_no_score (the ClippedCtrl), gmm_bridge (the
              LerpTargetCtrl on the scaled BM, a LerpPriorCtrl inference
@@ -154,14 +160,16 @@ prints nvcc's register and spill report. Phases:
            last three, 200 launches and scores a step, over three windows
            of one step, with their card memory peak and the share of the step
            that goes when their target score is replaced by zeros), and
-           the mixture SubtrajBridge's, on the whole trajectory and on a
-           subtrajectory (with a profiler breakdown; for the Bridge also
+           the mixture's and mw_50d's SubtrajBridge, on the whole trajectory
+           and on a subtrajectory (with a profiler breakdown; for the Bridge also
            the card time of phase 2's divergence), each kernel and instance
            through its wrapper (a given score's with the target's score
            every step), alone (a given score's on one fixed score) and as
            its plain version at its path's shapes
            (the funnel rollouts in each body; the tiled bodies' rows of
-           PERF.md §6, 1d, 1k, 1l and 1o, with their bound ratio and plan,
+           PERF.md §6, 1d, 1k, 1l, 1o and the potential's 1f at d = 50,
+           with their bound ratio and plan; the potential's fast body at
+           d = 2 and 16, each also in the generic body,
            a given score's also by the profiler's device time, NICE's also
            in the generic body and Cox's also at 8 rows a block), softmin and transport at
            100k for d = 2, 50, 60 and 196, each beside its bound (at d = 50
@@ -316,6 +324,12 @@ PATHS = {
                                kernels=("rollout.potential.none", *SINKHORN),
                                steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
                                subtraj=True),
+    # SubtrajBridge at d = 50 (mw_50d, the widest shipped target with a
+    # domain): the potential form's generic body, once per optimizer step
+    "mw_50d_dis_subtraj": dict(target="mw_50d", solver="dis_subtraj",
+                               kernels=("rollout.potential.none", *SINKHORN, *WIDE_SINKHORN),
+                               steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                               subtraj=True, generic=True),
     # the rings have no sampler (no Sinkhorn); their LB means are held to
     # their finite means, as the short paths' are
     "rings_dis": dict(target="rings", solver="dis", kernels=("rollout.lerp.rings",),
@@ -394,14 +408,19 @@ PATHS = {
 }
 # the paths whose phase 1 takes the scan route
 SCAN_PATHS = [path for path, spec in PATHS.items() if spec.get("scan")]
+POTENTIAL_SOURCE = "sde_sampler_torch/csrc/rollout_potential.cu"
 # The rollout instances beyond the funnel's, each checked against its plain
 # twin and timed at the shapes of the path that runs it (gmm_dis,
 # gmm_dis_no_score, dw_shift_pis, mw_dds, mw_50d_dis, gmm_bridge,
-# gmm_dis_subtraj, rings_dis, rosenbrock_dis, gmm_dds_euler_langevin_init):
+# gmm_dis_subtraj, mw_50d_dis_subtraj, rings_dis, rosenbrock_dis,
+# gmm_dds_euler_langevin_init):
 # label (the kernels line's name) -> control form ("exp": kernel 2's) and
 # target (conf/target/*.yaml); `bodies`: also checked in the generic body,
 # which must give the fast body's bits; `source`: where the form's kernels
-# live, if not in rollout.cuh.
+# live, if not in rollout.cuh; `key`: the launch counter (ops/build.py's
+# FORM_LAUNCHES) that counts it on its paths, if not its label, and that
+# its own check must raise; `seed`: its inputs' seed, if not its place in
+# the list's.
 INSTANCES = {
     "rollout.lerp.gmm": dict(form="lerp", target="gmm"),
     "rollout.clipped.none": dict(form="clipped", target="gmm"),
@@ -410,7 +429,8 @@ INSTANCES = {
     "rollout.lerp.wells": dict(form="lerp", target="mw_50d"),
     "rollout.lerp_target.gmm": dict(form="lerp_target", target="gmm", bodies=True),
     "rollout.potential.none": dict(form="potential", target="gmm", bodies=True,
-                                   source="sde_sampler_torch/csrc/rollout_potential.cu"),
+                                   paths=("gmm_dis_subtraj", "gmm_bridge_subtraj"),
+                                   source=POTENTIAL_SOURCE),
     "rollout.lerp.rings": dict(form="lerp", target="rings", bodies=True),
     "rollout.lerp.rosenbrock": dict(form="lerp", target="rosenbrock", bodies=True),
     "rollout.cancel_drift.gmm": dict(form="cancel_drift", target="gmm", bodies=True),
@@ -437,6 +457,12 @@ INSTANCES = {
     "rollout.lerp.dim": dict(form="lerp", target="funnel", bodies=True, score_dim=True),
     "rollout.score.dim": dict(form="score", target="funnel", score_dim=True),
     "rollout_exp.score.dim": dict(form="exp", target="funnel", score_dim=True),
+    # the PotentialCtrl at mw_50d's d = 50, the generic body by shape, whose
+    # launches on mw_50d_dis_subtraj it counts (`seed`: the inputs of its
+    # checks before it was an instance)
+    "rollout.potential.none.d50": dict(form="potential", target="mw_50d", seed=SEED + 40,
+                                       key="rollout.potential.generic",
+                                       paths=("mw_50d_dis_subtraj",), source=POTENTIAL_SOURCE),
     # the Sinkhorn kernels' wide body (d > 16: mw_50d, the alanine dipeptide,
     # NICE), checked at 10k and timed at 100k x 100k, d = 50
     "softmin.wide": dict(sinkhorn=True),
@@ -448,8 +474,8 @@ INSTANCES["rollout.lerp.given"]["paths"] = ("nice_smooth_dis", "cox_dis")
 ROLLOUT_INSTANCES = [label for label, spec in INSTANCES.items() if not spec.get("sinkhorn")]
 # the PERF.md §6 rows of the tiled bodies: their plans are printed with their times
 TILED_ROWS = {"rollout.lerp.wells": "row 1d", "rollout.lerp.given": "row 1k",
-              "rollout.lerp.given.wide": "row 1l", "rollout.lerp.given.d60": "row 1o"}
-WIDE_POTENTIAL_DIM = 50  # the PotentialCtrl's generic body, d > 16
+              "rollout.lerp.given.wide": "row 1l", "rollout.lerp.given.d60": "row 1o",
+              "rollout.potential.none.d50": "row 1f"}
 
 
 def timed(fn):
@@ -862,8 +888,13 @@ def phase_kernels(device, report):
     # the instances of the mixture, the wells, the ClippedCtrl and the
     # LerpTargetCtrl, each at its path's shapes
     for i, label in enumerate(ROLLOUT_INSTANCES):
-        run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 10 + i)
+        run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(
+            device, label, INSTANCES[label].get("seed", SEED + 10 + i))
+        key = INSTANCES[label].get("key")
+        before = build.FORM_LAUNCHES[key] if key else 0
         check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
+        if key and build.FORM_LAUNCHES[key] <= before:
+            fail(f"{label} was not counted as {key}")
         if INSTANCES[label].get("wide_bits"):
             # the generic body where the wide one is taken by shape: against
             # the plain twin, and the wide body's bits
@@ -897,13 +928,34 @@ def phase_kernels(device, report):
         if k["fast_vs_generic_body"] != 0.0:
             fail(f"{label}: the fast and generic bodies give different bits")
 
+    # the PotentialCtrl at d = 16, the widest the fast body takes: both
+    # bodies against the plain twin, and the same bits
+    label = "rollout.potential.none"
+    run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 27, dim=16)
+    k = report[label]
+    for body in ("fast", "generic"):
+        check_rollout(f"{label} at d 16, {body} body",
+                      lambda x, t, n: ro._launch(prepare(x, t, n), body),
+                      plain, x0i, tsi, noisei, "d16", report)
+        k[f"d16_{body}_max_abs_err"] = report.pop("d16")["max_abs_err"]
+        k["max_abs_err"] = max(k["max_abs_err"], k[f"d16_{body}_max_abs_err"])
+    prepared = prepare(x0i, tsi, noisei)
+    fast, slow = ro._launch(prepared, "fast"), ro._launch(prepared, "generic")
+    k["d16_fast_vs_generic_body"] = max(float((a - b).abs().max()) for a, b in zip(fast, slow))
+    print(f"kernel {label}: fast vs generic body at d 16: max |diff| "
+          f"{k['d16_fast_vs_generic_body']:.3e}", flush=True)
+    if k["d16_fast_vs_generic_body"] != 0.0:
+        fail(f"{label}: the fast and generic bodies give different bits at d = 16")
+
     # the tiled bodies at a ragged batch (2047, no multiple of the plan's
-    # rows): mw_50d's generic body and Cox's wide body, each by shape, and
-    # the plan at the paths' batch and at 2047 rows
-    for label, body in (("rollout.lerp.wells", "generic"), ("rollout.lerp.given.wide", "wide")):
+    # rows): mw_50d's generic body, Cox's wide body and the PotentialCtrl's
+    # generic body at d = 50, each by shape, and the plan at 2047 rows
+    for label, body, key in (("rollout.lerp.wells", "generic", "rollout.lerp.generic"),
+                             ("rollout.lerp.given.wide", "wide", "rollout.lerp.given.wide"),
+                             ("rollout.potential.none.d50", "generic",
+                              "rollout.potential.generic")):
         run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(
             device, label, SEED + 50, batch=RAGGED_BATCH)
-        key = "rollout.lerp.generic" if body == "generic" else "rollout.lerp.given.wide"
         before = build.FORM_LAUNCHES[key]
         check_rollout(f"{label} at B {RAGGED_BATCH}", run, plain, x0i, tsi, noisei, "ragged",
                       report)
@@ -915,20 +967,10 @@ def phase_kernels(device, report):
         plan = ro.rollout_plan(prepare(x0i, tsi, noisei))
         k["ragged_plan"] = plan._asdict()
         print(f"kernel {label} at B {RAGGED_BATCH}: plan {k['ragged_plan']}", flush=True)
-        if plan.rows * (plan.blocks - 1) >= RAGGED_BATCH or plan.rows * plan.blocks < RAGGED_BATCH:
-            fail(f"{label}: the plan {plan} does not cover {RAGGED_BATCH} rows once")
-
-    # the PotentialCtrl past the fast body's widths: the generic body by shape
-    label = "rollout.potential.none"
-    run, plain, _, x0i, tsi, noisei, _ = seeded_instance(
-        device, label, SEED + 40, dim=WIDE_POTENTIAL_DIM)
-    before = build.FORM_LAUNCHES["rollout.potential.generic"]
-    check_rollout(f"{label}.d{WIDE_POTENTIAL_DIM}", run, plain, x0i, tsi, noisei, "wide", report)
-    if build.FORM_LAUNCHES["rollout.potential.generic"] <= before:
-        fail(f"the PotentialCtrl at d = {WIDE_POTENTIAL_DIM} did not take the generic body")
-    k = report[label]
-    k[f"generic_d{WIDE_POTENTIAL_DIM}_max_abs_err"] = report.pop("wide")["max_abs_err"]
-    k["max_abs_err"] = max(k["max_abs_err"], k[f"generic_d{WIDE_POTENTIAL_DIM}_max_abs_err"])
+        if plan.body != body or not (plan.rows * (plan.blocks - 1) < RAGGED_BATCH
+                                     <= plan.rows * plan.blocks):
+            fail(f"{label}: the plan {plan} does not cover {RAGGED_BATCH} rows once in the "
+                 f"{body} body")
 
     # a score net of d outputs whose rows are all equal: the same launch with
     # the per-coordinate table and with its one column must give the same
@@ -1164,6 +1206,10 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         if build.FORM_LAUNCHES["rollout.potential.none"] != train_steps:
             fail(f"{path}: {build.FORM_LAUNCHES['rollout.potential.none']} potential rollout "
                  f"launches for {train_steps} optimizer steps")
+        generic_launches = build.FORM_LAUNCHES["rollout.potential.generic"]
+        if generic_launches != (train_steps if spec.get("generic") else 0):
+            fail(f"{path}: {generic_launches} launches of the potential's generic body for "
+                 f"{train_steps} optimizer steps")
 
     if spec.get("langevin"):
         return langevin_result(path, solver_obj, seconds, eval_batch, launches, report)
@@ -1978,7 +2024,11 @@ def phase_timing(solvers, device, report, instances=None):
                 ("gmm_dis_subtraj", "subtraj_full_step", 0.0, "GMM DIS subtraj (whole trajectory)"),
                 ("gmm_dis_subtraj", "subtraj_window_step", 1.0, "GMM DIS subtraj (subtrajectory)"),
                 ("gmm_bridge_subtraj", "bridge_subtraj_full_step", 0.0,
-                 "GMM Bridge subtraj (whole trajectory)")):
+                 "GMM Bridge subtraj (whole trajectory)"),
+                ("mw_50d_dis_subtraj", "mw50_subtraj_full_step", 0.0,
+                 "mw_50d DIS subtraj (whole trajectory)"),
+                ("mw_50d_dis_subtraj", "mw50_subtraj_window_step", 1.0,
+                 "mw_50d DIS subtraj (subtrajectory)")):
             if path not in solvers:
                 continue
             subtraj = solvers[path]
@@ -2027,7 +2077,7 @@ def phase_timing(solvers, device, report, instances=None):
         if instances is not None and label not in instances:
             continue
         run, plain, prepare, x0i, tsi, noisei, work = seeded_instance(
-            device, label, SEED + 10 + i)
+            device, label, INSTANCES[label].get("seed", SEED + 10 + i))
         prepared = prepare(x0i, tsi, noisei)
         k = report[label]
         if prepared[1]["kind"] == "given":
@@ -2074,19 +2124,26 @@ def phase_timing(solvers, device, report, instances=None):
             k["generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=5)
             print(f"time {label}: its generic body alone at the same shapes "
                   f"{k['generic_body_ms']:.3f} ms", flush=True)
+    # the PotentialCtrl's fast body at d = 16, the widest it takes, and its
+    # generic body at the same shapes
+    label = "rollout.potential.none"
+    if instances is None or label in instances:
+        run, plain, prepare, x0i, tsi, noisei, work = seeded_instance(
+            device, label, SEED + 27, dim=16)
+        prepared = prepare(x0i, tsi, noisei)
+        k = report[label]
+        k["d16_ms"] = cuda_ms(lambda: run(x0i, tsi, noisei), reps=20, warmup=2)
+        k["d16_kernel_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=20, warmup=2)
+        k["d16_generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=5)
+        k["d16_plain_ms"] = cuda_ms(lambda: plain(x0i, tsi, noisei), reps=1, warmup=0)
+        k["d16_bound_ms"] = bound(*work)[0]
+        print(f"time {label} (d 16, T {tsi.shape[0] - 1}): {k['d16_ms']:.3f} ms through its "
+              f"wrapper, {k['d16_kernel_ms']:.3f} ms alone (plain {k['d16_plain_ms']:.3f} ms, "
+              f"bound {k['d16_bound_ms']:.4f} ms; "
+              f"{k['d16_kernel_ms'] / k['d16_bound_ms']:.1f}x); its generic body alone "
+              f"{k['d16_generic_body_ms']:.3f} ms", flush=True)
     if instances is not None:
         return
-    # the PotentialCtrl past the fast body's widths (the generic body by shape)
-    label = "rollout.potential.none"
-    _, _, prepare, x0i, tsi, noisei, work = seeded_instance(
-        device, label, SEED + 40, dim=WIDE_POTENTIAL_DIM)
-    prepared = prepare(x0i, tsi, noisei)
-    k = report[label]
-    k[f"generic_d{WIDE_POTENTIAL_DIM}_ms"] = cuda_ms(lambda: ro._launch(prepared), reps=5)
-    k[f"generic_d{WIDE_POTENTIAL_DIM}_bound_ms"] = bound(*work)[0]
-    print(f"time {label} at d {WIDE_POTENTIAL_DIM} (generic body): "
-          f"{k[f'generic_d{WIDE_POTENTIAL_DIM}_ms']:.3f} ms alone (bound "
-          f"{k[f'generic_d{WIDE_POTENTIAL_DIM}_bound_ms']:.4f} ms)", flush=True)
 
     # softmin and transport at the mixture's width and the wide body's (mw_50d,
     # the alanine dipeptide, NICE), 100k x 100k, the kernels alone; at d = 50

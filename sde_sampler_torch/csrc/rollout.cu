@@ -32,8 +32,7 @@ static int table_floats(int target, int K, int D) {
 // for a per-coordinate score net (the lerp and score forms only), whose
 // table `tab` then has kTab + D columns a step. `body` as for `launch`;
 // `rows`, rows a block of the generic or wide body (0: the plan's). `dry`:
-// plan only, launch nothing (not the potential form, whose bodies keep
-// their own fixed tiles). Out: `used`, the body, and the plan.
+// plan only, launch nothing. Out: `used`, the body, and the plan.
 struct RolloutLaunch {
   const float *x0, *dbs, *tab, *temb, *w_in, *w_hid, *b_hid, *w_out, *b_out, *gmm;
   float *xs, *x_T;
@@ -48,7 +47,6 @@ extern "C" int rollout_launch(RolloutLaunch* p) {
   const int D = p->D, form = p->form, target = p->target;
   if (p->score_cols != 1 && (p->score_cols != D || D < 2)) return (int)cudaErrorInvalidValue;
   if (p->update != 0 && p->update != 1) return (int)cudaErrorInvalidValue;
-  if (p->dry && p->update == 0 && form == kPotentialEm) return (int)cudaErrorInvalidValue;
   const bool per_coord = p->score_cols != 1;
   const bool exp = p->update == 1;
   Plan plan{0, 0, 0, 0};

@@ -168,8 +168,8 @@
 // rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu, and the
 // per-coordinate sscore's rollout_lerp_dim.cu, rollout_score_dim.cu,
 // rollout_exp_dim.cu; the
-// potential form's two bodies, which
-// run the net's backward pass too, live whole in rollout_potential.cu),
+// potential form's bodies, which run the net's backward pass too, live in
+// rollout_potential.cu over this header's copies, tiles and plan),
 // so that the build runs one nvcc per form side by side; rollout.cu holds
 // the C entry points.
 #pragma once
@@ -183,9 +183,6 @@ namespace sde_rollout {
 
 constexpr int kTab = 6;    // per-step scalars, see the header
 
-// the potential form's generic body (rollout_potential.cu): rows a block, threads
-constexpr int kRows = 16;
-constexpr int kGenericThreads = 256;
 constexpr int kFastRows = 8;         // batch rows per block of the fast body
 constexpr int kFastThreads = 128;    // 64 channels x 2 row groups
 constexpr int kFastRowsPerThread = 4;
@@ -1399,10 +1396,11 @@ TileCache tile_cache(Kernel kernel) {
 // Launch (or only plan) `kernel`, one of the tiled bodies, of `threads`
 // threads a block and at most `cap` rows, over the rows of a.B: rows a
 // block from the plan (or a.rows), `go(blocks, rows, smem)` launching it.
-// `slice` > 0: the wide body, one block a multiprocessor.
+// `slice` > 0: the wide body, one block a multiprocessor. The plan's rows
+// round up to a multiple of `granule`, within the rows that fit.
 template <typename Kernel, typename Smem, typename Launch>
 cudaError_t launch_tiled(const Args& a, Kernel kernel, TileCache& cache, Smem smem, int slice,
-                         int threads, int cap, Launch go) {
+                         int threads, int cap, Launch go, int granule = 1) {
   if (cache.attr != cudaSuccess) return cache.attr;
   const int fit = max_rows(a, smem, cap);
   if (fit == 0) return cudaErrorInvalidValue;
@@ -1418,6 +1416,7 @@ cudaError_t launch_tiled(const Args& a, Kernel kernel, TileCache& cache, Smem sm
       cache.occupancy = occupancy, cache.bytes = bytes;
     }
     rows = plan_rows(a.B, cache.occupancy, fit);
+    rows = min(fit, (rows + granule - 1) / granule * granule);
   }
   const long long bytes = smem(a, rows);
   const int blocks = (a.B + rows - 1) / rows;

@@ -624,8 +624,7 @@ def rollout_plan(prepared, body: str = "shape", rows: int = 0) -> RolloutPlan:
     """The plan of a launch of `prepared` (kernel 1 or 2) in `body`, with
     `rows` rows a block asked for (0: the library's choice), launching
     nothing (needs the library, so a CUDA build); a given score's is that
-    of each of its one-step launches. Not the potential form, whose bodies
-    keep fixed tiles."""
+    of each of its one-step launches."""
     args = _launch_args(prepared, body, rows)
     if prepared[1]["kind"] == "given":
         args.T = 1

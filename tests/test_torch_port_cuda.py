@@ -15,7 +15,10 @@ Tolerances (float32 on the card, sums in another order):
   steps of the configs' step size; the given-score form (one launch a
   step after the target's own score: Cox) the same at d = 196 in the
   generic and the wide body, which give the same bits, and at d = 1600 in
-  the wide body;
+  the wide body; the PotentialCtrl's generic body the same (its register
+  path at d = 2, 50 and 530, at ragged batches and rows asked for; the
+  tiled body of 32- and 48-wide nets), and with a clip below every |net|
+  1e-6 of the bare SDE's update in both bodies;
 - the scan route of phase 1 (no kernel: a DenseNet base net): 1e-4
   against the CPU over 12 steps;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
@@ -780,6 +783,89 @@ def test_potential_clip_zeroes_the_control_on_the_card(cuda):
     with torch.no_grad():  # every net output away from 0
         prepared[0][8].fill_(1.0)
     xs, x_T = ro._launch(prepared)
+    xs_p, xT_p = ro._run_plain(prepared)
+    torch.testing.assert_close(xs, xs_p, atol=1e-6, rtol=1e-6)
+    tab = prepared[0][2]
+    x = x0
+    for k in range(noise.shape[0]):  # the bare EM update, no control
+        drift, diff, dt = tab[k, 0], tab[k, 1], tab[k, 2]
+        x = x + (drift * x) * dt + diff * noise[k]
+    torch.testing.assert_close(x_T, x, atol=1e-6, rtol=1e-6)
+
+
+# The PotentialCtrl's generic body (csrc/rollout_potential.cu): its register
+# path for C = 64, H = 2 at mw_50d's d = 50, by shape at a batch no multiple
+# of the plan's rows and with 8 rows a block asked for at 29 rows (a ragged
+# last block), at d = 530, the widest the body before its redesign took at
+# C = 64, H = 2, and at d = 2, asked for; the tiled body of other nets (C =
+# 32 with H = 3, C = 48 with H = 1) at d = 2, 17 and 50. (d, net, batch,
+# body asked for, rows asked for)
+POTENTIAL_GENERIC = {
+    "d50.b509": (50, None, 509, "shape", 0),
+    "d50.b29.rows8": (50, None, 29, "generic", 8),
+    "d530.b61": (530, None, 61, "shape", 0),
+    "d2.b29": (2, None, 29, "generic", 0),
+    "d2.c32.h3.b29": (2, dict(channels=32, num_layers=5), 29, "shape", 0),
+    "d17.c32.h3.b509": (17, dict(channels=32, num_layers=5), 509, "shape", 0),
+    "d50.c48.h1.b61": (50, dict(channels=48, num_layers=3), 61, "generic", 5),
+}
+
+
+@pytest.mark.parametrize("case", list(POTENTIAL_GENERIC))
+def test_potential_generic_body_matches_plain_twin(cuda, case):
+    """Counted as the generic body; one step from the plain twin's own
+    states, then the whole rollout, within the rollouts' tolerance; the plan
+    (the same launch asked `dry`) covers every row once within the H100's
+    shared memory; a second launch gives the same bits."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    d, net, batch, body, rows = POTENTIAL_GENERIC[case]
+    prepare, x0, ts, noise = instance_setup(cuda, f"potential.none.{case}", batch=batch,
+                                            spec=("potential", None, d), net=net)
+    T = noise.shape[0]
+    before = build.FORM_LAUNCHES["rollout.potential.generic"]
+    xs, x_T = ro._launch(prepare(x0, ts, noise), body, rows=rows)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES["rollout.potential.generic"] == before + 1
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    assert bool(torch.isfinite(xs_p).all())
+    for k in (0, T // 2, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body,
+                           rows=rows)
+        torch.testing.assert_close(x1, xT_p if k == T - 1 else xs_p[k + 1], atol=1e-5,
+                                   rtol=1e-5)
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    again = ro._launch(prepare(x0, ts, noise), body, rows=rows)
+    assert torch.equal(again[0], xs) and torch.equal(again[1], x_T)
+    plan = ro.rollout_plan(prepare(x0, ts, noise), body, rows=rows)
+    assert plan.body == "generic" and 1 <= plan.rows <= (8 if net is None else 16)
+    assert rows == 0 or plan.rows == rows
+    assert plan.rows * (plan.blocks - 1) < batch <= plan.rows * plan.blocks
+    assert 0 < plan.smem_bytes <= 232448 and plan.slice == 0
+
+
+@pytest.mark.parametrize("case", ["d2.generic", "d50", "d17.c32.h3"])
+def test_potential_clip_zeroes_the_control_in_the_generic_body(cuda, case):
+    """test_potential_clip_zeroes_the_control_on_the_card in the generic
+    body: its register path asked for at d = 2 and by shape at d = 50, and
+    the tiled body of a 32-wide net of three hidden layers."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    d, net = {"d2.generic": (2, None), "d50": (50, None),
+              "d17.c32.h3": (17, dict(channels=32, num_layers=5))}[case]
+    prepare, x0, ts, noise = instance_setup(cuda, f"potential.none.{case}",
+                                            spec=("potential", None, d), net=net)
+    prepared = prepare(x0, ts, noise)
+    prepared[1]["clip_model"] = 0.0
+    with torch.no_grad():  # every net output away from 0
+        prepared[0][8].fill_(1.0)
+    before = build.FORM_LAUNCHES["rollout.potential.generic"]
+    xs, x_T = ro._launch(prepared, "generic")
+    assert build.FORM_LAUNCHES["rollout.potential.generic"] == before + 1
     xs_p, xT_p = ro._run_plain(prepared)
     torch.testing.assert_close(xs, xs_p, atol=1e-6, rtol=1e-6)
     tab = prepared[0][2]

@@ -327,6 +327,29 @@ def test_rollout_plan_asks_for_a_dry_launch(fake_library, given):
     assert (build.LAUNCHES, build.FORM_LAUNCHES) == before
 
 
+@pytest.mark.parametrize("d,reported,plan", [(2, "fast", (8, 1, 42144, 0)),
+                                              (50, "generic", (8, 1, 57696, 0))])
+def test_potential_rollout_plan_asks_for_a_dry_launch(fake_library, d, reported, plan):
+    """The PotentialCtrl's plan comes from the library as the other forms':
+    `rollout_plan` passes form 5 with no target, `dry` set and the body and
+    rows asked for, reads back the body and plan the library reports, and
+    counts no launch."""
+    fake_library.body, fake_library.plan = reported, plan
+    x0, ts, dbs = rollout_inputs(d, T=5)
+    ctrl = PotentialCtrl(base_model=FourierMLP(dim=d, dim_out=1), clip_model=10.0,
+                         sde=VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0))
+    prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    before = dict(build.LAUNCHES), dict(build.FORM_LAUNCHES)
+    got = ro.rollout_plan(prepared, "generic" if d > 16 else "shape", rows=4)
+    (args,) = fake_library.calls
+    assert args.dry == 1 and args.rows == 4
+    assert args.body == ro.BODY_CODES["generic" if d > 16 else "shape"]
+    assert args.form == ro.FORM_CODES["potential"] and args.target == ro.TARGET_CODES["none"]
+    assert (args.B, args.D, args.C, args.H, args.T) == (5, d, 64, 2, 5)
+    assert got == ro.RolloutPlan(reported, *plan)
+    assert (build.LAUNCHES, build.FORM_LAUNCHES) == before
+
+
 def test_failed_rollout_launch_raises_and_counts_nothing(fake_library):
     fake_library.code = 1
     before = dict(build.LAUNCHES), dict(build.FORM_LAUNCHES)

@@ -189,11 +189,12 @@ def test_potential_ctrl_value_and_gradients_match_jax(clipped):
     assert torch.equal(u_ng, u.detach()) and torch.equal(div_ng, div.detach())
 
 
-@pytest.mark.parametrize("d,clipped", [(2, False), (2, True), (5, True)])
+@pytest.mark.parametrize("d,clipped", [(2, False), (2, True), (5, True), (50, True)])
 def test_potential_plain_rollout_matches_jax_kernel_and_scan(d, clipped):
     """The plain twin of kernel 1's potential form (the net's hand-written
     backward pass, no autograd) against the JAX Pallas kernel (interpret
-    mode) and its scan, both over PotentialCtrl.__call__ and its jax.grad."""
+    mode) and its scan, both over PotentialCtrl.__call__ and its jax.grad;
+    d = 50 is mw_50d's, the card's generic body."""
     j_ctrl, ctrl, params = potential_pair(d, scale=0.1)
     rng = np.random.default_rng(d)
     B, T = 32, 12
