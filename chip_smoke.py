@@ -28,7 +28,15 @@ prints nvcc's register and spill report. Phases:
            plan of each, which must cover every row once; the per-coordinate instances of a score
            net of d outputs, the lerp form's in both bodies, the score
            form's and kernel 2's, each also with a table of equal rows,
-           which must give the one-output instance's bits), softmin and
+           which must give the one-output instance's bits; the DenseNet
+           body (conf/model/base/densenet.yaml's [200, 200] ReLU net) in
+           kernel 1's lerp form on the mixture, the funnel's PIS score
+           form, kernel 2 on the funnel, mw_50d's lerp form (d = 50, its
+           weights streamed), a given score at d = 196 (the whitened Cox
+           process at NICE's d, streamed), and
+           the ClippedCtrl, LerpTargetCtrl and CancelDriftCtrl forms on the
+           mixture, the resident ones also streamed, which must give the
+           same bits), softmin and
            transport at 10k for d = 2, 5 (rows in registers) and 17, 50, 60,
            196 (the wide body, which each of these must launch; d = 60 also
            at the alanine dipeptide's 4096 evaluation; there transport is
@@ -49,6 +57,10 @@ prints nvcc's register and spill report. Phases:
                         257 cosine steps, ScoreCtrl, 220 steps, 100k eval;
              gmm_dis    the grid mixture (d = 2, K = 9) as dis, 220 steps,
                         100k evaluation;
+             gmm_dis_densenet  the same with conf/model/base/densenet.yaml's
+                        net ([200, 200], ReLU): kernel 1's DenseNet body
+                        (its weights resident in shared memory), counted as
+                        rollout.lerp.gmm.dense, and no scan route;
              gmm_bridge_diff_init  the mixture under the Bridge with a
                         learned inference control (a ClippedCtrl, its exact
                         divergence in phase 2 and at every evaluation step),
@@ -85,6 +97,15 @@ prints nvcc's register and spill report. Phases:
              funnel_dds_score_dim  DIS, PIS and DDS with a score net of d
                         outputs (conf/model/lerp_dim.yaml, score_dim.yaml):
                         the per-coordinate instances, 20 steps, 10k eval;
+             mw_50d_dis_densenet, funnel_dds_densenet  the DenseNet body
+                        at d = 50 (its weights streamed through its ring)
+                        and under kernel 2, 20 steps, 10k eval;
+             funnel_pis_densenet, gmm_dis_no_score_densenet,
+             gmm_bridge_densenet, gmm_dds_euler_langevin_init_densenet,
+             nice_smooth_dis_densenet  the DenseNet body in kernel 1's
+                        score, clipped, lerp_target and cancel_drift forms,
+                        20 steps, and in the given-score form (d = 196,
+                        streamed), 5 steps; 10k eval;
              gmm_langevin  the untrained Langevin solver at its full config
                         (conf/solver/langevin.yaml: 6000 chains, 10000 Euler
                         steps of dt 0.01, 1000 output steps, burn-in 500),
@@ -104,15 +125,14 @@ prints nvcc's register and spill report. Phases:
              rosenbrock_dis (d = 15, the objective metrics) and
              gmm_dds_euler_langevin_init (the CancelDriftCtrl against the
              VP drift): 20 steps, 10k eval;
-             gmm_dis_densenet (conf/model/base/densenet.yaml: [200, 200],
-             ReLU), funnel_dis_explore (exploration noise 0.1 and dropout
-             0.5 of the sde control), funnel_dds_explore (noise 0.1 under
-             kernel 2's loss; DDS has no SDE for the dropout's neutral
-             control) and gmm_pis_multilevel (a MultilevelNet: factor 5,
-             4 levels): phase 1 through the scan route (no kernel
-             instance), which each must take once per optimizer step; 10
-             steps, 10k eval and its Sinkhorn through the kernels. Every
-             other path must take the scan route no time;
+             funnel_dis_explore (exploration noise 0.1 and dropout 0.5 of
+             the sde control), funnel_dds_explore (noise 0.1 under kernel
+             2's loss; DDS has no SDE for the dropout's neutral control)
+             and gmm_pis_multilevel (a MultilevelNet: factor 5, 4 levels):
+             phase 1 through the scan route (no kernel instance), which
+             each must take once per optimizer step; 10 steps, 10k eval
+             and its Sinkhorn through the kernels. Every other path must
+             take the scan route no time;
            then the plots: with matplotlib on the card, a gmm_dis
            evaluation with plot_results=True must write its PNGs; without
            it, plot_results=True must raise at set-up, naming matplotlib;
@@ -179,11 +199,14 @@ prints nvcc's register and spill report. Phases:
            chunks), one whole 100k Sinkhorn at d = 50 (eval/sinkhorn.py,
            eps = 1e-3) and one full Sinkhorn evaluation, whose
            transport kernel must lie within TRANSPORT_F64_RTOL of float64
-           on the same funnel samples and duals; print each kernel's
+           on the same funnel samples and duals; the gmm_dis_densenet,
+           mw_50d_dis_densenet and funnel_dds_densenet steps, and the
+           gmm_dis_densenet step again with phase 1 forced through the
+           scan route; print each kernel's
            launches per paper-scale DIS run, computed from
            conf/solver/oc_base.yaml; the funnel DIS step again with phase
            1 through the loss's scan route in place of kernel 1, and the
-           steps of the four scan-route paths, each with its idle share.
+           steps of the three scan-route paths, each with its idle share.
            Without the main phase it times the kernels only.
 
 Each path prints the card memory it peaked at. `--paths a,b` drives only
@@ -286,6 +309,9 @@ LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb", "eval/log_norm
 FINITE_LOG_Z_KEYS = ["eval/log_norm_const_is", "eval/log_norm_const_lb_finite",
                      "eval/log_norm_const_lb_ito_finite"]
 SINKHORN = ("softmin", "transport")
+# the base net of conf/model/base/densenet.yaml in place of the FourierMLP
+DENSENET = "model/base@base_model=densenet"
+DENSE_ARCH = (200, 200)
 # the Sinkhorn kernels' wide body (d > 16), which the paths of d > 16 take
 # for every launch and no other path takes
 WIDE_SINKHORN = ("softmin.wide", "transport.wide")
@@ -300,6 +326,13 @@ PATHS = {
                 steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
     "gmm_dis": dict(target="gmm", solver="dis", kernels=("rollout.lerp.gmm", *SINKHORN),
                     steps=None, eval=None, log_z=LOG_Z_KEYS),
+    # conf/model/base/densenet.yaml's net ([200, 200], ReLU): kernel 1's
+    # DenseNet body, its weights resident in shared memory, once a step
+    # (held to the finite log Z means: a fresh net's overflowing
+    # trajectories would make the plain means infinite)
+    "gmm_dis_densenet": dict(target="gmm", solver="dis", overrides=[DENSENET],
+                             kernels=("rollout.lerp.gmm.dense", *SINKHORN), steps=None,
+                             eval=None, log_z=FINITE_LOG_Z_KEYS),
     "mw_dds": dict(target="mw", solver="dds", kernels=("rollout_exp.score.wells", *SINKHORN),
                    steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
     "mw_50d_dis": dict(target="mw_50d", solver="dis",
@@ -377,6 +410,37 @@ PATHS = {
                                  overrides=["model@generative_ctrl=score_dim"],
                                  kernels=("rollout_exp.score.dim", *SINKHORN), steps=SHORT_STEPS,
                                  eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    # the DenseNet body at d = 50 (its weights streamed: `streamed`) and
+    # under kernel 2
+    "mw_50d_dis_densenet": dict(target="mw_50d", solver="dis", overrides=[DENSENET],
+                                kernels=("rollout.lerp.wells.dense", *SINKHORN, *WIDE_SINKHORN),
+                                steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                                streamed=True),
+    "funnel_dds_densenet": dict(target="funnel", solver="dds", overrides=[DENSENET],
+                                kernels=("rollout_exp.score.funnel.dense", *SINKHORN),
+                                steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    # and kernel 1's other forms over it: the PIS ScoreCtrl, the
+    # ClippedCtrl, the Bridge's LerpTargetCtrl, the CancelDriftCtrl, and
+    # NICE's given score (d = 196, streamed; 200 launches a step)
+    "funnel_pis_densenet": dict(target="funnel", solver="pis", overrides=[DENSENET],
+                                kernels=("rollout.score.funnel.dense",), steps=SHORT_STEPS,
+                                eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dis_no_score_densenet": dict(target="gmm", solver="dis_no_score", overrides=[DENSENET],
+                                      kernels=("rollout.clipped.none.dense", *SINKHORN),
+                                      steps=SHORT_STEPS, eval=SHORT_EVAL,
+                                      log_z=FINITE_LOG_Z_KEYS),
+    "gmm_bridge_densenet": dict(target="gmm", solver="bridge", overrides=[DENSENET],
+                                kernels=("rollout.lerp_target.gmm.dense", *SINKHORN),
+                                steps=SHORT_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dds_euler_langevin_init_densenet": dict(
+        target="gmm", solver="dds_euler", overrides=["model@generative_ctrl=langevin_init", DENSENET],
+        kernels=("rollout.cancel_drift.gmm.dense", *SINKHORN), steps=SHORT_STEPS, eval=SHORT_EVAL,
+        log_z=FINITE_LOG_Z_KEYS),
+    "nice_smooth_dis_densenet": dict(target="nice_smooth", solver="dis", overrides=[DENSENET],
+                                     kernels=("rollout.lerp.given.dense", *SINKHORN,
+                                              *WIDE_SINKHORN),
+                                     steps=GIVEN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
+                                     per_step="rollout.lerp.given.dense", streamed=True),
     # the untrained Langevin solver: no training, no log Z; its own config's
     # chains (6000, the Sinkhorn's n) unless cut
     "gmm_langevin": dict(target="gmm", solver="langevin", kernels=SINKHORN, langevin=True),
@@ -384,13 +448,9 @@ PATHS = {
                                 sinkhorn=False,
                                 overrides=["integrator=torchsde_heun", "eval_batch_size=500",
                                            "sde.terminal_t=1"]),
-    # phase 1 through the scan route (`scan`): base nets without a kernel
+    # phase 1 through the scan route (`scan`): a base net without a kernel
     # body, and exploration of the sde control; the evaluation's Sinkhorn
     # through the kernels
-    "gmm_dis_densenet": dict(target="gmm", solver="dis",
-                             overrides=["model/base@base_model=densenet"], kernels=SINKHORN,
-                             steps=SCAN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
-                             scan=True),
     "funnel_dis_explore": dict(target="funnel", solver="dis",
                                overrides=["loss.sde_ctrl_noise=0.1", "loss.sde_ctrl_dropout=0.5"],
                                kernels=SINKHORN, steps=SCAN_STEPS, eval=SHORT_EVAL,
@@ -463,6 +523,27 @@ INSTANCES = {
     "rollout.potential.none.d50": dict(form="potential", target="mw_50d", seed=SEED + 40,
                                        key="rollout.potential.generic",
                                        paths=("mw_50d_dis_subtraj",), source=POTENTIAL_SOURCE),
+    # the DenseNet body (`net`: conf/model/base/densenet.yaml's net), each
+    # at its path's shapes: resident at d = 2 and 10 (`dense_bodies`: also
+    # streamed, which must give the same bits), streamed at d = 50 and for
+    # the given score at d = 196, there on the whitened Cox process at
+    # NICE's d (the configs' last layers, as the FourierMLP's); it counts
+    # the launches of its NICE path. On NICE this control keeps the states
+    # where the flow's score carries a one-ulp change of x0 to about 0.1 in
+    # 200 steps, in the plain twin against itself
+    # (`scripts/rollout_sensitivity.py`), so no two float32 rollouts agree
+    # there to TOL
+    "rollout.lerp.gmm.dense": dict(form="lerp", target="gmm", net="dense", dense_bodies=True),
+    "rollout.score.funnel.dense": dict(form="score", target="funnel", net="dense"),
+    "rollout_exp.score.funnel.dense": dict(form="exp", target="funnel", net="dense",
+                                           dense_bodies=True),
+    "rollout.lerp.wells.dense": dict(form="lerp", target="mw_50d", net="dense"),
+    "rollout.lerp.given.dense": dict(form="lerp", target="cox", net="dense", config_last=True,
+                                     target_kwargs={"use_whitened": True, "dim": 196},
+                                     paths=("nice_smooth_dis_densenet",)),
+    "rollout.clipped.none.dense": dict(form="clipped", target="gmm", net="dense"),
+    "rollout.lerp_target.gmm.dense": dict(form="lerp_target", target="gmm", net="dense"),
+    "rollout.cancel_drift.gmm.dense": dict(form="cancel_drift", target="gmm", net="dense"),
     # the Sinkhorn kernels' wide body (d > 16: mw_50d, the alanine dipeptide,
     # NICE), checked at 10k and timed at 100k x 100k, d = 50
     "softmin.wide": dict(sinkhorn=True),
@@ -475,7 +556,9 @@ ROLLOUT_INSTANCES = [label for label, spec in INSTANCES.items() if not spec.get(
 # the PERF.md §6 rows of the tiled bodies: their plans are printed with their times
 TILED_ROWS = {"rollout.lerp.wells": "row 1d", "rollout.lerp.given": "row 1k",
               "rollout.lerp.given.wide": "row 1l", "rollout.lerp.given.d60": "row 1o",
-              "rollout.potential.none.d50": "row 1f"}
+              "rollout.potential.none.d50": "row 1f",
+              **{label: "row 1p" if label.startswith("rollout.") else "row 4c"
+                 for label, spec in INSTANCES.items() if spec.get("net") == "dense"}}
 
 
 def timed(fn):
@@ -527,7 +610,7 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False, table=0, given=False,
-                 score_dim=False):
+                 score_dim=False, dense=None):
     # multiply-adds of the net (2 flops each), GELU with erf (~10 flops per
     # activation) and `per_coord` flops of score and update per coordinate
     # (about 25 for the LerpCtrl EM step, 20 for the ScoreCtrl exponential
@@ -544,12 +627,23 @@ def rollout_work(B, T, d, C, H, per_coord=25, K=0, potential=False, table=0, giv
     # A target table of `table` floats (the image's energy) is read once; a
     # given score, (B, d) a step, is an input of every step; a score net of
     # d outputs adds its (T, d) table of per-coordinate scales.
+    # A DenseNet of hidden widths `dense` (C and H unused) does sum_l K_l N_l
+    # multiply-adds a row and step, layer l reading K_l = d + sum of the
+    # widths before it (its t column tabulated) and writing N_l (d for the
+    # out layer), and a ReLU per hidden activation; it reads its weights
+    # once and its t table, (T, sum of the widths + d).
     n_out = 1 if potential else d
-    net = 2 * C * (d + H * C + n_out) + 10 * C * (H + 1)
+    if dense is not None:
+        macs = sum((d + sum(dense[:l])) * n for l, n in enumerate((*dense, d)))
+        net = 2 * macs + sum(dense)
+        weights = macs + T * (sum(dense) + d)
+    else:
+        net = 2 * C * (d + H * C + n_out) + 10 * C * (H + 1)
+        weights = T * C + C * d + C * n_out + H * C * (C + 1) + n_out
     if potential:
         net += 2 * C * (H * C + d) + C * (H + 1) + 8 * C * (H + 1)
     ops = T * B * (net + per_coord * d + K * (3 * d + 10) + 3 * K * d)
-    nbytes = 4 * (B * d + T * B * d + T * (6 + C) + C * d + C * n_out + H * C * (C + 1) + n_out
+    nbytes = 4 * (B * d + T * B * d + T * 6 + weights
                   + T * B * d + B * d + K * (2 * d + 1) + table + (T * B * d if given else 0)
                   + (T * d if score_dim else 0))
     return ops, nbytes
@@ -664,7 +758,7 @@ def seeded_instance(device, label, seed, dim=None, batch=None):
 
     from sde_sampler_torch.distr.gauss import IsotropicGauss
     from sde_sampler_torch.eq.sdes import VP, ScaledBM
-    from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+    from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, TimeEmbed
     from sde_sampler_torch.models.reparam import (
         CancelDriftCtrl,
         ClippedCtrl,
@@ -680,8 +774,12 @@ def seeded_instance(device, label, seed, dim=None, batch=None):
     form = spec["form"]
     target = conf_target(spec["target"], device, **spec.get("target_kwargs", {}))
     d = dim or target.dim
-    base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH,
-                      dim_out=1 if form == "potential" else None)
+    dense = DENSE_ARCH if spec.get("net") == "dense" else None
+    if dense is not None:  # conf/model/base/densenet.yaml
+        base = DenseNet(dim=d, arch=dense, activation="relu")
+    else:
+        base = FourierMLP(dim=d, num_layers=HIDDEN + 2, channels=WIDTH,
+                          dim_out=1 if form == "potential" else None)
     score_net = lambda bias: TimeEmbed(dim_out=d if spec.get("score_dim") else 1, num_layers=4,
                                        channels=WIDTH, last_bias_init={"constant": bias})
     clips = {"clip_model": 10.0, "clip_score": 10.0}
@@ -745,7 +843,8 @@ def seeded_instance(device, label, seed, dim=None, batch=None):
     work = rollout_work(batch, T, d, WIDTH, HIDDEN,
                         per_coord=FORM_FLOPS[form] + TARGET_FLOPS[kind], K=K,
                         potential=form == "potential", table=table if kind == "img" else 0,
-                        given=kind == "given", score_dim=bool(spec.get("score_dim")))
+                        given=kind == "given", score_dim=bool(spec.get("score_dim")),
+                        dense=dense)
     return run, plain, prepare, x0, ts, noise, work
 
 
@@ -890,11 +989,25 @@ def phase_kernels(device, report):
     for i, label in enumerate(ROLLOUT_INSTANCES):
         run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(
             device, label, INSTANCES[label].get("seed", SEED + 10 + i))
-        key = INSTANCES[label].get("key")
+        # (a DenseNet instance's label is its launch counter)
+        key = INSTANCES[label].get("key", label if INSTANCES[label].get("net") else None)
         before = build.FORM_LAUNCHES[key] if key else 0
-        check_rollout(label, run, plain, x0i, tsi, noisei, label, report)
+        check_rollout(label, run, plain, x0i, tsi, noisei, label, report,
+                      width=DENSE_ARCH if INSTANCES[label].get("net") else WIDTH)
         if key and build.FORM_LAUNCHES[key] <= before:
             fail(f"{label} was not counted as {key}")
+        if INSTANCES[label].get("dense_bodies"):
+            # the DenseNet body's weights resident and streamed: the same bits
+            prepared = prepare(x0i, tsi, noisei)
+            resident = ro._launch(prepared, "dense")
+            streamed = ro._launch(prepared, "dense_streamed")
+            k = report[label]
+            k["resident_vs_streamed"] = max(float((a - b).abs().max())
+                                            for a, b in zip(resident, streamed))
+            print(f"kernel {label}: resident vs streamed weights at its path's shapes: max |diff| "
+                  f"{k['resident_vs_streamed']:.3e}", flush=True)
+            if k["resident_vs_streamed"] != 0.0:
+                fail(f"{label}: the resident and streamed DenseNet bodies give different bits")
         if INSTANCES[label].get("wide_bits"):
             # the generic body where the wide one is taken by shape: against
             # the plain twin, and the wide body's bits
@@ -1188,6 +1301,14 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
         # unless d > 16
         fail(f"the {path} path took the rollout kernels' generic body {generic}, "
              f"expected: {spec.get('generic', False)}")
+    dense = next((key for key in spec["kernels"] if key.endswith(".dense")), None)
+    if dense is not None:
+        # a DenseNet's launches: its weights streamed where the path says so
+        # (d = 50), else resident in shared memory
+        streamed = ".".join(dense.split(".")[:2]) + ".dense.streamed"
+        want = build.FORM_LAUNCHES[dense] if spec.get("streamed") else 0
+        if build.FORM_LAUNCHES[streamed] != want:
+            fail(f"{path}: {build.FORM_LAUNCHES[streamed]} launches of {streamed}, expected {want}")
     add_launches(report, path, launches)
     subtraj = None
     if spec.get("subtraj"):
@@ -1987,11 +2108,19 @@ def phase_timing(solvers, device, report, instances=None):
         plain_steps = (("dis", "step", "DIS"), ("dds", "dds_step", "DDS"),
                        ("gmm_dis", "gmm_step", "GMM DIS"), ("rings_dis", "rings_step", "Rings DIS"),
                        ("rosenbrock_dis", "rosenbrock_step", "Rosenbrock DIS"),
-                       ("img_dis", "img_step", "Image DIS"))
+                       ("img_dis", "img_step", "Image DIS"),
+                       ("gmm_dis_densenet", "gmm_densenet_step", "GMM DIS DenseNet"),
+                       ("mw_50d_dis_densenet", "mw50_densenet_step", "mw_50d DIS DenseNet"),
+                       ("funnel_dds_densenet", "dds_densenet_step", "DDS DenseNet"))
         for path, key, label in plain_steps:
             if path in solvers:
                 solver = solvers[path]
                 report[key] = time_steps(solver, solver.train_ts.shape[0] - 1, label)
+        # the DenseNet step on kernel 1, above, beside the same step with
+        # phase 1 forced through the scan route (its route before the body)
+        if "gmm_dis_densenet" in solvers:
+            report["gmm_densenet_scan_step"] = scan_route_step(
+                solvers["gmm_dis_densenet"], "GMM DIS DenseNet")
         for path in SCAN_PATHS:
             if path in solvers:
                 solver = solvers[path]
@@ -2124,6 +2253,11 @@ def phase_timing(solvers, device, report, instances=None):
             k["generic_body_ms"] = cuda_ms(lambda: ro._launch(prepared, "generic"), reps=5)
             print(f"time {label}: its generic body alone at the same shapes "
                   f"{k['generic_body_ms']:.3f} ms", flush=True)
+        if INSTANCES[label].get("dense_bodies"):
+            k["streamed_ms"] = cuda_ms(lambda: ro._launch(prepared, "dense_streamed"), reps=5)
+            print(f"time {label}: its weights streamed, alone at the same shapes "
+                  f"{k['streamed_ms']:.3f} ms (plan {ro.rollout_plan(prepared, 'dense_streamed')})",
+                  flush=True)
     # the PotentialCtrl's fast body at d = 16, the widest it takes, and its
     # generic body at the same shapes
     label = "rollout.potential.none"
@@ -2253,13 +2387,20 @@ def phase_timing(solvers, device, report, instances=None):
     report["paper_scale_dis_launches_computed"] = per_run
 
     # the main path's step with phase 1 through the loss's own scan route in
-    # place of kernel 1: the route choice is replaced for these steps only
+    # place of kernel 1
+    report["dis_scan_step"] = scan_route_step(solver, "DIS")
+
+
+def scan_route_step(solver, label: str) -> dict:
+    """The solver's step with phase 1 through the loss's own scan route in
+    place of its kernel: the route choice is replaced for these steps only."""
+    from sde_sampler_torch.ops import rollout as ro
+
     choose = ro.phase1_route
     ro.phase1_route = lambda *args, **kwargs: ("scan", "timed beside kernel 1")
     try:
-        report["dis_scan_step"] = time_steps(solver, STEPS, "DIS (phase 1 through the scan "
-                                             "route)", windows=3, per_window=2, profiled=1,
-                                             warmup=1)
+        return time_steps(solver, STEPS, f"{label} (phase 1 through the scan route)", windows=3,
+                          per_window=2, profiled=1, warmup=1)
     finally:
         ro.phase1_route = choose
 
@@ -2414,7 +2555,8 @@ def main():
             "launches_by_path": k.get("launches_by_path"),
             "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
             "kernel_ms": k.get("kernel_ms"), "kernel_device_ms": k.get("kernel_device_ms"),
-            "generic_body_ms": k.get("generic_body_ms"), "plan": k.get("plan"),
+            "generic_body_ms": k.get("generic_body_ms"), "streamed_ms": k.get("streamed_ms"),
+            "plan": k.get("plan"),
             "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"), "library_ms": None,
             "yardstick_ms": k.get("yardstick_ms"),

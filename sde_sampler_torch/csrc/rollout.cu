@@ -2,7 +2,8 @@
 // EM rollout, in its LerpCtrl, ScoreCtrl, ClippedCtrl, LerpTargetCtrl,
 // PotentialCtrl and CancelDriftCtrl forms, and kernel 2, the exponential
 // integrator of a ScoreCtrl; the LerpCtrl and ScoreCtrl forms of both also
-// with a per-coordinate score net.
+// with a per-coordinate score net; each over a GELU FourierMLP or, in every
+// form but the PotentialCtrl's, a ReLU DenseNet.
 #include "rollout.cuh"
 
 using namespace sde_rollout;
@@ -32,7 +33,11 @@ static int table_floats(int target, int K, int D) {
 // for a per-coordinate score net (the lerp and score forms only), whose
 // table `tab` then has kTab + D columns a step. `body` as for `launch`;
 // `rows`, rows a block of the generic or wide body (0: the plan's). `dry`:
-// plan only, launch nothing. Out: `used`, the body, and the plan.
+// plan only, launch nothing. Out: `used`, the body, and the plan. `net`:
+// kFourierNet, or kDenseNet, whose t table (T, sum of the widths + D) goes
+// as `temb`, its packed weights (dense_offset) as `w_in`, its hidden layers
+// as H and their widths in `widths` (C, w_hid, b_hid, w_out and b_out
+// unused).
 struct RolloutLaunch {
   const float *x0, *dbs, *tab, *temb, *w_in, *w_hid, *b_hid, *w_out, *b_out, *gmm;
   float *xs, *x_T;
@@ -41,12 +46,19 @@ struct RolloutLaunch {
   int update, form, target, body, rows, dry;
   float clip_model, clip_score, prior_loc, prior_var, t0, t1, t2, t3;
   int used, plan_rows, plan_blocks, plan_smem, plan_slice;
+  int net;
+  int widths[kDenseMaxLayers];
 };
 
 extern "C" int rollout_launch(RolloutLaunch* p) {
   const int D = p->D, form = p->form, target = p->target;
   if (p->score_cols != 1 && (p->score_cols != D || D < 2)) return (int)cudaErrorInvalidValue;
   if (p->update != 0 && p->update != 1) return (int)cudaErrorInvalidValue;
+  if (p->net != kFourierNet && (p->net != kDenseNet || form == kPotentialEm))
+    return (int)cudaErrorInvalidValue;
+  DenseDims dense{};
+  dense.H = p->H;
+  for (int l = 0; l < kDenseMaxLayers; ++l) dense.w[l] = p->widths[l];
   const bool per_coord = p->score_cols != 1;
   const bool exp = p->update == 1;
   Plan plan{0, 0, 0, 0};
@@ -55,7 +67,7 @@ extern "C" int rollout_launch(RolloutLaunch* p) {
                {p->clip_model, p->clip_score, exp ? 0.0f : p->prior_loc,
                 exp ? 1.0f : p->prior_var, p->t0, p->t1, p->t2, p->t3,
                 target == kGmm ? p->K : 0, table_floats(target, p->K, D), p->tab_w, p->tab_h},
-               (cudaStream_t)p->stream, p->rows, p->dry != 0, &plan};
+               (cudaStream_t)p->stream, p->rows, p->dry != 0, &plan, p->net, dense};
   int used = 0, code = (int)cudaErrorInvalidValue;
   if (exp) {
     code = per_coord ? launch_exp_dim(a, p->body, &used) : launch_exp(a, p->body, &used);

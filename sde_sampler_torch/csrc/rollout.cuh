@@ -114,8 +114,9 @@
 // launch also reads its score: at d = 1600 its bytes (state, noise, score
 // in, state out) bound it.
 //
-// Three bodies, chosen here by shape (or on request) and reported to the
-// wrapper, which counts the generic and the wide one apart:
+// Three bodies of a FourierMLP, chosen here by shape (or on request) and
+// reported to the wrapper, which counts the generic and the wide one apart
+// (a DenseNet takes a body of its own, rollout_dense_kernel, below):
 //
 // - rollout_fast_kernel, for width C = 64, H = 2 hidden layers (every model
 //   config of the repo) and d = 1..16, all compile-time. One block of 128
@@ -201,6 +202,8 @@ constexpr int kByShape = 0;
 constexpr int kFastBody = 1;
 constexpr int kGenericBody = 2;
 constexpr int kWideBody = 3;
+constexpr int kDenseBody = 4;          // a DenseNet's, its weights in shared memory
+constexpr int kDenseStreamedBody = 5;  // a DenseNet's, its weights streamed
 
 // Control form and update of one instance.
 constexpr int kLerpEm = 0;     // kernel 1, LerpCtrl (DIS)
@@ -1105,6 +1108,367 @@ __global__ void __launch_bounds__(kTileThreads) rollout_wide_kernel(
   }
 }
 
+// ---------------------------------------------------------------- DenseNet body
+//
+// rollout_dense_kernel<form, target, kPerCoord>: every form but the
+// potential one over a ReLU DenseNet (conf/model/base/densenet.yaml, the
+// JAX package's models/mlp.py::DenseNet), which the TPU kernel runs through
+// the same step functions (`sde_step_fn`, `exp_integrator_step_fn`): with
+// h_0 = [t, x], h_{l+1} = [h_l, relu(h_l W_l + b_l)] for each hidden layer
+// and the output h_H W_out + b_out, followed by the form's update
+// (step_update) as in every other body. The t column is the same for every
+// row of a step, so each layer's t W_l[0, :] + b_l comes in a per-step t
+// table (T, sum of the widths + D), computed before the launch
+// (ops/rollout.py::dense_time_table), and the layers' weights without their
+// t row come packed (dense_offset), each (K_l, pad4(N_l)) in (in, out)
+// layout: layer l reads K_l = D + sum_{m<l} widths[m] inputs and writes N_l
+// outputs (widths[l], D for the out layer). A block of 512 threads keeps its
+// rows' activations h (the state, then each layer's outputs; row stride
+// pad4(D + sum of the widths)) in shared memory. Every layer is one product
+// in chunks of kDenseCols columns, a thread owning a 4 x 2 register tile of
+// a chunk (operands read as float4s and float2s: the rows' four activations
+// a broadcast, four weight rows' two columns; the weights, read by every
+// row tile, set the shared-memory traffic, so the tile is four rows deep). Where a chunk has fewer tiles
+// than threads (the out layer at small d: 8 tiles at d = 2), ks lanes of a
+// warp share a tile (split_k), each summing the groups of four inputs whose
+// index is its part modulo ks, and a butterfly of shuffles adds their sums,
+// so that the narrow layers do not run as a few threads' long chains; the
+// lanes then update one output each (a given score loaded before the
+// sums). The next step's rows of the t table and of the noise arrive by
+// cp.async while a step computes. A sum starts at the t table's entry (in
+// part 0) and runs over its groups in order.
+// Two modes, chosen by the plan (launch_dense):
+//
+// - resident (S = 0): every packed weight is staged once by cp.async and
+//   read from shared memory in every step: densenet.yaml's [200, 200] at
+//   d = 2 (42,408 floats, 170 KB) and d = 10 (48,920, 196 KB);
+// - streamed (S > 0): each chunk's weights stream from device memory
+//   (L2-resident) through a double-buffered cp.async ring of S-row slices,
+//   each slice serving all the block's rows, slice s + 1 landing while s
+//   computes: any d whose activations fit (d = 50: 83,400 floats, 334 KB
+//   of weights; NICE's d = 196). Every block reads all the weights every
+//   step: 128 blocks at d = 50 pull 43 MB a step from L2.
+//
+// Both give the same bits (each part's groups in the same order, the same
+// butterfly). Bound on an H100: operations, 2 sum_l K_l N_l flops a row and
+// step (about 1.0 MFLOP at d = 50 for [200, 200]).
+constexpr int kFourierNet = 0;
+constexpr int kDenseNet = 1;
+constexpr int kDenseMaxLayers = 8;   // hidden layers at most (ops/build.py DENSE_MAX_LAYERS)
+constexpr int kDenseMaxWidth = 1024;  // a hidden layer's width at most
+constexpr int kDenseThreads = 512;
+constexpr int kDenseTM = 4;           // a thread's tile: rows, columns
+constexpr int kDenseTN = 2;
+constexpr int kDenseCols = 256;       // a chunk's columns
+constexpr int kDenseStages = 2;       // the streamed ring: a slice computes, the next lands
+constexpr int kDenseMinSlice = 8;     // the streamed ring's shortest slice
+constexpr int kDenseOuts = kDenseTM * kDenseTN;
+static_assert(kMaxRows / kDenseTM * (kDenseCols / kDenseTN) <= kDenseThreads,
+              "a chunk's tiles at kMaxRows rows fit the threads, one a thread");
+static_assert(kDenseMinSlice % 4 == 0, "a slice holds whole groups of four inputs");
+
+// A DenseNet's hidden layers and their widths (a kernel argument).
+struct DenseDims {
+  int H;
+  int w[kDenseMaxLayers];
+};
+
+// Layer l's inputs (K) and outputs (N); l = H is the out layer.
+__host__ __device__ inline int dense_in(const DenseDims& n, int D, int l) {
+  int K = D;
+  for (int m = 0; m < l; ++m) K += n.w[m];
+  return K;
+}
+
+__host__ __device__ inline int dense_out(const DenseDims& n, int D, int l) {
+  return l < n.H ? n.w[l] : D;
+}
+
+// Floats of the packed weights before layer l (l = H + 1: all of them).
+__host__ __device__ inline long long dense_offset(const DenseDims& n, int D, int l) {
+  long long o = 0;
+  for (int m = 0; m < l; ++m) o += (long long)dense_in(n, D, m) * pad4(dense_out(n, D, m));
+  return o;
+}
+
+// Float offsets of the DenseNet body's shared memory at R rows a block (RP
+// = pad4(R) rows of tiles) and slices of S weight rows (S = 0: resident):
+// the packed weights (resident only), the activations h (RP, ldh), the
+// state tile (RP, D), two steps' rows of the t table (stride tp) and of the
+// noise (stride dp), the row reductions, the target's table and the ring of
+// kDenseStages stages of S x kDenseCols floats (streamed only). `total` is
+// the size in floats, -1 for shapes past any block.
+struct DenseLayout {
+  int w, h, x, t, db, row, gmm, ring, stage, ldh, tp, dp;
+  long long total;
+};
+
+__host__ __device__ inline DenseLayout dense_layout(int D, const DenseDims& n, int R, int RS,
+                                                    int n_tab, int S) {
+  DenseLayout l{};
+  const long long packed = dense_offset(n, D, n.H + 1);
+  const long long width = dense_in(n, D, n.H);
+  if (D < 1 || D > (1 << 20) || packed > (1LL << 26) || width > (1 << 20)) {
+    l.total = -1;
+    return l;
+  }
+  const int RP = pad4(R);
+  l.ldh = pad4((int)width);
+  long long o = 0;
+  l.w = 0;
+  if (S == 0) o += packed;
+  l.h = (int)o, o += (long long)RP * l.ldh;
+  l.x = (int)o, o += pad4(RP * D);
+  l.tp = pad4((int)width);
+  l.t = (int)o, o += 2LL * l.tp;
+  l.dp = pad4(RP * D);
+  l.db = (int)o, o += 2LL * l.dp;
+  l.row = (int)o, o += pad4(RP * RS);
+  l.gmm = (int)o, o += pad4(n_tab);
+  l.stage = S * kDenseCols;
+  l.ring = (int)o, o += (long long)kDenseStages * l.stage;
+  l.total = o;
+  return l;
+}
+
+// A slice of the streamed ring: layer l, column chunk c, weight rows s.
+struct DenseItem {
+  int l, c, s;
+};
+
+// The slice after `it` in a step's order (layers, their chunks, their
+// slices), wrapping to the next step's first.
+__device__ __forceinline__ void dense_next(DenseItem& it, const DenseDims& n, int D, int S) {
+  if (++it.s * S < dense_in(n, D, it.l)) return;
+  it.s = 0;
+  if (++it.c * kDenseCols < dense_out(n, D, it.l)) return;
+  it.c = 0;
+  if (++it.l > n.H) it.l = 0;
+}
+
+// NaN-preserving ReLU, as torch's.
+__device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
+
+// acc[rr][cc] += w[j][cc] in[rr][j] (fmaf) over the groups of four inputs
+// j = 4g..4g+3 in [j0, j1) with g = part modulo ks, in order, the last
+// group partial where j1 is not a multiple of 4 (the layer's end); `in`
+// holds the TM rows (stride ldi, a multiple of 4, 16-byte aligned) indexed
+// by j, `w` the weight rows from j0 on (stride ldw, a multiple of 4; TN = 2
+// or 4 columns, aligned to 4 TN bytes). j0 is a multiple of 4.
+template <int TM, int TN>
+__device__ __forceinline__ void dense_fma(float (&acc)[TM][TN], const float* in, int ldi,
+                                          const float* w, int ldw, int j0, int j1, int part,
+                                          int ks) {
+  int g = j0 / 4;
+  g += (part - g % ks + ks) % ks;
+#pragma unroll 2
+  for (; 4 * g + 4 <= j1; g += ks) {
+    const int j = 4 * g;
+    float4 a[TM];
+    float b[4][TN];
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) a[rr] = ld4(in + rr * ldi + j);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ld_cols<TN>(b[kk], w + (j - j0 + kk) * ldw);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int rr = 0; rr < TM; ++rr) {
+        const float v = (&a[rr].x)[kk];
+#pragma unroll
+        for (int cc = 0; cc < TN; ++cc) acc[rr][cc] = fmaf(b[kk][cc], v, acc[rr][cc]);
+      }
+    }
+  }
+  for (int j = 4 * g; j < j1; ++j) {  // the partial last group
+    float b[TN];
+    ld_cols<TN>(b, w + (j - j0) * ldw);
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) {
+      const float v = in[rr * ldi + j];
+#pragma unroll
+      for (int cc = 0; cc < TN; ++cc) acc[rr][cc] = fmaf(b[cc], v, acc[rr][cc]);
+    }
+  }
+}
+
+template <int kForm, int kTarget, bool kPerCoord>
+__global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
+    const float* __restrict__ x0, const float* __restrict__ dbs,
+    const float* __restrict__ tab, const float* __restrict__ ttab,
+    const float* __restrict__ wpk, const float* __restrict__ gmm,
+    float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int T, int R, int S,
+    DenseDims net, Consts cs) {
+  constexpr int TM = kDenseTM, TN = kDenseTN, NT = kDenseThreads, NO = kDenseOuts;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int RS = row_floats(kTarget, cs.K, D);
+  const DenseLayout L = dense_layout(D, net, R, RS, cs.n_tab, S);
+  const int RP = pad4(R), LDH = L.ldh, H = net.H;
+  const bool resident = S == 0;
+  float* s_w = sm + L.w;        // the packed weights (resident)
+  float* s_h = sm + L.h;        // (RP, LDH) the activations: the state, then each layer's
+  float* s_x = sm + L.x;        // (RP, D) the state tile
+  float* s_t = sm + L.t;        // 2 x (tw) the t table's rows of two steps
+  float* s_db = sm + L.db;      // 2 x (RP, D) the noise of two steps
+  float* s_row = sm + L.row;    // (RP, RS) the target's row reductions
+  float* s_gmm = sm + L.gmm;    // (n_tab) the target's table
+  float* s_ring = sm + L.ring;  // kDenseStages slices (streamed)
+  const int tw = dense_in(net, D, H);  // the t table's columns: the widths, then D
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, B - row0);
+  const int nx = nrows * D;
+  const size_t step_stride = (size_t)B * D;
+  const size_t tile_off = (size_t)row0 * D;
+  // the image's energy table stays in device memory, as does a given score
+  const float* table = kTarget == kImg ? gmm : s_gmm;
+  const bool write_xs = xs != x0;
+
+  // slice `it` of the streamed ring into stage `stage`: rows j0.. of the
+  // chunk's columns (pad4 of them: the packed rows hold their padding)
+  auto load = [&](const DenseItem& it, int stage) {
+    const int K = dense_in(net, D, it.l), N = dense_out(net, D, it.l), NP = pad4(N);
+    const int j0 = it.s * S, kk = min(S, K - j0);
+    const int c0 = it.c * kDenseCols, ncp = pad4(min(kDenseCols, N - c0));
+    copy_rows_async(s_ring + stage * L.stage, ncp,
+                    wpk + dense_offset(net, D, it.l) + (size_t)j0 * NP + c0, (size_t)NP, kk, ncp);
+  };
+
+  // step k's rows of the t table and of the noise into buffer k & 1
+  auto prefetch = [&](int k) {
+    copy_async(s_t + (k & 1) * L.tp, ttab + (size_t)k * tw, tw);
+    copy_async(s_db + (k & 1) * L.dp, dbs + (size_t)k * step_stride + tile_off, nx);
+  };
+  if (resident) copy_async(s_w, wpk, (int)dense_offset(net, D, H + 1));
+  if constexpr (kTarget != kImg && kTarget != kGiven) copy_async(s_gmm, gmm, cs.n_tab);
+  copy_async(s_x, x0 + tile_off, nx);
+  prefetch(0);
+  for (int i = nx + tid; i < RP * D; i += NT) s_x[i] = 0.0f;  // rows past B
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  DenseItem next{0, 0, 0};
+  int stage = 0;
+  if (!resident) {
+    load(next, 0);
+    cp_async_commit();
+    dense_next(next, net, D, S);
+  }
+
+  for (int k = 0; k < T; ++k) {
+    // the state before the step, its copy at the head of h, and the
+    // target's row reductions
+    float* xs_k = xs + (size_t)k * step_stride + tile_off;
+    for (int i = tid; i < RP * D; i += NT) {
+      const int r = i / D, j = i - r * D;
+      s_h[r * LDH + j] = s_x[i];
+      if (write_xs && i < nx) xs_k[i] = s_x[i];
+    }
+    // the next step's rows land while this one computes
+    if (k + 1 < T) prefetch(k + 1);
+    cp_async_commit();
+    row_phase<kTarget>(s_x, s_row, table, RP, D, tid, NT, cs);
+    cp_async_wait<1>();  // this step's rows have landed
+    __syncthreads();
+    // the mixture's exponentials, read after the next barrier
+    exp_phase<kTarget>(s_row, RP, tid, NT, cs);
+
+    const float* tk = s_t + (k & 1) * L.tp;
+    const float* st = tab + (size_t)k * tab_cols<kPerCoord>(D);
+    const float* db_k = s_db + (k & 1) * L.dp;
+    int tcol = 0;  // the layer's columns of the t table
+    for (int l = 0; l <= H; ++l) {
+      const int K = dense_in(net, D, l), N = dense_out(net, D, l), NP = pad4(N);
+      const float* wl = s_w + dense_offset(net, D, l);
+      for (int c0 = 0; c0 < N; c0 += kDenseCols) {
+        const int nc = min(kDenseCols, N - c0);
+        const int nq = (nc + TN - 1) / TN, tiles = RP / TM * nq;
+        // ks lanes a tile (a power of two, at most a warp), part = lane's share
+        int ks = 1;
+        while (ks < 32 && tiles * ks * 2 <= NT) ks *= 2;
+        const int t = tid / ks, part = tid % ks;
+        const bool active = t < tiles;
+        const int rt = active ? t / nq : 0, q0 = active ? TN * (t - rt * nq) : 0;
+        float acc[TM][TN];
+#pragma unroll
+        for (int cc = 0; cc < TN; ++cc) {
+          const float b = part == 0 ? tk[tcol + c0 + min(q0 + cc, nc - 1)] : 0.0f;
+#pragma unroll
+          for (int rr = 0; rr < TM; ++rr) acc[rr][cc] = b;
+        }
+        // the out layer's given score of the outputs this lane updates,
+        // loaded before its sums
+        float scv[NO];
+#pragma unroll
+        for (int e = 0; e < NO; ++e) {
+          const int r = rt * TM + e / TN, o = c0 + q0 + e % TN;
+          const bool mine = l == H && active && e % ks == part && r < nrows && q0 + e % TN < nc;
+          scv[e] = mine && kTarget == kGiven ? __ldg(gmm + tile_off + (size_t)r * D + o) : 0.0f;
+        }
+        if (resident) {
+          // the layer before has written its columns (layer 0 reads the
+          // state, written before the step's first barrier; the out layer
+          // also the mixture's exponentials)
+          if (c0 == 0 && (l > 0 || l == H)) __syncthreads();
+          if (active)
+            dense_fma<TM, TN>(acc, s_h + rt * TM * LDH, LDH, wl + c0 + q0, NP, 0, K, part, ks);
+        } else {
+          const int ncp = pad4(nc);
+          for (int j0 = 0; j0 < K; j0 += S) {
+            cp_async_wait<0>();  // this slice has landed
+            __syncthreads();     // ... for every thread; the stage before is done
+            load(next, stage ^ 1);
+            cp_async_commit();
+            dense_next(next, net, D, S);
+            if (active)
+              dense_fma<TM, TN>(acc, s_h + rt * TM * LDH, LDH, s_ring + stage * L.stage + q0,
+                                ncp, j0, min(K, j0 + S), part, ks);
+            stage ^= 1;
+          }
+        }
+        // the parts' sums, added by a butterfly over the ks lanes of a tile
+        for (int m = 1; m < ks; m *= 2) {
+#pragma unroll
+          for (int rr = 0; rr < TM; ++rr) {
+#pragma unroll
+            for (int cc = 0; cc < TN; ++cc)
+              acc[rr][cc] += __shfl_xor_sync(0xffffffffu, acc[rr][cc], m);
+          }
+        }
+        if (!active) continue;
+        // a hidden layer's ReLU into its columns of h; the out layer's
+        // update of the coordinates it outputs; the lane of part p takes
+        // the tile's outputs e = p, p + ks, ...
+#pragma unroll
+        for (int e = 0; e < NO; ++e) {
+          const int rr = e / TN, cc = e % TN;
+          const int r = rt * TM + rr, o = c0 + q0 + cc;
+          if (e % ks != part || q0 + cc >= nc) continue;
+          if (l < H) {
+            s_h[r * LDH + K + o] = relu(acc[rr][cc]);
+            continue;
+          }
+          if (r >= nrows) continue;
+          const int idx = r * D + o;
+          float target;
+          if constexpr (kTarget == kGiven)
+            target = scv[e];
+          else
+            target = target_score<kTarget>(s_x[idx], o, D, s_row + r * RS, table, cs);
+          s_x[idx] = step_update<kForm>(s_x[idx], acc[rr][cc], target, st,
+                                        step_sscore<kPerCoord>(st, o), db_k[idx], cs);
+        }
+      }
+      tcol += N;
+    }
+    __syncthreads();  // the step's state is whole before the next reads it
+  }
+  cp_async_wait<0>();  // the ring's last (unused) slice
+  for (int i = tid; i < nx; i += NT) x_T[tile_off + i] = s_x[i];
+}
+
 // ---------------------------------------------------------------- fast
 
 // Floats of shared memory the fast body needs at a given D and T, with RS
@@ -1291,6 +1655,8 @@ struct Args {
   int rows;     // rows a block of the tiled bodies asked for (0: the plan's)
   bool dry;     // plan only: launch nothing
   Plan* plan;   // receives the plan (may be null)
+  int net;      // kFourierNet, or kDenseNet: `temb` its t table, `w_in` its packed weights
+  DenseDims dense;  // a DenseNet's hidden layers (H) and widths
 };
 
 // The multiprocessors of the current device.
@@ -1482,6 +1848,58 @@ cudaError_t launch_wide(const Args& a) {
                       });
 }
 
+// The DenseNet body's shared memory (bytes) at R rows a block and slices of
+// S rows (0: resident), -1 past any block.
+inline long long dense_smem(const Args& a, int R, int S) {
+  const DenseLayout l = dense_layout(a.D, a.dense, R, row_floats(a.target, a.cs.K, a.D),
+                                     a.cs.n_tab, S);
+  return l.total < 0 ? -1 : (long long)sizeof(float) * l.total;
+}
+
+// The streamed body's slice: the most rows a block that fit with the
+// shortest slice, then the longest of 64, 32, 16 and 8 rows that fits there
+// (0 if none).
+inline int dense_slice(const Args& a) {
+  const int rows = max_rows(a, [](const Args& b, int R) { return dense_smem(b, R, kDenseMinSlice); });
+  if (rows == 0) return 0;
+  for (int S = 64; S >= kDenseMinSlice; S /= 2)
+    if (smem_fits(dense_smem(a, rows, S))) return S;
+  return 0;
+}
+
+// A DenseNet (a.net == kDenseNet) in the DenseNet body: kDenseBody asks for
+// its weights resident in shared memory, kDenseStreamedBody for the
+// streamed ring; by shape, resident where its layout fits at the rows the
+// plan gives one block a multiprocessor, else streamed. *used receives the
+// mode launched (or planned).
+template <int kForm, int kTarget, bool kPerCoord>
+int launch_dense(const Args& a, int body, int* used) {
+  const DenseDims& n = a.dense;
+  if (n.H < 0 || n.H > kDenseMaxLayers) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n.H; ++l)
+    if (n.w[l] < 1 || n.w[l] > kDenseMaxWidth) return (int)cudaErrorInvalidValue;
+  if (body != kByShape && body != kDenseBody && body != kDenseStreamedBody)
+    return (int)cudaErrorInvalidValue;
+  auto resident_smem = [](const Args& b, int R) { return dense_smem(b, R, 0); };
+  const bool resident_ok = max_rows(a, resident_smem) > 0;
+  const int S = dense_slice(a);
+  bool resident = body == kDenseBody;
+  if (body == kByShape)
+    resident = smem_fits(resident_smem(a, plan_rows(a.B, 1, kMaxRows)));
+  if ((resident && !resident_ok) || (!resident && S == 0)) return (int)cudaErrorInvalidValue;
+  *used = resident ? kDenseBody : kDenseStreamedBody;
+  const int slice = resident ? 0 : S;
+  auto kernel = rollout_dense_kernel<kForm, kTarget, kPerCoord>;
+  static TileCache cache = tile_cache(kernel);
+  return launch_tiled(a, kernel, cache,
+                      [slice](const Args& b, int R) { return dense_smem(b, R, slice); }, slice,
+                      kDenseThreads, kMaxRows, [&](int blocks, int rows, size_t smem) {
+                        kernel<<<blocks, kDenseThreads, smem, a.stream>>>(
+                            a.x0, a.dbs, a.tab, a.temb, a.w_in, a.gmm, a.xs, a.x_T, a.B, a.D,
+                            a.T, rows, slice, a.dense, a.cs);
+                      });
+}
+
 // The fast body takes C = 64, H = 2, D = 1..16 and tables that fit shared
 // memory; never a given score.
 inline bool fast_fits(const Args& a) {
@@ -1499,11 +1917,14 @@ inline bool fast_fits(const Args& a) {
 // > 0 instantiates the fast body at that D alone (a target of one
 // dimension) and no wide body; kOnlyD < 0 instantiates no fast body (a
 // given score) and the wide one. kPerCoord: the instances of a
-// per-coordinate sscore (a.per_coord).
+// per-coordinate sscore (a.per_coord). A DenseNet (a.net == kDenseNet)
+// takes the DenseNet body (launch_dense) whatever kOnlyD.
 template <int kForm, int kTarget, int kOnlyD = 0, bool kPerCoord = false>
 int launch(const Args& a, int body, int* used) {
   if (a.B <= 0 || a.T <= 0 || used == nullptr || a.per_coord != kPerCoord)
     return (int)cudaErrorInvalidValue;
+  if (a.net == kDenseNet) return launch_dense<kForm, kTarget, kPerCoord>(a, body, used);
+  if (a.net != kFourierNet) return (int)cudaErrorInvalidValue;
   if (body != kByShape && body != kFastBody && body != kGenericBody && body != kWideBody)
     return (int)cudaErrorInvalidValue;
   const bool fits = kOnlyD >= 0 && fast_fits(a);

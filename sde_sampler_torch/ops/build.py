@@ -46,8 +46,12 @@ NVCC_FLAGS = ARCH_FLAGS + [
 # score where the generic body would hold fewer than two blocks an SM:
 # d = 196 and up) under "<kernel>.<form>.<target>.wide",
 # and those of a per-coordinate score net under "<kernel>.<form>.dim", so a
-# run shows which instance it took. The Sinkhorn kernels count the launches
-# of their wide body (d > 16) once more under "<kernel>.wide".
+# run shows which instance it took. A DenseNet's launches (the DenseNet
+# body) count under "<kernel>.<form>.<target>.dense" in place of
+# "<kernel>.<form>.<target>", and those whose weights stream through its
+# ring once more under "<kernel>.<form>.dense.streamed". The Sinkhorn
+# kernels count the launches of their wide body (d > 16) once more under
+# "<kernel>.wide".
 LAUNCHES: dict[str, int] = {
     "rollout": 0, "rollout_exp": 0, "softmin": 0, "transport": 0,
 }
@@ -61,6 +65,8 @@ ROLLOUT_INSTANCES = {
 }
 # the forms whose instances take a per-coordinate score net
 SCORE_DIM_INSTANCES = {"rollout": ("lerp", "score"), "rollout_exp": ("score",)}
+# the forms without a DenseNet body
+NO_DENSE_FORMS = ("potential",)
 FORM_LAUNCHES: dict[str, int] = {
     key: 0
     for kernel, forms in ROLLOUT_INSTANCES.items()
@@ -68,7 +74,10 @@ FORM_LAUNCHES: dict[str, int] = {
     for key in (f"{kernel}.{form}", f"{kernel}.{form}.generic",
                 *(f"{kernel}.{form}.{target}" for target in targets),
                 *((f"{kernel}.{form}.given.wide",) if "given" in targets else ()),
-                *((f"{kernel}.{form}.dim",) if form in SCORE_DIM_INSTANCES[kernel] else ()))
+                *((f"{kernel}.{form}.dim",) if form in SCORE_DIM_INSTANCES[kernel] else ()),
+                *(() if form in NO_DENSE_FORMS else (
+                    *(f"{kernel}.{form}.{target}.dense" for target in targets),
+                    f"{kernel}.{form}.dense.streamed")))
 } | {"softmin.wide": 0, "transport.wide": 0}
 
 
@@ -92,8 +101,9 @@ def count_route(route: str) -> None:
 def count_launch(name: str, form: str | None = None, target: str | None = None,
                  body: str = "fast", per_coord: bool = False) -> None:
     """One launch of kernel `name`, of its `form` and `target`, in `body`
-    ("fast", "generic" or "wide"; a Sinkhorn kernel's "staged" or "wide"),
-    with a per-coordinate score net or not."""
+    ("fast", "generic" or "wide", a DenseNet's "dense" or "dense_streamed";
+    a Sinkhorn kernel's "staged" or "wide"), with a per-coordinate score net
+    or not."""
     LAUNCHES[name] += 1
     if form is None and body == "wide":
         FORM_LAUNCHES[f"{name}.wide"] += 1
@@ -101,12 +111,22 @@ def count_launch(name: str, form: str | None = None, target: str | None = None,
         FORM_LAUNCHES[f"{name}.{form}"] += 1
         if per_coord:
             FORM_LAUNCHES[f"{name}.{form}.dim"] += 1
+        if body in ("dense", "dense_streamed"):
+            FORM_LAUNCHES[f"{name}.{form}.{target}.dense"] += 1
+            if body == "dense_streamed":
+                FORM_LAUNCHES[f"{name}.{form}.dense.streamed"] += 1
+            return
         if target is not None:
             FORM_LAUNCHES[f"{name}.{form}.{target}"] += 1
         if body == "generic":
             FORM_LAUNCHES[f"{name}.{form}.generic"] += 1
         elif body == "wide":
             FORM_LAUNCHES[f"{name}.{form}.{target}.wide"] += 1
+
+
+# the hidden layers of a DenseNet that a launch takes at most
+# (csrc/rollout.cuh kDenseMaxLayers)
+DENSE_MAX_LAYERS = 8
 
 
 class RolloutLaunch(ctypes.Structure):
@@ -116,7 +136,10 @@ class RolloutLaunch(ctypes.Structure):
     1, 1: kernel 2), form, target, body asked for, rows a block asked for (0:
     the plan's), `dry` (plan only); the clips, prior and four target
     scalars; out: the body used and the plan (rows a block, blocks, shared
-    memory bytes, the wide body's slice)."""
+    memory bytes, the wide or streamed body's slice); then the base net (0:
+    a FourierMLP, 1: a DenseNet, whose t table goes as `temb`, its packed
+    weights as `w_in` and its hidden layers as H) and a DenseNet's
+    widths."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
@@ -128,7 +151,8 @@ class RolloutLaunch(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "clip_model", "clip_score", "prior_loc", "prior_var", "t0", "t1", "t2", "t3")]
         + [(name, ctypes.c_int) for name in (
-            "used", "plan_rows", "plan_blocks", "plan_smem", "plan_slice")]
+            "used", "plan_rows", "plan_blocks", "plan_smem", "plan_slice", "net")]
+        + [("widths", ctypes.c_int * DENSE_MAX_LAYERS)]
     )
 
 

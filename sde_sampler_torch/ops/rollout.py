@@ -11,10 +11,12 @@ with its two step functions:
   β = clip(α√dt, 0, 1), a = √(1 − β²) and standard normals ε.
 
 The JAX kernel traces any step function; CUDA cannot, so these are
-specialised to control forms over a GELU `FourierMLP` with an optional
-`TimeEmbed` score net, of one output, or in the lerp and score forms of d
-outputs (`model=lerp_dim`, `score_dim`: a per-coordinate scale of the
-score term, a (T, d) table; `SCORE_DIM_FORMS`):
+specialised to control forms over a GELU `FourierMLP` or, in every form but
+the potential one, a ReLU `DenseNet` (`conf/model/base/densenet.yaml`; at
+most DENSE_MAX_LAYERS hidden layers of at most DENSE_MAX_WIDTH), with an
+optional `TimeEmbed` score net, of one output, or in the lerp and score
+forms of d outputs (`model=lerp_dim`, `score_dim`: a per-coordinate scale
+of the score term, a (T, d) table; `SCORE_DIM_FORMS`):
 
 - "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
 - "lerp_target", a `LerpTargetCtrl` (the generative control of
@@ -52,11 +54,18 @@ flow), so the wrapper computes `ctrl.target_score` of each step's state
 with torch on the tensors' device and launches the kernel for that one
 step (T = 1), which reads the score as a tensor: T launches a rollout.
 
-The wrappers raise on anything else. On the card, the kernel picks its
-body by shape (`csrc/rollout.cuh::launch`): the fast body for the width,
-depth and dimensions of every model config of the repo (64 channels, 2
-hidden layers, d <= 16, tables that fit shared memory; never a given
-score), and otherwise one of two tiled bodies: the generic body, which
+The wrappers raise on anything else. A DenseNet takes the kernels' DenseNet
+body (`csrc/rollout.cuh::rollout_dense_kernel`), its weights resident in
+shared memory where they fit at the plan's rows and streamed in K-slices
+where they do not; each of its layers' t row and bias are folded into a
+per-step table (`step_tables`), as the FourierMLP's time embedding is, and
+its launches count under "<kernel>.<form>.<target>.dense" (and the
+streamed ones once more under "<kernel>.<form>.dense.streamed"), not under
+the FourierMLP's "<kernel>.<form>.<target>". A FourierMLP, on the card,
+takes the body the kernel picks by shape (`csrc/rollout.cuh::launch`): the
+fast body for the width, depth and dimensions of every model config of the
+repo (64 channels, 2 hidden layers, d <= 16, tables that fit shared memory;
+never a given score), and otherwise one of two tiled bodies: the generic body, which
 stages every weight once and runs all T steps, for any shape whose weights
 fit shared memory, or, for a given score, the wide body, which streams the
 input and output layers through a ring of slices, where the generic body
@@ -77,7 +86,9 @@ A loss's phase 1 picks its route from the configuration before anything
 runs (`phase1_route`): the kernel instance of `kernel_instance`, or the
 scan route (`scan_rollout`, the JAX package's `lax.scan` as a plain torch
 loop over the loss's own step) for a base net without a kernel body
-(FeedForward, DenseNet, MultilevelNet, a FourierMLP of another activation),
+(FeedForward, MultilevelNet, a FourierMLP or DenseNet of another
+activation, a DenseNet past the body's depth or width, a DenseNet under
+the PotentialCtrl),
 for exploration of the sde control, or, on a CPU tensor, when
 `sim_backend=xla` asks for it. Every other refusal raises. The scan route
 is counted under "route.scan" (`build.count_route`), never as a launch.
@@ -99,7 +110,7 @@ from sde_sampler_torch.distr.img import Img, img_score
 from sde_sampler_torch.distr.rings import Rings, rings_score
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock, rosenbrock_score
 from sde_sampler_torch.eq.sdes import OU
-from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, TimeEmbed
 from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
@@ -129,9 +140,15 @@ TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3, "rings": 4, "rosen
 TARGETS = {Funnel: "funnel", GMM: "gmm", Gauss: "gmm", IsotropicGauss: "gmm",
            DoubleWell: "wells", MultiWell: "wells", Rings: "rings",
            Rosenbrock: "rosenbrock", Img: "img"}
-# the body a launch asks for (by shape, or one of the three) and reports
-BODY_CODES = {"shape": 0, "fast": 1, "generic": 2, "wide": 3}
+# the body a launch asks for (by shape, or one of the five) and reports: a
+# DenseNet's with its weights resident in shared memory or streamed
+BODY_CODES = {"shape": 0, "fast": 1, "generic": 2, "wide": 3, "dense": 4, "dense_streamed": 5}
 BODY_NAMES = {code: name for name, code in BODY_CODES.items()}
+# the base nets of the kernels' bodies (csrc/rollout.cuh kFourierNet, kDenseNet)
+NET_CODES = {"fourier": 0, "dense": 1}
+# the DenseNet body's hidden layers and their widths at most (kDenseMaxLayers,
+# kDenseMaxWidth); the launch structure holds DENSE_MAX_LAYERS widths
+DENSE_MAX_LAYERS, DENSE_MAX_WIDTH = build.DENSE_MAX_LAYERS, 1024
 
 
 def _owner(method, classes):
@@ -146,10 +163,36 @@ def _owner(method, classes):
 
 class NoInstance(NamedTuple):
     """Why no kernel instance runs a control's step: `reason` names the
-    refusal ("base_net": a base net other than a GELU FourierMLP, the one
-    refusal that the scan route serves), `message` says it."""
+    refusal ("base_net": a base net without a kernel body, the one refusal
+    that the scan route serves), `message` says it."""
     reason: str
     message: str
+
+
+def net_kind(base, form: str | None = None):
+    """The kernel body's kind of base net: "fourier" for a GELU FourierMLP,
+    "dense" for a ReLU DenseNet of at most DENSE_MAX_LAYERS hidden layers of
+    at most DENSE_MAX_WIDTH, in every form but the potential one; else a
+    NoInstance("base_net") naming what is missing."""
+    if isinstance(base, FourierMLP) and base.activation == "gelu":
+        return "fourier"
+    if not isinstance(base, DenseNet) or base.act is not F.relu:
+        return NoInstance("base_net", (
+            "the rollout kernels need a GELU FourierMLP or a ReLU DenseNet, got a "
+            f"{type(base).__name__} of activation {getattr(base, 'activation', None)!r}"))
+    if form == "potential":
+        return NoInstance("base_net", (
+            "the potential form's kernel needs a GELU FourierMLP: it has no DenseNet body"))
+    widths = dense_widths(base)
+    if len(widths) > DENSE_MAX_LAYERS or max(widths, default=1) > DENSE_MAX_WIDTH:
+        return NoInstance("base_net", (
+            f"the DenseNet body takes at most {DENSE_MAX_LAYERS} hidden layers of at most "
+            f"{DENSE_MAX_WIDTH}, got {widths}"))
+    return "dense"
+
+
+def dense_widths(base: DenseNet) -> tuple[int, ...]:
+    return tuple(layer.out_features for layer in base.hidden_layer)
 
 
 def kernel_instance(ctrl, sde=None, update: str = "em"):
@@ -203,8 +246,9 @@ def kernel_instance(ctrl, sde=None, update: str = "em"):
         sde = ctrl.sde
     if update == "em" and (not isinstance(sde, OU) or type(sde).drift is not OU.drift):
         return NoInstance("sde", "the rollout kernel needs an OU-family SDE")
-    if not isinstance(base, FourierMLP) or base.activation != "gelu":
-        return NoInstance("base_net", "the rollout kernels need a GELU FourierMLP")
+    net = net_kind(base, form)
+    if isinstance(net, NoInstance):
+        return net
     if form == "potential" and base.out_layer.out_features != 1:
         return NoInstance("potential_net",
                           "the rollout kernel needs a potential net with one output")
@@ -288,7 +332,8 @@ def per_coord(ctrl) -> bool:
 
 @torch.no_grad()
 def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
-    """Per-step tables: the time-embedding rows (T, C) and six scalars per
+    """Per-step tables: the time-embedding rows (T, C) (a DenseNet's t
+    table, `dense_time_table`, in their place) and six scalars per
     step (T, 6) in the column order of csrc/rollout.cuh. EM: drift
     coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
     (0 for a ClippedCtrl and a PotentialCtrl) and the hard-constraint factor
@@ -305,7 +350,10 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     s = ts[:-1]
     base = ctrl.base_model
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
-    temb = base.timestep_embed(s) + base.input_embed.bias
+    if isinstance(base, DenseNet):
+        temb = dense_time_table(base, s)
+    else:
+        temb = base.timestep_embed(s) + base.input_embed.bias
     ones = torch.ones_like(s)
     hard = getattr(ctrl, "hard_constrain", False)
     ctrl_scale = ctrl.constrain(ones, s) if hard else ones
@@ -408,6 +456,58 @@ def _weights(base: FourierMLP):
     ]
 
 
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def dense_layers(d: int, widths) -> tuple[list[tuple[int, int, int]], int]:
+    """The DenseNet body's layers in its packed weights (csrc/rollout.cuh
+    dense_offset): each hidden layer, then the out layer, as (offset, K, N):
+    layer l reads K = d + sum(widths[:l]) inputs (the state and the earlier
+    layers' activations; the t column is tabulated apart) and writes N =
+    widths[l] outputs (d for the out layer), its (K, N) weight in (in, out)
+    layout with rows padded to a multiple of 4 floats; and the packed
+    floats in all."""
+    layers, offset, K = [], 0, d
+    for N in (*widths, d):
+        layers.append((offset, K, N))
+        offset += K * _pad4(N)
+        K += N
+    return layers, offset
+
+
+def _dense_modules(base: DenseNet):
+    return (*base.hidden_layer, base.out_layer)
+
+
+def dense_time_table(base: DenseNet, s: torch.Tensor) -> torch.Tensor:
+    """A DenseNet's per-step t table (T, sum(widths) + d): each layer's
+    t·W[:, 0] + b at the step starts s, the hidden layers' then the out
+    layer's, in the packed order of `dense_layers`; the body and its plain
+    twin start every sum there."""
+    modules = _dense_modules(base)
+    t_row = torch.cat([layer.weight[:, 0] for layer in modules])
+    bias = torch.cat([layer.bias for layer in modules])
+    return s[:, None] * t_row[None] + bias[None]
+
+
+def _dense_weights(base: DenseNet):
+    """A DenseNet's weights without their t column, packed as
+    `dense_layers` lays them out (zero in the padding), then four empty
+    tensors in the places of the FourierMLP's other weights."""
+    d = base.dim
+    if base.out_layer.out_features != d:
+        raise ValueError(f"the DenseNet outputs {base.out_layer.out_features} values, the state "
+                         f"has {d}")
+    layers, total = dense_layers(d, dense_widths(base))
+    dev = base.out_layer.weight.device
+    packed = torch.zeros(total, device=dev)
+    for (offset, K, N), layer in zip(layers, _dense_modules(base)):
+        packed[offset : offset + K * _pad4(N)].view(K, _pad4(N))[:, :N] = layer.weight[:, 1:].t()
+    empty = torch.zeros(0, device=dev)
+    return [packed, empty, empty, empty, empty]
+
+
 def _consts(ctrl, prior: IsotropicGauss | None, clips):
     inf = math.inf
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
@@ -487,9 +587,25 @@ def _potential_grad(x, temb_k, weights, clip_model):
     return torch.where(net.abs() <= clip_model, delta @ w_in.T, 0.0)
 
 
+def _dense_out(x, temb_k, packed, widths):
+    """A DenseNet's output from its packed weights and this step's row of
+    its t table: h = x, then h = [h, relu(t_l + h W_l)] for each hidden
+    layer, and t_out + h W_out."""
+    layers, _ = dense_layers(x.shape[1], widths)
+    h, col = x, 0
+    for l, (offset, K, N) in enumerate(layers):
+        w = packed[offset : offset + K * _pad4(N)].view(K, _pad4(N))[:, :N]
+        z = temb_k[col : col + N] + h @ w
+        col += N
+        if l == len(widths):
+            return z
+        h = torch.cat([h, F.relu(z)], dim=1)
+
+
 @torch.no_grad()
 def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
-                scalars, dims, score_fn, clip_model, clip_score, prior_loc, prior_var):
+                scalars, dims, score_fn, clip_model, clip_score, prior_loc, prior_var, net,
+                widths):
     """The kernel's arithmetic in plain PyTorch: the same step, the same tables."""
     w_in, w_hid, b_hid, w_out, b_out = weights
     T = dbs.shape[0]
@@ -504,10 +620,13 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
             u = diff * _potential_grad(x, temb[k], weights, clip_model)
             x = x + (drift * x + diff * u) * dt + diff * dbs[k]
             continue
-        h = F.gelu(x @ w_in + temb[k])
-        for l in range(w_hid.shape[0]):
-            h = F.gelu(h @ w_hid[l] + b_hid[l])
-        out = h @ w_out + b_out
+        if net == "dense":
+            out = _dense_out(x, temb[k], w_in, widths)
+        else:
+            h = F.gelu(x @ w_in + temb[k])
+            for l in range(w_hid.shape[0]):
+                h = F.gelu(h @ w_hid[l] + b_hid[l])
+            out = h @ w_out + b_out
         if form == "clipped":
             u = _clip(out, clip_model)
         else:
@@ -533,7 +652,11 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
 
 @torch.no_grad()
 def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
-    """Checked inputs, tables, weights and constants of one rollout."""
+    """Checked inputs, tables, weights and constants of one rollout: the
+    tensors x0, dbs, the step table, the time table (a DenseNet's t table),
+    the five weights (a DenseNet's packed weights and four empty tensors)
+    and the target's table; the constants with the net's kind and a
+    DenseNet's widths."""
     update = "em" if exp is None else "exp"
     step = kernel_instance(ctrl, sde, update)
     if isinstance(step, NoInstance):
@@ -552,14 +675,17 @@ def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
     x0 = x0.detach().contiguous()
     dbs = dbs.detach().contiguous()
     tab, temb = step_tables(ctrl, sde, ts.detach(), clips, exp)
-    weights = _weights(ctrl.base_model)
+    base = ctrl.base_model
+    net = net_kind(base)
+    weights = _dense_weights(base) if net == "dense" else _weights(base)
     target_tab, scalars, dims = target_table(kind, target, x0.device)
     tensors = [x0, dbs, tab, temb, *weights, target_tab]
     if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
         raise TypeError("rollout inputs must be float32 on one device")
     score_fn = ctrl.target_score if kind == "given" else None
     consts = dict(_consts(ctrl, prior, clips), kind=kind, scalars=scalars, dims=dims,
-                  score_fn=score_fn)
+                  score_fn=score_fn, net=net,
+                  widths=dense_widths(base) if net == "dense" else ())
     return tensors, consts, form, update
 
 
@@ -585,9 +711,10 @@ def rollout_exp_plain(ctrl, x0, ts, noise, alpha, sigma, clips=None):
 
 class RolloutPlan(NamedTuple):
     """What a launch of kernel 1 or 2 takes, as the kernel library plans it:
-    its body, rows a block, blocks, shared memory in bytes and the wide
-    body's slice (its input-layer rows and output-layer columns; 0 for the
-    other bodies)."""
+    its body, rows a block, blocks, shared memory in bytes and the slice of
+    the wide body (its input-layer rows and output-layer columns) or of the
+    streamed DenseNet body (the weight rows of a ring stage); 0 for the
+    other bodies."""
     body: str
     rows: int
     blocks: int
@@ -605,14 +732,19 @@ def _launch_args(prepared, body: str, rows: int) -> build.RolloutLaunch:
     # the table's count: the mixture's components, or the rings' radii
     K = target_tab.numel() // (2 * d + 1) if c["kind"] == "gmm" else (
         target_tab.numel() if c["kind"] == "rings" else 0)
+    widths = c["widths"]
+    # a FourierMLP's channels and hidden layers; a DenseNet's hidden layers
+    C, H = (temb.shape[1], w_hid.shape[0]) if c["net"] == "fourier" else (0, len(widths))
     return build.RolloutLaunch(
         *(t.data_ptr() for t in tensors), 0, 0,
         torch.cuda.current_stream(x0.device).cuda_stream,
-        B, d, temb.shape[1], w_hid.shape[0], T, K, *c["dims"],
+        B, d, C, H, T, K, *c["dims"],
         # the columns of sscore a step: one, or d after the six scalars
         tab.shape[1] - 6 if tab.shape[1] > 6 else 1,
         int(update == "exp"), FORM_CODES[form], TARGET_CODES[c["kind"]], BODY_CODES[body], rows, 0,
         c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"], *c["scalars"],
+        net=NET_CODES[c["net"]],
+        widths=(ctypes.c_int * DENSE_MAX_LAYERS)(*widths),
     )
 
 

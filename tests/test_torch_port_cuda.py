@@ -19,7 +19,11 @@ Tolerances (float32 on the card, sums in another order):
   path at d = 2, 50 and 530, at ragged batches and rows asked for; the
   tiled body of 32- and 48-wide nets), and with a clip below every |net|
   1e-6 of the bare SDE's update in both bodies;
-- the scan route of phase 1 (no kernel: a DenseNet base net): 1e-4
+- the DenseNet body (a ReLU DenseNet, densenet.yaml's [200, 200]): each
+  instance of the FourierMLP's targets, resident and streamed, which give
+  the same bits, and the given score at d = 196: 1e-5 absolute and
+  relative, one step from the plain twin's state and over 12 steps;
+- the scan route of phase 1 (no kernel: a tanh DenseNet base net): 1e-4
   against the CPU over 12 steps;
 - softmin: 1e-5 absolute; transport cost: 1e-5 relative at eps = 1e-2
   (1e-4 at the evaluation's eps = 1e-3, and for a plan of one normal
@@ -44,7 +48,7 @@ from sde_sampler_torch.distr.img import Img
 from sde_sampler_torch.distr.rings import Rings
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP, ScaledBM
-from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, TimeEmbed
 from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
@@ -631,14 +635,16 @@ TARGET_INSTANCES = {
 }
 
 
-def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=False, net=None):
+def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=False, net=None,
+                   dense=None):
     """The control of an instance with seeded weights, and its inputs: the
     last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl,
     ClippedCtrl and CancelDriftCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
     scaled BM of conf/sde/bm.yaml for the LerpTargetCtrl), a cosine grid
     with dt = 0 steps for kernel 2. `score_dim`: a score net of d outputs,
     each its own; `net`: the base net's width and depth, if not the
-    configs'. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
+    configs'; `dense`: a ReLU DenseNet of these widths in place of the
+    FourierMLP. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
     from sde_sampler_torch.ops import rollout as ro
 
     form, make_target, d = spec or TARGET_INSTANCES[name]
@@ -649,6 +655,8 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=Fals
     else:
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
     base = FourierMLP(dim=d, dim_out=1 if form == "potential" else None, **(net or {}))
+    if dense is not None:
+        base = DenseNet(dim=d, arch=dense)
     if form == "clipped":
         ctrl = ClippedCtrl(base_model=base, clip_model=10.0, sde=sde)
     elif form == "potential":
@@ -733,6 +741,90 @@ def test_target_instances_match_plain_twin(cuda, name, body):
     if body == "fast":
         xs_g, xT_g = ro._launch(prepare(x0, ts, noise), "generic")
         assert torch.equal(xs, xs_g) and torch.equal(x_T, xT_g)
+
+
+# The DenseNet body (rollout.cuh rollout_dense_kernel): a ReLU DenseNet of
+# conf/model/base/densenet.yaml's widths in each instance of
+# TARGET_INSTANCES but the PotentialCtrl's (which has no DenseNet body),
+# and mw_50d's d = 50; its weights resident in shared memory (at d = 50 and
+# above they do not fit: the resident body is refused there) and streamed.
+DENSE_ARCH = (200, 200)
+DENSE_INSTANCES = {
+    **{name: spec for name, spec in TARGET_INSTANCES.items() if spec[0] != "potential"},
+    "lerp.wells.d50": ("lerp", lambda: MultiWell(dim=50, n_double_wells=5, separation=2.0), 50),
+}
+
+
+@pytest.mark.parametrize("body", ["dense", "dense_streamed"])
+@pytest.mark.parametrize("name", list(DENSE_INSTANCES))
+def test_dense_instances_match_plain_twin(cuda, name, body):
+    """One step from the plain twin's own states, then the whole rollout,
+    in the mode asked for, counted under "<kernel>.<form>.<target>.dense"
+    and not under the FourierMLP's key; the two modes give the same bits.
+    The image is held one step from the twin's state at every step (its
+    score jumps at pixel edges: test_target_instances_match_plain_twin)."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    prepare, x0, ts, noise = instance_setup(cuda, name, spec=DENSE_INSTANCES[name],
+                                            dense=DENSE_ARCH)
+    form, _, d = DENSE_INSTANCES[name]
+    prepared = prepare(x0, ts, noise)
+    if body == "dense" and d >= 50:
+        with pytest.raises(RuntimeError):
+            ro._launch(prepared, body)
+        return
+    kernel = "rollout_exp" if form == "exp" else "rollout"
+    key = f"{kernel}.{'score' if form == 'exp' else form}.{name.split('.')[1]}"
+    T = noise.shape[0]
+    before = dict(build.FORM_LAUNCHES)
+    xs, x_T = ro._launch(prepared, body)
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[f"{key}.dense"] == before[f"{key}.dense"] + 1
+    assert build.FORM_LAUNCHES[key] == before[key]
+    assert ro.rollout_plan(prepared, body).body == body
+    xs_p, xT_p = ro._run_plain(prepared)
+    assert bool(torch.isfinite(xs_p).all())
+    pixels = "img" in name
+    for k in range(T) if pixels else (0, T // 2, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
+        want = xT_p if k == T - 1 else xs_p[k + 1]
+        torch.testing.assert_close(x1, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(xs[0], x0)
+    if not pixels:
+        torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    if body == "dense":
+        xs_s, xT_s = ro._launch(prepared, "dense_streamed")
+        assert torch.equal(xs, xs_s) and torch.equal(x_T, xT_s)
+
+
+@pytest.mark.parametrize("form", ["lerp", "exp"])
+def test_dense_given_score_matches_plain_twin(cuda, form):
+    """The given-score form over the DenseNet at Cox's d = 196 (NICE's d):
+    the streamed body by shape, one launch a step, within the rollouts'
+    tolerance; a FourierMLP body asked for raises."""
+    from sde_sampler_torch.ops import build
+    from sde_sampler_torch.ops import rollout as ro
+
+    spec = (form, lambda: Cox(dim=196, use_whitened=True), 196)
+    prepare, x0, ts, noise = instance_setup(cuda, f"{form}.given", spec=spec, dense=DENSE_ARCH)
+    kernel = "rollout_exp" if form == "exp" else "rollout"
+    key = f"{kernel}.{'score' if form == 'exp' else form}"
+    T = noise.shape[0]
+    before = dict(build.FORM_LAUNCHES)
+    xs, x_T = ro._launch(prepare(x0, ts, noise))
+    torch.cuda.synchronize()
+    assert build.FORM_LAUNCHES[f"{key}.given.dense"] == before[f"{key}.given.dense"] + T
+    assert build.FORM_LAUNCHES[f"{key}.dense.streamed"] == before[f"{key}.dense.streamed"] + T
+    assert build.FORM_LAUNCHES[f"{key}.given"] == before[f"{key}.given"]
+    xs_p, xT_p = ro._run_plain(prepare(x0, ts, noise))
+    assert bool(torch.isfinite(xs_p).all())
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    for body in ("fast", "generic", "wide"):
+        with pytest.raises(RuntimeError):
+            ro._launch(prepare(x0, ts, noise), body)
 
 
 def test_wide_wells_take_the_generic_body_by_shape(cuda):
@@ -1215,14 +1307,13 @@ def _phase1_inputs(device, batch=32, T=12, d=10, seed=8):
 
 
 def test_scan_route_on_the_card_matches_the_cpu(cuda):
-    """A DenseNet base net has no kernel body: phase 1 takes the scan route
-    on the card, counted once and launching no rollout kernel, and gives the
-    CPU's (xs, x_T) to 1e-4 (cuBLAS and the CPU sum the 200-wide layers in
-    another order over 12 steps)."""
-    from sde_sampler_torch.models.mlp import DenseNet
+    """A tanh DenseNet base net has no kernel body: phase 1 takes the scan
+    route on the card, counted once and launching no rollout kernel, and
+    gives the CPU's (xs, x_T) to 1e-4 (cuBLAS and the CPU sum the 200-wide
+    layers in another order over 12 steps)."""
     from sde_sampler_torch.ops import build
 
-    base = DenseNet(dim=10)
+    base = DenseNet(dim=10, activation="tanh")
     base.reset_parameters(torch.Generator().manual_seed(2))
     with torch.no_grad():
         base.out_layer.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(3))
@@ -1240,9 +1331,8 @@ def test_scan_route_on_the_card_matches_the_cpu(cuda):
 def test_sim_backend_xla_on_the_card_keeps_the_kernel(cuda):
     """sim_backend=xla no longer raises on the card: where a kernel instance
     exists it launches kernel 1, bit for bit `auto`'s rollout, and takes no
-    scan route; on a DenseNet base net (no instance) it takes the scan
+    scan route; on a tanh DenseNet base net (no instance) it takes the scan
     route, once."""
-    from sde_sampler_torch.models.mlp import DenseNet
     from sde_sampler_torch.ops import build
 
     ctrl = _lerp_on(cuda)
@@ -1253,7 +1343,7 @@ def test_sim_backend_xla_on_the_card_keeps_the_kernel(cuda):
     torch.cuda.synchronize()
     assert build.ROUTES["route.scan"] == 0 and build.FORM_LAUNCHES["rollout.lerp.funnel"] == 2
     assert all(torch.equal(a, b) for a, b in zip(xla, auto))
-    dense = _lerp_on(cuda, DenseNet(dim=10))
+    dense = _lerp_on(cuda, DenseNet(dim=10, activation="tanh"))
     _scan_loss(dense, "xla")._phase1(ts, x0, dbs, (None, None))
     torch.cuda.synchronize()
     assert build.ROUTES["route.scan"] == 1 and build.LAUNCHES["rollout"] == 2

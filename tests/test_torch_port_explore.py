@@ -45,7 +45,7 @@ from sde_sampler_torch.losses.oc import (
     ReferenceSDELoss,
     TimeReversalLoss,
 )
-from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, TimeEmbed
+from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, MultilevelNet, TimeEmbed
 from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
@@ -334,9 +334,18 @@ def test_route_choice_for_every_form():
         assert route(ctrl, sde, explore=True) == ("scan", "explore")
         with pytest.raises(NotImplementedError, match="exploration"):
             route(ctrl, sde, sim_backend="pallas", explore=True)
-        # a base net without a kernel body: a DenseNet, a ReLU FourierMLP
-        for base in (DenseNet(dim=D, dim_out=1 if form == "potential" else None),
-                     FourierMLP(dim=D, dim_out=1, activation="relu")):
+        # a ReLU DenseNet has a kernel body in every form but the potential one
+        dense = make(DenseNet(dim=D, dim_out=1 if form == "potential" else None))
+        if form != "potential":
+            assert ro.kernel_instance(dense, sde)[0] == form
+            assert route(dense, sde) == ("kernel", None)
+            assert route(dense, sde, sim_backend="pallas") == ("kernel", None)
+        # a base net without a kernel body: a ReLU FourierMLP, a MultilevelNet
+        # and, under the PotentialCtrl, the DenseNet
+        refused = [FourierMLP(dim=D, dim_out=1, activation="relu"),
+                   MultilevelNet(dim=D, dim_out=1 if form == "potential" else None, factor=2,
+                                 levels=2)]
+        for base in refused + ([dense.base_model] if form == "potential" else []):
             other = make(base)
             missing = ro.kernel_instance(other, sde)
             assert isinstance(missing, ro.NoInstance) and missing.reason == "base_net"
