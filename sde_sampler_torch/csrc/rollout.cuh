@@ -1122,49 +1122,62 @@ __global__ void __launch_bounds__(kTileThreads) rollout_wide_kernel(
 // (ops/rollout.py::dense_time_table), and the layers' weights without their
 // t row come packed (dense_offset), each (K_l, pad4(N_l)) in (in, out)
 // layout: layer l reads K_l = D + sum_{m<l} widths[m] inputs and writes N_l
-// outputs (widths[l], D for the out layer). A block of 512 threads keeps its
-// rows' activations h (the state, then each layer's outputs; row stride
-// pad4(D + sum of the widths)) in shared memory. Every layer is one product
-// in chunks of kDenseCols columns, a thread owning a 4 x 2 register tile of
-// a chunk (operands read as float4s and float2s: the rows' four activations
-// a broadcast, four weight rows' two columns; the weights, read by every
-// row tile, set the shared-memory traffic, so the tile is four rows deep). Where a chunk has fewer tiles
-// than threads (the out layer at small d: 8 tiles at d = 2), ks lanes of a
-// warp share a tile (split_k), each summing the groups of four inputs whose
-// index is its part modulo ks, and a butterfly of shuffles adds their sums,
-// so that the narrow layers do not run as a few threads' long chains; the
-// lanes then update one output each (a given score loaded before the
-// sums). The next step's rows of the t table and of the noise arrive by
-// cp.async while a step computes. A sum starts at the t table's entry (in
-// part 0) and runs over its groups in order.
+// outputs (widths[l], D for the out layer).
+//
+// Bound on an H100: operations, 2 sum_l K_l N_l flops a row and step (about
+// 42k multiply-adds a row at d = 2 for [200, 200], 83k at d = 50): at 16
+// rows a multiprocessor, 5.2k cycles of FP32 fmas a step at d = 2. What
+// keeps a body from that is the shared-memory traffic that feeds the fmas
+// (128 bytes a cycle) and the waits between layers. The design:
+//
+// - A thread's register tile spans TM = 16 rows (a block's rows) by TN = 2
+//   adjacent columns, so a step reads each weight
+//   from shared memory once, not once per row tile (4-row tiles read it
+//   four times). Per group of four inputs a thread reads its four
+//   weight rows' two columns (float2s, the lanes' columns adjacent) and
+//   each row's four activations (float4s of the row-major activations h),
+//   for 128 fmas. A narrow layer (the out layer at small d) takes tiles of
+//   4 rows, so that more threads share it.
+// - ks lanes of a warp share a tile (split K): the lane of part p sums the
+//   groups of four inputs g = p mod ks in order, from the t table's entry
+//   (part 0) or 0, and a butterfly of shuffles adds the parts; the lanes
+//   then store the tile's rows in turn, each output one predicated store.
+//   The parts take the high bits of the lane (dense_lane), so that every
+//   quarter-warp reads one activation address. ks depends on the layer's
+//   width alone (dense_ks: 4 at 200 outputs, 32 at 2), so both modes and
+//   every row count give the same bits.
+// - A step is H + 2 phases between barriers: each layer (a hidden layer's
+//   ReLU into its columns of h, the out layer's net output into s_out), then
+//   the update of the block's own rows, which writes the new state to the
+//   head of h. The target's row reductions run in the first layer's phase,
+//   the mixture's exponentials in the second's. The next step's row of the
+//   t table and its noise arrive by cp.async while a step computes; each
+//   layer's figures come from a table made once a launch (DenseLayer).
+//
 // Two modes, chosen by the plan (launch_dense):
 //
-// - resident (S = 0): every packed weight is staged once by cp.async and
-//   read from shared memory in every step: densenet.yaml's [200, 200] at
-//   d = 2 (42,408 floats, 170 KB) and d = 10 (48,920, 196 KB);
-// - streamed (S > 0): each chunk's weights stream from device memory
-//   (L2-resident) through a double-buffered cp.async ring of S-row slices,
-//   each slice serving all the block's rows, slice s + 1 landing while s
-//   computes: any d whose activations fit (d = 50: 83,400 floats, 334 KB
-//   of weights; NICE's d = 196). Every block reads all the weights every
-//   step: 128 blocks at d = 50 pull 43 MB a step from L2.
-//
-// Both give the same bits (each part's groups in the same order, the same
-// butterfly). Bound on an H100: operations, 2 sum_l K_l N_l flops a row and
-// step (about 1.0 MFLOP at d = 50 for [200, 200]).
+// - resident (S = 0): every packed weight is staged once in shared
+//   memory, its rows at a stride that spreads the parts' rows over the
+//   banks (bank_stride): densenet.yaml's [200, 200] at d = 2 (170 KB) and
+//   d = 10 (196 KB);
+// - streamed (S > 0): each layer's weights stream from device
+//   memory (L2-resident) through a double-buffered cp.async ring of S-row
+//   slices of a column chunk (dense_chunk: one pass of the threads over its
+//   tiles), slice s + 1 landing while s computes: any d whose activations
+//   fit (mw_50d's d = 50: 334 KB of weights; NICE's d = 196: 941 KB).
+//   Every block reads all the weights every step.
 constexpr int kFourierNet = 0;
 constexpr int kDenseNet = 1;
-constexpr int kDenseMaxLayers = 8;   // hidden layers at most (ops/build.py DENSE_MAX_LAYERS)
+constexpr int kDenseMaxLayers = 8;    // hidden layers at most (ops/build.py DENSE_MAX_LAYERS)
 constexpr int kDenseMaxWidth = 1024;  // a hidden layer's width at most
 constexpr int kDenseThreads = 512;
-constexpr int kDenseTM = 4;           // a thread's tile: rows, columns
-constexpr int kDenseTN = 2;
-constexpr int kDenseCols = 256;       // a chunk's columns
+constexpr int kDenseTN = 2;           // a tile's columns
+constexpr int kDenseWideRows = 16;    // a wide layer's tile rows (a narrow one's: 4)
 constexpr int kDenseStages = 2;       // the streamed ring: a slice computes, the next lands
 constexpr int kDenseMinSlice = 8;     // the streamed ring's shortest slice
-constexpr int kDenseOuts = kDenseTM * kDenseTN;
-static_assert(kMaxRows / kDenseTM * (kDenseCols / kDenseTN) <= kDenseThreads,
-              "a chunk's tiles at kMaxRows rows fit the threads, one a thread");
+constexpr int kDenseMaxSlice = 128;   // and its longest
+constexpr int kDenseMaxChunk = 256;   // the streamed ring's widest column chunk
+static_assert(kMaxRows <= kDenseWideRows, "a block's rows fit one wide tile");
 static_assert(kDenseMinSlice % 4 == 0, "a slice holds whole groups of four inputs");
 
 // A DenseNet's hidden layers and their widths (a kernel argument).
@@ -1191,15 +1204,90 @@ __host__ __device__ inline long long dense_offset(const DenseDims& n, int D, int
   return o;
 }
 
+// The lanes that share a tile of a layer of N outputs (a power of two, at
+// most a warp): the most that keep the lanes of the 16-row tiles of all
+// its column pairs within the block's threads. It depends on N alone.
+__host__ __device__ inline int dense_ks(int N) {
+  const int nq = (N + kDenseTN - 1) / kDenseTN;
+  int ks = 1;
+  while (ks < 32 && 2 * nq * ks <= kDenseThreads) ks *= 2;
+  return ks;
+}
+
+// A tile's rows for `rows` rows by `ncols` columns: 16 where the 16-row
+// tiles keep half the threads busy, else 4.
+__host__ __device__ inline int dense_tm(int rows, int ncols, int ks) {
+  const int nq = (ncols + kDenseTN - 1) / kDenseTN;
+  return rows % kDenseWideRows == 0 && 2 * (rows / kDenseWideRows) * nq * ks >= kDenseThreads
+             ? kDenseWideRows
+             : 4;
+}
+
+// A weight row stride of at least n floats for a layer whose tiles split K
+// over ks lanes. A warp's parts read weight rows four apart: up to four
+// parts, a stride of 4 mod 8 floats puts them in two bank halves; past
+// four, 2 mod 4 (still a float2's alignment) spreads them over four bank
+// quarters, where a multiple of 8 would put them all in one.
+__host__ __device__ inline int bank_stride(int n, int ks) {
+  if (ks > 4) return n + (6 - n % 4) % 4;
+  const int s = pad4(n);
+  return s % 8 == 0 ? s + 4 : s;
+}
+
+// The stride of the resident weights of a layer of N outputs.
+__host__ __device__ inline int dense_wstride(int N) { return bank_stride(N, dense_ks(N)); }
+
+// Floats of the resident weights, every layer's.
+__host__ __device__ inline long long dense_own_floats(const DenseDims& n, int D) {
+  long long o = 0;
+  for (int l = 0; l <= n.H; ++l)
+    o += (long long)dense_in(n, D, l) * dense_wstride(dense_out(n, D, l));
+  return o;
+}
+
+// The streamed ring's column chunk of a layer of N outputs at `rows` rows
+// a block: at most one pass of the threads over its tiles, and at most
+// kDenseMaxChunk columns (a multiple of 4 where it holds two pairs).
+__host__ __device__ inline int dense_chunk(int rows, int N) {
+  const int ks = dense_ks(N);
+  const int pairs = min(kDenseMaxChunk / kDenseTN,
+                        max(1, kDenseThreads / ks / (rows / dense_tm(rows, N, ks))));
+  return pairs >= 2 ? 2 * kDenseTN * (pairs / 2) : kDenseTN;
+}
+
+// The streamed ring's row stride: the widest chunk's.
+__host__ __device__ inline int dense_ring_cols(const DenseDims& n, int D, int rows) {
+  int c = 0;
+  for (int l = 0; l <= n.H; ++l) {
+    const int N = dense_out(n, D, l);
+    c = max(c, bank_stride(min(N, dense_chunk(rows, N)), dense_ks(N)));
+  }
+  return c;
+}
+
+// A layer's figures, computed once a launch (dense_layer_of) into shared
+// memory: its inputs K and outputs N, the lanes of a tile ks and a tile's
+// rows tm, its weights' stride ldw and offset woff in shared memory
+// (resident), the layer's first column of the t table, its streamed column
+// chunk and its packed weights' offset in device memory.
+struct alignas(16) DenseLayer {
+  int K, N, ks, tm, ldw, woff, tcol, chunk;
+  long long goff;
+};
+constexpr int kDenseLayerFloats = (int)(sizeof(DenseLayer) / sizeof(float));
+static_assert(sizeof(DenseLayer) % 16 == 0, "the layer table keeps the layout's alignment");
+
 // Float offsets of the DenseNet body's shared memory at R rows a block (RP
-// = pad4(R) rows of tiles) and slices of S weight rows (S = 0: resident):
-// the packed weights (resident only), the activations h (RP, ldh), the
-// state tile (RP, D), two steps' rows of the t table (stride tp) and of the
-// noise (stride dp), the row reductions, the target's table and the ring of
-// kDenseStages stages of S x kDenseCols floats (streamed only). `total` is
-// the size in floats, -1 for shapes past any block.
+// = pad4(R)) and slices of S weight rows (S = 0: resident): the weights
+// (S = 0), the activations h of the block's RP rows (stride ldh), its
+// state tile and
+// its rows' net outputs (RP, D), two steps' rows of the t table (stride tp)
+// and of the noise (stride dp), the row reductions, the target's table, the
+// layer table and the ring of kDenseStages stages of S x dense_ring_cols
+// floats (S > 0). `total` is the size in floats, -1 for shapes past any
+// block.
 struct DenseLayout {
-  int w, h, x, t, db, row, gmm, ring, stage, ldh, tp, dp;
+  int w, h, x, out, t, db, row, gmm, lay, ring, stage, ldh, tp, dp;
   long long total;
 };
 
@@ -1208,7 +1296,8 @@ __host__ __device__ inline DenseLayout dense_layout(int D, const DenseDims& n, i
   DenseLayout l{};
   const long long packed = dense_offset(n, D, n.H + 1);
   const long long width = dense_in(n, D, n.H);
-  if (D < 1 || D > (1 << 20) || packed > (1LL << 26) || width > (1 << 20)) {
+  if (D < 1 || D > (1 << 20) || packed > (1LL << 26) || width > (1 << 20) || R < 1 ||
+      R > kMaxRows) {
     l.total = -1;
     return l;
   }
@@ -1216,19 +1305,40 @@ __host__ __device__ inline DenseLayout dense_layout(int D, const DenseDims& n, i
   l.ldh = pad4((int)width);
   long long o = 0;
   l.w = 0;
-  if (S == 0) o += packed;
+  if (S == 0) o += (dense_own_floats(n, D) + 3) & ~3LL;  // h's float4 rows stay aligned
   l.h = (int)o, o += (long long)RP * l.ldh;
   l.x = (int)o, o += pad4(RP * D);
+  l.out = (int)o, o += pad4(RP * D);
   l.tp = pad4((int)width);
   l.t = (int)o, o += 2LL * l.tp;
   l.dp = pad4(RP * D);
   l.db = (int)o, o += 2LL * l.dp;
   l.row = (int)o, o += pad4(RP * RS);
   l.gmm = (int)o, o += pad4(n_tab);
-  l.stage = S * kDenseCols;
+  l.lay = (int)o, o += (long long)(kDenseMaxLayers + 1) * kDenseLayerFloats;
+  l.stage = S > 0 ? S * dense_ring_cols(n, D, RP) : 0;
   l.ring = (int)o, o += (long long)kDenseStages * l.stage;
   l.total = o;
   return l;
+}
+
+// Layer l's figures at RP rows a block.
+__device__ inline DenseLayer dense_layer_of(const DenseDims& n, int D, int l, int RP) {
+  DenseLayer y;
+  y.K = dense_in(n, D, l);
+  y.N = dense_out(n, D, l);
+  y.ks = dense_ks(y.N);
+  y.ldw = dense_wstride(y.N);
+  y.tm = dense_tm(RP, y.N, y.ks);
+  y.woff = 0, y.tcol = 0;
+  for (int m = 0; m < l; ++m) {
+    const int N = dense_out(n, D, m);
+    y.woff += dense_in(n, D, m) * dense_wstride(N);
+    y.tcol += N;
+  }
+  y.chunk = dense_chunk(RP, y.N);
+  y.goff = dense_offset(n, D, l);
+  return y;
 }
 
 // A slice of the streamed ring: layer l, column chunk c, weight rows s.
@@ -1236,47 +1346,50 @@ struct DenseItem {
   int l, c, s;
 };
 
-// The slice after `it` in a step's order (layers, their chunks, their
-// slices), wrapping to the next step's first.
-__device__ __forceinline__ void dense_next(DenseItem& it, const DenseDims& n, int D, int S) {
-  if (++it.s * S < dense_in(n, D, it.l)) return;
-  it.s = 0;
-  if (++it.c * kDenseCols < dense_out(n, D, it.l)) return;
-  it.c = 0;
-  if (++it.l > n.H) it.l = 0;
-}
-
 // NaN-preserving ReLU, as torch's.
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
+
+// v at `local` in this block's shared memory, one 4-byte store: a layer's
+// columns start at any float (at odd ones for an odd d).
+__device__ __forceinline__ void sts_f32(float* local, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"((unsigned)__cvta_generic_to_shared(local)), "f"(v)
+               : "memory");
+}
 
 // acc[rr][cc] += w[j][cc] in[rr][j] (fmaf) over the groups of four inputs
 // j = 4g..4g+3 in [j0, j1) with g = part modulo ks, in order, the last
 // group partial where j1 is not a multiple of 4 (the layer's end); `in`
 // holds the TM rows (stride ldi, a multiple of 4, 16-byte aligned) indexed
-// by j, `w` the weight rows from j0 on (stride ldw, a multiple of 4; TN = 2
-// or 4 columns, aligned to 4 TN bytes). j0 is a multiple of 4.
+// by j, read four rows at a time, `w` the weight rows from j0 on (stride
+// ldw, a multiple of 4; TN = 2 or 4 columns, aligned to 4 TN bytes). j0 is
+// a multiple of 4.
 template <int TM, int TN>
 __device__ __forceinline__ void dense_fma(float (&acc)[TM][TN], const float* in, int ldi,
                                           const float* w, int ldw, int j0, int j1, int part,
                                           int ks) {
+  static_assert(TM % 4 == 0, "a tile's rows are read four at a time");
   int g = j0 / 4;
   g += (part - g % ks + ks) % ks;
 #pragma unroll 2
   for (; 4 * g + 4 <= j1; g += ks) {
     const int j = 4 * g;
-    float4 a[TM];
     float b[4][TN];
-#pragma unroll
-    for (int rr = 0; rr < TM; ++rr) a[rr] = ld4(in + rr * ldi + j);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) ld_cols<TN>(b[kk], w + (j - j0 + kk) * ldw);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int r4 = 0; r4 < TM; r4 += 4) {
+      float4 a[4];
 #pragma unroll
-      for (int rr = 0; rr < TM; ++rr) {
-        const float v = (&a[rr].x)[kk];
+      for (int rr = 0; rr < 4; ++rr) a[rr] = ld4(in + (r4 + rr) * ldi + j);
 #pragma unroll
-        for (int cc = 0; cc < TN; ++cc) acc[rr][cc] = fmaf(b[kk][cc], v, acc[rr][cc]);
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const float v = (&a[rr].x)[kk];
+#pragma unroll
+          for (int cc = 0; cc < TN; ++cc)
+            acc[r4 + rr][cc] = fmaf(b[kk][cc], v, acc[r4 + rr][cc]);
+        }
       }
     }
   }
@@ -1292,6 +1405,167 @@ __device__ __forceinline__ void dense_fma(float (&acc)[TM][TN], const float* in,
   }
 }
 
+// A tile's sums start at the t table's entry of each column (`bias`, of
+// ncols columns from the tile's q0) in part 0, at 0 in the others.
+template <int TM, int TN>
+__device__ __forceinline__ void dense_init(float (&acc)[TM][TN], const float* bias, int q0,
+                                           int ncols, int part) {
+#pragma unroll
+  for (int cc = 0; cc < TN; ++cc) {
+    const float b = part == 0 ? bias[min(q0 + cc, ncols - 1)] : 0.0f;
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) acc[rr][cc] = b;
+  }
+}
+
+// A thread's tile (of the `slot`-th of a pass) and part under a split of
+// ks lanes a tile. The parts take the high bits of the lane, so that each
+// quarter-warp's lanes, of one part, read one activation address: an
+// LDS.128 whose quarter-warps each read one address costs the SM's
+// shared-memory pipe 2.5 cycles, one whose quarter-warps read several 4.0
+// (scripts/lds_patterns.cu on the H100; PERF.md §6).
+__device__ __forceinline__ void dense_lane(int ks, int& slot, int& part) {
+  const int lane = threadIdx.x & 31, g = 32 / ks;
+  part = lane / g;
+  slot = (int)(threadIdx.x >> 5) * g + lane % g;
+}
+
+// The parts' sums, added by a butterfly over the ks lanes of a tile (lanes
+// 32 / ks apart; every lane of the warp takes part): each lane then holds
+// the whole sums.
+template <int TM, int TN>
+__device__ __forceinline__ void dense_reduce(float (&acc)[TM][TN], int ks) {
+  for (int m = 32 / ks; m < 32; m *= 2) {
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) {
+#pragma unroll
+      for (int cc = 0; cc < TN; ++cc) acc[rr][cc] += __shfl_xor_sync(0xffffffffu, acc[rr][cc], m);
+    }
+  }
+}
+
+// Where a layer's sums go: a hidden layer's ReLU into h (`p`, row stride
+// `ld`) from column col0 on; the out layer's net output into s_out (`p`,
+// row stride `ld`).
+struct DenseDst {
+  float* p;
+  int ld, col0, hidden;
+};
+
+// A tile's sums (rows from r0, the layer's columns col0 + q0 on, those
+// below col0 + ncols valid) to d: the lane of part p takes the rows
+// rr = p mod ks. One branch a tile picks the kind of store, so that each
+// output is one predicated store (a general store at each output made the
+// epilogue cost as much as the hidden product; PERF.md §6).
+template <int TM, int TN>
+__device__ __forceinline__ void dense_store(const float (&acc)[TM][TN], const DenseDst& d,
+                                            int r0, int q0, int ncols, int part, int ks) {
+  const int mask = ks - 1;
+  float* p = d.p + r0 * d.ld + d.col0 + q0;
+  if (d.hidden) {
+#pragma unroll
+    for (int rr = 0; rr < TM; ++rr) {
+#pragma unroll
+      for (int cc = 0; cc < TN; ++cc)
+        if ((rr & mask) == part && q0 + cc < ncols) sts_f32(p + rr * d.ld + cc, relu(acc[rr][cc]));
+    }
+    return;
+  }
+#pragma unroll
+  for (int rr = 0; rr < TM; ++rr) {
+#pragma unroll
+    for (int cc = 0; cc < TN; ++cc)
+      if ((rr & mask) == part && q0 + cc < ncols) sts_f32(p + rr * d.ld + cc, acc[rr][cc]);
+  }
+}
+
+// One layer in the resident mode: the ncols columns of the weights w (rows
+// 0..K-1, stride ldw) for the
+// `rows` rows of h (stride ldh), their sums from bias[o], in passes of the
+// threads over the tiles; then to dst.
+template <int TM>
+__device__ __forceinline__ void dense_tiles(const float* h, int ldh, int rows, const float* w,
+                                            int ldw, int K, int ncols, const float* bias,
+                                            int ks, const DenseDst& dst) {
+  constexpr int TN = kDenseTN;
+  const int nq = (ncols + TN - 1) / TN, tiles = rows / TM * nq, per = kDenseThreads / ks;
+  int slot, part;
+  dense_lane(ks, slot, part);
+  for (int t0 = 0; t0 < tiles; t0 += per) {
+    const int t = t0 + slot;
+    const bool active = t < tiles;
+    const int rt = active ? t / nq : 0, q0 = active ? TN * (t - rt * nq) : 0;
+    float acc[TM][TN];
+    dense_init<TM, TN>(acc, bias, q0, ncols, part);
+    if (active) dense_fma<TM, TN>(acc, h + rt * TM * ldh, ldh, w + q0, ldw, 0, K, part, ks);
+    dense_reduce<TM, TN>(acc, ks);
+    if (active) dense_store<TM, TN>(acc, dst, rt * TM, q0, ncols, part, ks);
+  }
+}
+
+// One layer of N outputs in the streamed mode: chunks of CC of its columns
+// (one pass of the threads over a chunk's tiles), each chunk's weights
+// through the ring a slice of S rows at a time, for the `rows` rows of h;
+// `load(s)` issues the ring's next slice into stage s once every thread is
+// done with it. Then to dst.
+template <int TM, typename Load>
+__device__ __forceinline__ void dense_stream(const float* h, int ldh, int rows,
+                                             const float* ring, int stage_floats, int& stage,
+                                             int K, int N, int ks, int CC, const float* bias,
+                                             int S, Load& load, const DenseDst& dst) {
+  constexpr int TN = kDenseTN;
+  int t, part;
+  dense_lane(ks, t, part);
+  for (int c0 = 0; c0 < N; c0 += CC) {
+    const int nc = min(CC, N - c0), nq = (nc + TN - 1) / TN, tiles = rows / TM * nq;
+    const int ldw = bank_stride(nc, ks);
+    const bool active = t < tiles;
+    const int rt = active ? t / nq : 0, q0 = active ? TN * (t - rt * nq) : 0;
+    float acc[TM][TN];
+    dense_init<TM, TN>(acc, bias + c0, q0, nc, part);
+    for (int j0 = 0; j0 < K; j0 += S) {
+      cp_async_wait<0>();  // this slice has landed
+      __syncthreads();     // ... for every thread; the stage before is done
+      load(stage ^ 1);
+      if (active)
+        dense_fma<TM, TN>(acc, h + rt * TM * ldh, ldh, ring + stage * stage_floats + q0, ldw,
+                          j0, min(K, j0 + S), part, ks);
+      stage ^= 1;
+    }
+    dense_reduce<TM, TN>(acc, ks);
+    if (active) dense_store<TM, TN>(acc, dst, rt * TM, c0 + q0, c0 + nc, part, ks);
+  }
+}
+
+// Phase marks of a clock-instrumented build (scripts/dense_phase_split.py
+// defines SDE_DENSE_PHASES in a copy of this header): block 0's thread 0
+// adds the cycles since its last mark to phase i (0: the row reductions;
+// 1 + 2l: layer l, 2 + 2l: its barrier; 2H + 3: the update, 2H + 4: its
+// barrier) and prints each phase's cycles a step at the end.
+#ifdef SDE_DENSE_PHASES
+#define DENSE_PHASES_BEGIN                                      \
+  const bool ph_me = blockIdx.x == 0 && threadIdx.x == 0;       \
+  long long ph_t[2 * kDenseMaxLayers + 5] = {};                 \
+  long long ph_c = clock64();                                   \
+  const long long ph_0 = ph_c;
+#define DENSE_PHASE(i)                    \
+  if (ph_me) {                            \
+    const long long ph_n = clock64();     \
+    ph_t[i] += ph_n - ph_c;               \
+    ph_c = ph_n;                          \
+  }
+#define DENSE_PHASES_END                                                                 \
+  if (ph_me) {                                                                           \
+    printf("dense phases D=%d S=%d T=%d R=%d: %lld cycles a step\n", D, S, T, R,         \
+           (clock64() - ph_0) / T);                                                      \
+    for (int i = 0; i < 2 * H + 5; ++i) printf("dense phase %d: %lld\n", i, ph_t[i] / T); \
+  }
+#else
+#define DENSE_PHASES_BEGIN
+#define DENSE_PHASE(i)
+#define DENSE_PHASES_END
+#endif
+
 template <int kForm, int kTarget, bool kPerCoord>
 __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
     const float* __restrict__ x0, const float* __restrict__ dbs,
@@ -1299,21 +1573,22 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
     const float* __restrict__ wpk, const float* __restrict__ gmm,
     float* __restrict__ xs, float* __restrict__ x_T, int B, int D, int T, int R, int S,
     DenseDims net, Consts cs) {
-  constexpr int TM = kDenseTM, TN = kDenseTN, NT = kDenseThreads, NO = kDenseOuts;
+  constexpr int NT = kDenseThreads, WR = kDenseWideRows;
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int RS = row_floats(kTarget, cs.K, D);
   const DenseLayout L = dense_layout(D, net, R, RS, cs.n_tab, S);
   const int RP = pad4(R), LDH = L.ldh, H = net.H;
-  const bool resident = S == 0;
-  float* s_w = sm + L.w;        // the packed weights (resident)
-  float* s_h = sm + L.h;        // (RP, LDH) the activations: the state, then each layer's
-  float* s_x = sm + L.x;        // (RP, D) the state tile
+  float* s_w = sm + L.w;        // the weights (resident)
+  float* s_h = sm + L.h;        // (RP, LDH) the activations of the block's rows
+  float* s_x = sm + L.x;        // (RP, D) the block's state tile
+  float* s_out = sm + L.out;    // (RP, D) its rows' net outputs
   float* s_t = sm + L.t;        // 2 x (tw) the t table's rows of two steps
   float* s_db = sm + L.db;      // 2 x (RP, D) the noise of two steps
   float* s_row = sm + L.row;    // (RP, RS) the target's row reductions
   float* s_gmm = sm + L.gmm;    // (n_tab) the target's table
   float* s_ring = sm + L.ring;  // kDenseStages slices (streamed)
+  DenseLayer* s_lay = reinterpret_cast<DenseLayer*>(sm + L.lay);  // the layers' figures
   const int tw = dense_in(net, D, H);  // the t table's columns: the widths, then D
 
   const int tid = threadIdx.x;
@@ -1326,147 +1601,120 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
   const float* table = kTarget == kImg ? gmm : s_gmm;
   const bool write_xs = xs != x0;
 
-  // slice `it` of the streamed ring into stage `stage`: rows j0.. of the
-  // chunk's columns (pad4 of them: the packed rows hold their padding)
-  auto load = [&](const DenseItem& it, int stage) {
-    const int K = dense_in(net, D, it.l), N = dense_out(net, D, it.l), NP = pad4(N);
-    const int j0 = it.s * S, kk = min(S, K - j0);
-    const int c0 = it.c * kDenseCols, ncp = pad4(min(kDenseCols, N - c0));
-    copy_rows_async(s_ring + stage * L.stage, ncp,
-                    wpk + dense_offset(net, D, it.l) + (size_t)j0 * NP + c0, (size_t)NP, kk, ncp);
+  // the streamed ring's next slice into stage `to`: rows j0.. of its
+  // chunk's columns (as many as its stride holds where the packed rows hold
+  // them); then the slice after it in a step's order (layers, their chunks,
+  // their slices), wrapping to the next step's first
+  DenseItem next{0, 0, 0};
+  auto load = [&](int to) {
+    const DenseLayer& y = s_lay[next.l];
+    const int NP = pad4(y.N), j0 = next.s * S, c0 = next.c * y.chunk;
+    const int nc = min(y.chunk, y.N - c0), ldr = bank_stride(nc, y.ks);
+    copy_rows_async(s_ring + to * L.stage, ldr, wpk + y.goff + (size_t)j0 * NP + c0, (size_t)NP,
+                    min(S, y.K - j0), min(ldr, NP - c0));
+    cp_async_commit();
+    if (++next.s * S < y.K) return;
+    next.s = 0;
+    if (++next.c * y.chunk < y.N) return;
+    next.c = 0;
+    if (++next.l > H) next.l = 0;
   };
-
   // step k's rows of the t table and of the noise into buffer k & 1
   auto prefetch = [&](int k) {
     copy_async(s_t + (k & 1) * L.tp, ttab + (size_t)k * tw, tw);
     copy_async(s_db + (k & 1) * L.dp, dbs + (size_t)k * step_stride + tile_off, nx);
   };
-  if (resident) copy_async(s_w, wpk, (int)dense_offset(net, D, H + 1));
+
+  if (tid <= H) s_lay[tid] = dense_layer_of(net, D, tid, RP);
+  if (S == 0) {  // every layer's weights
+    for (int l = 0; l <= H; ++l) {
+      const DenseLayer y = dense_layer_of(net, D, l, RP);
+      copy_rows_async(s_w + y.woff, y.ldw, wpk + y.goff, (size_t)pad4(y.N), y.K,
+                      min(y.ldw, pad4(y.N)));
+    }
+  }
   if constexpr (kTarget != kImg && kTarget != kGiven) copy_async(s_gmm, gmm, cs.n_tab);
   copy_async(s_x, x0 + tile_off, nx);
   prefetch(0);
-  for (int i = nx + tid; i < RP * D; i += NT) s_x[i] = 0.0f;  // rows past B
   cp_async_commit();
+  for (int i = nx + tid; i < RP * D; i += NT) s_x[i] = 0.0f;  // rows past B
   cp_async_wait<0>();
   __syncthreads();
-  DenseItem next{0, 0, 0};
-  int stage = 0;
-  if (!resident) {
-    load(next, 0);
-    cp_async_commit();
-    dense_next(next, net, D, S);
+  // the state at the head of h, and xs[0]
+  for (int i = tid; i < RP * D; i += NT) {
+    const int r = i / D, j = i - r * D;
+    s_h[r * LDH + j] = s_x[i];
+    if (write_xs && i < nx) xs[tile_off + i] = s_x[i];
   }
+  if (S > 0) load(0);
+  __syncthreads();
 
+  DENSE_PHASES_BEGIN
+  int stage = 0;
   for (int k = 0; k < T; ++k) {
-    // the state before the step, its copy at the head of h, and the
-    // target's row reductions
-    float* xs_k = xs + (size_t)k * step_stride + tile_off;
-    for (int i = tid; i < RP * D; i += NT) {
-      const int r = i / D, j = i - r * D;
-      s_h[r * LDH + j] = s_x[i];
-      if (write_xs && i < nx) xs_k[i] = s_x[i];
-    }
-    // the next step's rows land while this one computes
-    if (k + 1 < T) prefetch(k + 1);
-    cp_async_commit();
-    row_phase<kTarget>(s_x, s_row, table, RP, D, tid, NT, cs);
-    cp_async_wait<1>();  // this step's rows have landed
-    __syncthreads();
-    // the mixture's exponentials, read after the next barrier
-    exp_phase<kTarget>(s_row, RP, tid, NT, cs);
-
     const float* tk = s_t + (k & 1) * L.tp;
     const float* st = tab + (size_t)k * tab_cols<kPerCoord>(D);
     const float* db_k = s_db + (k & 1) * L.dp;
-    int tcol = 0;  // the layer's columns of the t table
+    // the next step's rows land while this one computes
+    if (k + 1 < T) prefetch(k + 1);
+    cp_async_commit();
+    // the target's row reductions, read by the update after H + 1 barriers
+    row_phase<kTarget>(s_x, s_row, table, RP, D, tid, NT, cs);
+    DENSE_PHASE(0)
     for (int l = 0; l <= H; ++l) {
-      const int K = dense_in(net, D, l), N = dense_out(net, D, l), NP = pad4(N);
-      const float* wl = s_w + dense_offset(net, D, l);
-      for (int c0 = 0; c0 < N; c0 += kDenseCols) {
-        const int nc = min(kDenseCols, N - c0);
-        const int nq = (nc + TN - 1) / TN, tiles = RP / TM * nq;
-        // ks lanes a tile (a power of two, at most a warp), part = lane's share
-        int ks = 1;
-        while (ks < 32 && tiles * ks * 2 <= NT) ks *= 2;
-        const int t = tid / ks, part = tid % ks;
-        const bool active = t < tiles;
-        const int rt = active ? t / nq : 0, q0 = active ? TN * (t - rt * nq) : 0;
-        float acc[TM][TN];
-#pragma unroll
-        for (int cc = 0; cc < TN; ++cc) {
-          const float b = part == 0 ? tk[tcol + c0 + min(q0 + cc, nc - 1)] : 0.0f;
-#pragma unroll
-          for (int rr = 0; rr < TM; ++rr) acc[rr][cc] = b;
-        }
-        // the out layer's given score of the outputs this lane updates,
-        // loaded before its sums
-        float scv[NO];
-#pragma unroll
-        for (int e = 0; e < NO; ++e) {
-          const int r = rt * TM + e / TN, o = c0 + q0 + e % TN;
-          const bool mine = l == H && active && e % ks == part && r < nrows && q0 + e % TN < nc;
-          scv[e] = mine && kTarget == kGiven ? __ldg(gmm + tile_off + (size_t)r * D + o) : 0.0f;
-        }
-        if (resident) {
-          // the layer before has written its columns (layer 0 reads the
-          // state, written before the step's first barrier; the out layer
-          // also the mixture's exponentials)
-          if (c0 == 0 && (l > 0 || l == H)) __syncthreads();
-          if (active)
-            dense_fma<TM, TN>(acc, s_h + rt * TM * LDH, LDH, wl + c0 + q0, NP, 0, K, part, ks);
-        } else {
-          const int ncp = pad4(nc);
-          for (int j0 = 0; j0 < K; j0 += S) {
-            cp_async_wait<0>();  // this slice has landed
-            __syncthreads();     // ... for every thread; the stage before is done
-            load(next, stage ^ 1);
-            cp_async_commit();
-            dense_next(next, net, D, S);
-            if (active)
-              dense_fma<TM, TN>(acc, s_h + rt * TM * LDH, LDH, s_ring + stage * L.stage + q0,
-                                ncp, j0, min(K, j0 + S), part, ks);
-            stage ^= 1;
-          }
-        }
-        // the parts' sums, added by a butterfly over the ks lanes of a tile
-        for (int m = 1; m < ks; m *= 2) {
-#pragma unroll
-          for (int rr = 0; rr < TM; ++rr) {
-#pragma unroll
-            for (int cc = 0; cc < TN; ++cc)
-              acc[rr][cc] += __shfl_xor_sync(0xffffffffu, acc[rr][cc], m);
-          }
-        }
-        if (!active) continue;
-        // a hidden layer's ReLU into its columns of h; the out layer's
-        // update of the coordinates it outputs; the lane of part p takes
-        // the tile's outputs e = p, p + ks, ...
-#pragma unroll
-        for (int e = 0; e < NO; ++e) {
-          const int rr = e / TN, cc = e % TN;
-          const int r = rt * TM + rr, o = c0 + q0 + cc;
-          if (e % ks != part || q0 + cc >= nc) continue;
-          if (l < H) {
-            s_h[r * LDH + K + o] = relu(acc[rr][cc]);
-            continue;
-          }
-          if (r >= nrows) continue;
-          const int idx = r * D + o;
-          float target;
-          if constexpr (kTarget == kGiven)
-            target = scv[e];
-          else
-            target = target_score<kTarget>(s_x[idx], o, D, s_row + r * RS, table, cs);
-          s_x[idx] = step_update<kForm>(s_x[idx], acc[rr][cc], target, st,
-                                        step_sscore<kPerCoord>(st, o), db_k[idx], cs);
-        }
+      // the mixture's exponentials, one barrier after its log-weights
+      if (l == 1) exp_phase<kTarget>(s_row, RP, tid, NT, cs);
+      const DenseLayer y = s_lay[l];
+      const int K = y.K;
+      // a hidden layer's ReLU into its columns of h; the out layer's net
+      // output into s_out
+      const int hidden = l < H;
+      const DenseDst dst{hidden ? s_h : s_out, hidden ? LDH : D, hidden ? K : 0, hidden};
+      if (S == 0) {
+        const float* w = s_w + y.woff;
+        const float* bias = tk + y.tcol;
+        if (y.tm == WR)
+          dense_tiles<WR>(s_h, LDH, RP, w, y.ldw, K, y.N, bias, y.ks, dst);
+        else
+          dense_tiles<4>(s_h, LDH, RP, w, y.ldw, K, y.N, bias, y.ks, dst);
+      } else if (y.tm == WR) {
+        dense_stream<WR>(s_h, LDH, RP, s_ring, L.stage, stage, K, y.N, y.ks, y.chunk,
+                         tk + y.tcol, S, load, dst);
+      } else {
+        dense_stream<4>(s_h, LDH, RP, s_ring, L.stage, stage, K, y.N, y.ks, y.chunk,
+                        tk + y.tcol, S, load, dst);
       }
-      tcol += N;
+      DENSE_PHASE(1 + 2 * l)
+      __syncthreads();
+      DENSE_PHASE(2 + 2 * l)
     }
-    __syncthreads();  // the step's state is whole before the next reads it
+    if (H == 0) {  // no second layer: the exponentials here
+      exp_phase<kTarget>(s_row, RP, tid, NT, cs);
+      __syncthreads();
+    }
+    // the update of the block's rows; the new state into xs[k + 1] (x_T
+    // after the last step) and the head of h
+    float* dst = (k + 1 < T ? xs + (size_t)(k + 1) * step_stride : x_T) + tile_off;
+    for (int i = tid; i < nx; i += NT) {
+      const int r = i / D, o = i - r * D;
+      const float x = s_x[i];
+      float target;
+      if constexpr (kTarget == kGiven)
+        target = __ldg(gmm + tile_off + i);
+      else
+        target = target_score<kTarget>(x, o, D, s_row + r * RS, table, cs);
+      const float xn = step_update<kForm>(x, s_out[i], target, st, step_sscore<kPerCoord>(st, o),
+                                          db_k[i], cs);
+      s_x[i] = xn;
+      dst[i] = xn;
+      if (k + 1 < T) s_h[r * LDH + o] = xn;
+    }
+    DENSE_PHASE(2 * H + 3)
+    cp_async_wait<0>();  // the next step's rows have landed
+    __syncthreads();
+    DENSE_PHASE(2 * H + 4)
   }
-  cp_async_wait<0>();  // the ring's last (unused) slice
-  for (int i = tid; i < nx; i += NT) x_T[tile_off + i] = s_x[i];
+  DENSE_PHASES_END
 }
 
 // ---------------------------------------------------------------- fast
@@ -1639,8 +1887,8 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   for (int i = tid; i < nx; i += NT) x_T[tile_off + i] = s_x[i];
 }
 
-// What a launch plans: rows a block, blocks, shared memory in bytes, and
-// the wide body's slice (0 for the other bodies).
+// What a launch plans: rows a block, blocks, shared memory in bytes and the
+// wide or streamed body's slice (0 for the other bodies).
 struct Plan {
   int rows, blocks, smem, slice;
 };
@@ -1857,12 +2105,12 @@ inline long long dense_smem(const Args& a, int R, int S) {
 }
 
 // The streamed body's slice: the most rows a block that fit with the
-// shortest slice, then the longest of 64, 32, 16 and 8 rows that fits there
-// (0 if none).
+// shortest slice, then the longest of 128, 64, 32, 16 and 8 rows that fits
+// there (0 if none).
 inline int dense_slice(const Args& a) {
   const int rows = max_rows(a, [](const Args& b, int R) { return dense_smem(b, R, kDenseMinSlice); });
   if (rows == 0) return 0;
-  for (int S = 64; S >= kDenseMinSlice; S /= 2)
+  for (int S = kDenseMaxSlice; S >= kDenseMinSlice; S /= 2)
     if (smem_fits(dense_smem(a, rows, S))) return S;
   return 0;
 }
@@ -1870,8 +2118,8 @@ inline int dense_slice(const Args& a) {
 // A DenseNet (a.net == kDenseNet) in the DenseNet body: kDenseBody asks for
 // its weights resident in shared memory, kDenseStreamedBody for the
 // streamed ring; by shape, resident where its layout fits at the rows the
-// plan gives one block a multiprocessor, else streamed. *used receives the
-// mode launched (or planned).
+// plan gives one block a multiprocessor, else streamed. Each mode asked for
+// outside its shapes fails. *used receives the mode launched (or planned).
 template <int kForm, int kTarget, bool kPerCoord>
 int launch_dense(const Args& a, int body, int* used) {
   const DenseDims& n = a.dense;
@@ -1880,23 +2128,23 @@ int launch_dense(const Args& a, int body, int* used) {
     if (n.w[l] < 1 || n.w[l] > kDenseMaxWidth) return (int)cudaErrorInvalidValue;
   if (body != kByShape && body != kDenseBody && body != kDenseStreamedBody)
     return (int)cudaErrorInvalidValue;
-  auto resident_smem = [](const Args& b, int R) { return dense_smem(b, R, 0); };
-  const bool resident_ok = max_rows(a, resident_smem) > 0;
-  const int S = dense_slice(a);
-  bool resident = body == kDenseBody;
-  if (body == kByShape)
-    resident = smem_fits(resident_smem(a, plan_rows(a.B, 1, kMaxRows)));
-  if ((resident && !resident_ok) || (!resident && S == 0)) return (int)cudaErrorInvalidValue;
-  *used = resident ? kDenseBody : kDenseStreamedBody;
-  const int slice = resident ? 0 : S;
   auto kernel = rollout_dense_kernel<kForm, kTarget, kPerCoord>;
   static TileCache cache = tile_cache(kernel);
-  return launch_tiled(a, kernel, cache,
-                      [slice](const Args& b, int R) { return dense_smem(b, R, slice); }, slice,
-                      kDenseThreads, kMaxRows, [&](int blocks, int rows, size_t smem) {
+  if (cache.attr != cudaSuccess) return (int)cache.attr;
+  auto resident_smem = [](const Args& b, int R) { return dense_smem(b, R, 0); };
+  // rows a block at one block a multiprocessor (or as asked)
+  const int R = a.rows > 0 ? min(a.rows, kMaxRows) : plan_rows(a.B, 1, kMaxRows);
+  int mode = body;
+  if (body == kByShape) mode = smem_fits(resident_smem(a, R)) ? kDenseBody : kDenseStreamedBody;
+  const int S = mode == kDenseBody ? 0 : dense_slice(a);
+  if (mode == kDenseBody ? max_rows(a, resident_smem) == 0 : S == 0)
+    return (int)cudaErrorInvalidValue;
+  *used = mode;
+  return launch_tiled(a, kernel, cache, [S](const Args& b, int r) { return dense_smem(b, r, S); },
+                      S, kDenseThreads, kMaxRows, [&](int blocks, int rows, size_t smem) {
                         kernel<<<blocks, kDenseThreads, smem, a.stream>>>(
                             a.x0, a.dbs, a.tab, a.temb, a.w_in, a.gmm, a.xs, a.x_T, a.B, a.D,
-                            a.T, rows, slice, a.dense, a.cs);
+                            a.T, rows, S, a.dense, a.cs);
                       });
 }
 

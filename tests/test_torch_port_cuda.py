@@ -747,22 +747,25 @@ def test_target_instances_match_plain_twin(cuda, name, body):
 # conf/model/base/densenet.yaml's widths in each instance of
 # TARGET_INSTANCES but the PotentialCtrl's (which has no DenseNet body),
 # and mw_50d's d = 50; its weights resident in shared memory (at d = 50 and
-# above they do not fit: the resident body is refused there) and streamed.
+# above they do not fit: the resident mode is refused there) and streamed.
 DENSE_ARCH = (200, 200)
+DENSE_MODES = ("dense", "dense_streamed")
 DENSE_INSTANCES = {
     **{name: spec for name, spec in TARGET_INSTANCES.items() if spec[0] != "potential"},
     "lerp.wells.d50": ("lerp", lambda: MultiWell(dim=50, n_double_wells=5, separation=2.0), 50),
 }
 
 
-@pytest.mark.parametrize("body", ["dense", "dense_streamed"])
+@pytest.mark.parametrize("body", DENSE_MODES)
 @pytest.mark.parametrize("name", list(DENSE_INSTANCES))
 def test_dense_instances_match_plain_twin(cuda, name, body):
     """One step from the plain twin's own states, then the whole rollout,
     in the mode asked for, counted under "<kernel>.<form>.<target>.dense"
-    and not under the FourierMLP's key; the two modes give the same bits.
-    The image is held one step from the twin's state at every step (its
-    score jumps at pixel edges: test_target_instances_match_plain_twin)."""
+    (and a streamed launch once more under "<kernel>.<form>.dense.streamed")
+    and not under the FourierMLP's key; the streamed mode gives the bits of
+    the resident mode where that takes the shape. The image is held
+    one step from the twin's state at every step (its score jumps at pixel
+    edges: test_target_instances_match_plain_twin)."""
     from sde_sampler_torch.ops import build
     from sde_sampler_torch.ops import rollout as ro
 
@@ -782,6 +785,8 @@ def test_dense_instances_match_plain_twin(cuda, name, body):
     torch.cuda.synchronize()
     assert build.FORM_LAUNCHES[f"{key}.dense"] == before[f"{key}.dense"] + 1
     assert build.FORM_LAUNCHES[key] == before[key]
+    streamed = f"{'.'.join(key.split('.')[:2])}.dense.streamed"
+    assert build.FORM_LAUNCHES[streamed] == before[streamed] + (body == "dense_streamed")
     assert ro.rollout_plan(prepared, body).body == body
     xs_p, xT_p = ro._run_plain(prepared)
     assert bool(torch.isfinite(xs_p).all())
@@ -794,9 +799,50 @@ def test_dense_instances_match_plain_twin(cuda, name, body):
     if not pixels:
         torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
-    if body == "dense":
-        xs_s, xT_s = ro._launch(prepared, "dense_streamed")
-        assert torch.equal(xs, xs_s) and torch.equal(x_T, xT_s)
+    if body == "dense_streamed" and d < 50:
+        xs_r, xT_r = ro._launch(prepared, "dense")
+        assert torch.equal(xs, xs_r) and torch.equal(x_T, xT_r)
+
+
+# The modes that the configs' DenseNet shapes take by shape at the paths'
+# batch of 2048 (None: any that fits), each layout within a block's 232,448
+# bytes of shared memory: densenet.yaml's [200, 200] at d = 1 (gauss_shift),
+# 2 (the mixture), 10 (the funnel), 15 (the Rosenbrock: its resident
+# weights and activations take 244,184 bytes), 50 (mw_50d) and 196 (NICE's
+# d, a given score), and the body's limit, 8 hidden layers of 1024, at d = 2.
+DENSE_SHAPES = {
+    "d1": (("lerp", lambda: IsotropicGauss(dim=1, loc=3.0), 1), DENSE_ARCH, "dense"),
+    "d2": (("lerp", lambda: GMM(name="grid"), 2), DENSE_ARCH, "dense"),
+    "d10": (("score", lambda: Funnel(dim=10, n_reference_samples=100), 10), DENSE_ARCH, "dense"),
+    "d15": (("lerp", lambda: Rosenbrock(dim=15, flatness=10.0, scale=1e5), 15), DENSE_ARCH,
+            "dense_streamed"),
+    "d50": (("lerp", lambda: MultiWell(dim=50, n_double_wells=5, separation=2.0), 50), DENSE_ARCH,
+            "dense_streamed"),
+    "d196": (("lerp", lambda: Cox(dim=196, use_whitened=True), 196), DENSE_ARCH,
+             "dense_streamed"),
+    "8x1024": (("lerp", lambda: GMM(name="grid"), 2), (1024,) * 8, None),
+}
+
+
+@pytest.mark.parametrize("name", list(DENSE_SHAPES))
+def test_dense_modes_by_shape_fit_a_block(cuda, name):
+    """The plan of each configs' shape: the mode it takes by shape, within a
+    block's shared memory; at d = 50 one block an SM at 16 rows; the
+    resident mode asked for where no block holds its weights raises."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    spec, arch, want = DENSE_SHAPES[name]
+    prepare, x0, ts, noise = instance_setup(cuda, name, batch=2048, T=2, spec=spec, dense=arch)
+    prepared = prepare(x0, ts, noise)
+    plan = ro.rollout_plan(prepared)
+    assert plan.body in DENSE_MODES and (want is None or plan.body == want)
+    assert 0 < plan.smem_bytes <= 232448
+    assert plan.blocks * plan.rows >= 2048
+    if name == "d50":
+        assert (plan.rows, plan.blocks) == (16, 128)
+    if name in ("d50", "d196"):
+        with pytest.raises(RuntimeError):
+            ro._launch(prepared, "dense")
 
 
 @pytest.mark.parametrize("form", ["lerp", "exp"])

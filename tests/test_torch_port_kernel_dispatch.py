@@ -26,7 +26,7 @@ from sde_sampler_torch.distr.img import Img
 from sde_sampler_torch.distr.rings import Rings
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock
 from sde_sampler_torch.eq.sdes import VP
-from sde_sampler_torch.models.mlp import FourierMLP, TimeEmbed
+from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, TimeEmbed
 from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
@@ -455,3 +455,36 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     ):
         assert torch.equal(got, want)
     assert build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", ["dense", "dense_streamed"])
+def test_dense_modes_count_under_their_keys(fake_library, mode):
+    """A DenseNet's launch asks for the mode given and counts the one the
+    library reports under "rollout.lerp.<target>.dense", the streamed mode
+    once more under "rollout.lerp.dense.streamed"; `rollout_plan` reads back
+    the plan that the library reports."""
+    d = 3
+    x0, ts, dbs = rollout_inputs(d, T=3)
+    ctrl = LerpCtrl(
+        base_model=DenseNet(dim=d, arch=(12, 20)),
+        score_model=TimeEmbed(dim_out=1, num_layers=4),
+        sde=VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0),
+        prior_score=IsotropicGauss(dim=d).score,
+        target_score=MultiWell(dim=d, n_double_wells=2, separation=2.0).score,
+        clip_model=10.0, clip_score=10.0,
+    )
+    ctrl.reset_parameters(torch.Generator().manual_seed(0))
+    prepared = ro._prepare(ctrl, x0, ts, dbs, None)
+    fake_library.body, fake_library.plan = mode, (1, 6, 90112, 8 * (mode == "dense_streamed"))
+    build.reset_launches()
+    ro._launch(prepared, mode)
+    (args,) = fake_library.calls
+    assert args.body == ro.BODY_CODES[mode] and args.net == ro.NET_CODES["dense"]
+    counted = {k: v for k, v in build.FORM_LAUNCHES.items() if v}
+    want = {"rollout.lerp": 1, "rollout.lerp.wells.dense": 1}
+    if mode == "dense_streamed":
+        want["rollout.lerp.dense.streamed"] = 1
+    assert counted == want and build.LAUNCHES["rollout"] == 1
+    plan = ro.rollout_plan(prepared, mode)
+    assert plan == ro.RolloutPlan(mode, *fake_library.plan)
+    assert build.LAUNCHES["rollout"] == 1
