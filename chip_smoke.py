@@ -36,7 +36,14 @@ prints nvcc's register and spill report. Phases:
            process at NICE's d, streamed), and
            the ClippedCtrl, LerpTargetCtrl and CancelDriftCtrl forms on the
            mixture, the resident ones also streamed, which must give the
-           same bits), softmin and
+           same bits); the LerpPriorCtrl form (both bodies, a score net of
+           d outputs, the DenseNet body), the LerpCtrl over PIS's Delta
+           prior, the per-coordinate LerpTargetCtrl and CancelDriftCtrl
+           instances and the ScoreCtrl on the mixture under the
+           time-reversal loss's VP (both bodies); the lerp forms with an
+           IsotropicGauss prior and an equal diagonal Gauss, which must
+           give the same bits, and with a Gauss of unequal coordinates
+           against the plain twin; softmin and
            transport at 10k for d = 2, 5 (rows in registers) and 17, 50, 60,
            196 (the wide body, which each of these must launch; d = 60 also
            at the alanine dipeptide's 4096 evaluation; there transport is
@@ -125,6 +132,16 @@ prints nvcc's register and spill report. Phases:
              rosenbrock_dis (d = 15, the objective metrics) and
              gmm_dds_euler_langevin_init (the CancelDriftCtrl against the
              VP drift): 20 steps, 10k eval;
+             gmm_dis_lerp_prior, gmm_dis_lerp_prior_dim,
+             gmm_dis_lerp_prior_densenet, gmm_pis_lerp, gmm_dis_score,
+             gmm_bridge_lerp_dim, gmm_dis_langevin_init_dim  solvers composed
+                        with another model (model@generative_ctrl=...): the
+                        LerpPriorCtrl form (with a score net of d outputs,
+                        over the DenseNet), the LerpCtrl over PIS's Delta
+                        prior, the ScoreCtrl under the time-reversal loss's
+                        VP, the per-coordinate LerpTargetCtrl and
+                        CancelDriftCtrl instances: FORM_STEPS steps, kernel 1
+                        once a step, 10k eval;
              funnel_dis_explore (exploration noise 0.1 and dropout 0.5 of
              the sde control), funnel_dds_explore (noise 0.1 under kernel
              2's loss; DDS has no SDE for the dropout's neutral control)
@@ -202,7 +219,8 @@ prints nvcc's register and spill report. Phases:
            on the same funnel samples and duals; the gmm_dis_densenet,
            mw_50d_dis_densenet and funnel_dds_densenet steps, and the
            gmm_dis_densenet step again with phase 1 forced through the
-           scan route; print each kernel's
+           scan route; the steps of the solver x model compositions' paths;
+           print each kernel's
            launches per paper-scale DIS run, computed from
            conf/solver/oc_base.yaml; the funnel DIS step again with phase
            1 through the loss's scan route in place of kernel 1, and the
@@ -251,6 +269,8 @@ SHORT_STEPS, SHORT_EVAL = 20, 10_000  # the EulerDDS and PIS paths
 # the host-bound paths, cut to fit the run's time limit: NICE's and the
 # alanine dipeptide's 200 autograd scores a step, and the scan route
 GIVEN_STEPS, SCAN_STEPS = 5, 10
+# the paths of the solver x model compositions (model@generative_ctrl=...)
+FORM_STEPS = 10
 # the alanine dipeptide's batch and evaluation (results/r4/aladip_vacuum_dis)
 ALADIP_BATCH, ALADIP_EVAL = 512, 4096
 RAGGED_BATCH = 2047  # the tiled bodies' rows past the last full block
@@ -312,6 +332,8 @@ SINKHORN = ("softmin", "transport")
 # the base net of conf/model/base/densenet.yaml in place of the FourierMLP
 DENSENET = "model/base@base_model=densenet"
 DENSE_ARCH = (200, 200)
+# a score net of d outputs for a model whose config has one
+TIME_EMBED_DIM = "model/base@generative_ctrl.score_model=time_embed_dim"
 # the Sinkhorn kernels' wide body (d > 16), which the paths of d > 16 take
 # for every launch and no other path takes
 WIDE_SINKHORN = ("softmin.wide", "transport.wide")
@@ -441,6 +463,41 @@ PATHS = {
                                               *WIDE_SINKHORN),
                                      steps=GIVEN_STEPS, eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS,
                                      per_step="rollout.lerp.given.dense", streamed=True),
+    # a solver composed with another model (model@generative_ctrl=...), each
+    # once a step on kernel 1 (`once`: the PIS and Bridge paths checked as
+    # the DIS ones are), FORM_STEPS steps: the LerpPriorCtrl
+    # form (with a score net of d outputs, and over the DenseNet), the
+    # LerpCtrl over PIS's Delta prior on its scaled BM, the ScoreCtrl under
+    # the time-reversal loss's VP, and the per-coordinate LerpTargetCtrl and
+    # CancelDriftCtrl instances
+    "gmm_dis_lerp_prior": dict(target="gmm", solver="dis",
+                               overrides=["model@generative_ctrl=lerp_prior"],
+                               kernels=("rollout.lerp_prior.none", *SINKHORN), steps=FORM_STEPS,
+                               eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dis_lerp_prior_dim": dict(
+        target="gmm", solver="dis",
+        overrides=["model@generative_ctrl=lerp_prior", TIME_EMBED_DIM],
+        kernels=("rollout.lerp_prior.dim", *SINKHORN), steps=FORM_STEPS, eval=SHORT_EVAL,
+        log_z=FINITE_LOG_Z_KEYS),
+    "gmm_dis_lerp_prior_densenet": dict(
+        target="gmm", solver="dis", overrides=["model@generative_ctrl=lerp_prior", DENSENET],
+        kernels=("rollout.lerp_prior.none.dense", *SINKHORN), steps=FORM_STEPS, eval=SHORT_EVAL,
+        log_z=FINITE_LOG_Z_KEYS),
+    "gmm_pis_lerp": dict(target="gmm", solver="pis", overrides=["model@generative_ctrl=lerp"],
+                         kernels=("rollout.lerp.gmm", *SINKHORN), steps=FORM_STEPS,
+                         eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, once=True),
+    "gmm_dis_score": dict(target="gmm", solver="dis", overrides=["model@generative_ctrl=score"],
+                          kernels=("rollout.score.gmm", *SINKHORN), steps=FORM_STEPS,
+                          eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS),
+    "gmm_bridge_lerp_dim": dict(target="gmm", solver="bridge",
+                                overrides=["model@generative_ctrl=lerp_dim"],
+                                kernels=("rollout.lerp_target.dim", *SINKHORN), steps=FORM_STEPS,
+                                eval=SHORT_EVAL, log_z=FINITE_LOG_Z_KEYS, once=True),
+    "gmm_dis_langevin_init_dim": dict(
+        target="gmm", solver="dis",
+        overrides=["model@generative_ctrl=langevin_init", TIME_EMBED_DIM],
+        kernels=("rollout.cancel_drift.dim", *SINKHORN), steps=FORM_STEPS, eval=SHORT_EVAL,
+        log_z=FINITE_LOG_Z_KEYS),
     # the untrained Langevin solver: no training, no log Z; its own config's
     # chains (6000, the Sinkhorn's n) unless cut
     "gmm_langevin": dict(target="gmm", solver="langevin", kernels=SINKHORN, langevin=True),
@@ -480,9 +537,11 @@ POTENTIAL_SOURCE = "sde_sampler_torch/csrc/rollout_potential.cu"
 # live, if not in rollout.cuh; `key`: the launch counter (ops/build.py's
 # FORM_LAUNCHES) that counts it on its paths, if not its label, and that
 # its own check must raise; `seed`: its inputs' seed, if not its place in
-# the list's.
+# the list's; `sde`: its path's SDE (seeded_instance), if not its form's.
+# Its prior, which the lerp forms' control also reads, is PIS's Delta (x0 =
+# 0) on PIS's scaled BM, else N(0, I).
 INSTANCES = {
-    "rollout.lerp.gmm": dict(form="lerp", target="gmm"),
+    "rollout.lerp.gmm": dict(form="lerp", target="gmm", paths=("gmm_dis", "gmm_bridge_diff_init")),
     "rollout.clipped.none": dict(form="clipped", target="gmm"),
     "rollout.score.wells": dict(form="score", target="dw_shift"),
     "rollout_exp.score.wells": dict(form="exp", target="mw"),
@@ -544,6 +603,25 @@ INSTANCES = {
     "rollout.clipped.none.dense": dict(form="clipped", target="gmm", net="dense"),
     "rollout.lerp_target.gmm.dense": dict(form="lerp_target", target="gmm", net="dense"),
     "rollout.cancel_drift.gmm.dense": dict(form="cancel_drift", target="gmm", net="dense"),
+    # the forms of the solver x model compositions, at their paths' shapes:
+    # the LerpPriorCtrl in both bodies, with a score net of d outputs (both
+    # bodies; equal rows give the one-output bits) and over the DenseNet;
+    # the LerpCtrl over PIS's Delta prior on its scaled BM from the Dirac
+    # (it counts the launches of rollout.lerp.gmm on its path); the
+    # LerpTargetCtrl and CancelDriftCtrl with score nets of d outputs; the
+    # ScoreCtrl on the mixture under the time-reversal loss's VP
+    "rollout.lerp_prior.none": dict(form="lerp_prior", target="gmm", bodies=True),
+    "rollout.lerp_prior.dim": dict(form="lerp_prior", target="gmm", bodies=True,
+                                   score_dim=True),
+    "rollout.lerp_prior.none.dense": dict(form="lerp_prior", target="gmm", net="dense"),
+    "rollout.lerp.gmm.delta": dict(form="lerp", target="gmm", sde="bm_pis",
+                                   key="rollout.lerp.gmm", paths=("gmm_pis_lerp",)),
+    "rollout.lerp_target.dim": dict(form="lerp_target", target="gmm", bodies=True,
+                                    score_dim=True),
+    "rollout.cancel_drift.dim": dict(form="cancel_drift", target="gmm", bodies=True,
+                                     score_dim=True),
+    "rollout.score.gmm": dict(form="score", target="gmm", sde="vp", bodies=True,
+                              paths=("gmm_dis_score",)),
     # the Sinkhorn kernels' wide body (d > 16: mw_50d, the alanine dipeptide,
     # NICE), checked at 10k and timed at 100k x 100k, d = 50
     "softmin.wide": dict(sinkhorn=True),
@@ -736,7 +814,7 @@ def conf_target(name: str, device, **kwargs):
 # flops of a form's control and update, and of a target's inline score, per
 # coordinate (rollout_work); a mixture's are counted by its K
 FORM_FLOPS = {"lerp": 17, "lerp_target": 13, "score": 12, "exp": 12, "clipped": 8,
-              "potential": 8, "cancel_drift": 17}
+              "potential": 8, "cancel_drift": 17, "lerp_prior": 15}
 # the rings: |x|, the nearest of 3 radii and the score, about 12 a
 # coordinate at d = 2; the Rosenbrock's score of both neighbours, 14; the
 # image: the pixel's multiply-add, cast and clips, two differences and
@@ -745,17 +823,19 @@ TARGET_FLOPS = {"funnel": 8, "wells": 6, "gmm": 0, "none": 0, "rings": 12, "rose
                 "img": 8, "given": 0}
 
 
-def seeded_instance(device, label, seed, dim=None, batch=None):
+def seeded_instance(device, label, seed, dim=None, batch=None, prior=None):
     """A rollout instance of INSTANCES at its path's shapes, with weights and
     inputs from a numpy seed: the path's control (conf/model/*.yaml, clips
-    10/10), SDE (conf/sde/*.yaml) and grid, x0 from its prior (0 for the
-    PIS Dirac). Returns (run, plain, prepare, x0, ts, noise, work), run,
-    plain and prepare (the checked inputs and tables of a launch) taking
-    (x0, ts, noise). `dim` replaces the target's dimension for a form
-    without a target (the PotentialCtrl), `batch` the path's batch."""
+    10/10), SDE (SDES) and grid, x0 from its prior (0 for PIS's Delta).
+    Returns (run, plain, prepare, x0, ts, noise, work), run, plain and
+    prepare (the checked inputs and tables of a launch) taking (x0, ts,
+    noise). `dim` replaces the target's dimension for a form without a
+    target (the PotentialCtrl), `batch` the path's batch, `prior` the lerp
+    forms' prior (a Gauss; x0 stays N(0, I))."""
     import numpy as np
     import torch
 
+    from sde_sampler_torch.distr.delta import Delta
     from sde_sampler_torch.distr.gauss import IsotropicGauss
     from sde_sampler_torch.eq.sdes import VP, ScaledBM
     from sde_sampler_torch.models.mlp import DenseNet, FourierMLP, TimeEmbed
@@ -763,6 +843,7 @@ def seeded_instance(device, label, seed, dim=None, batch=None):
         CancelDriftCtrl,
         ClippedCtrl,
         LerpCtrl,
+        LerpPriorCtrl,
         LerpTargetCtrl,
         PotentialCtrl,
         ScoreCtrl,
@@ -783,27 +864,32 @@ def seeded_instance(device, label, seed, dim=None, batch=None):
     score_net = lambda bias: TimeEmbed(dim_out=d if spec.get("score_dim") else 1, num_layers=4,
                                        channels=WIDTH, last_bias_init={"constant": bias})
     clips = {"clip_model": 10.0, "clip_score": 10.0}
-    sde = None
-    if form == "lerp":
-        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
-        ctrl = LerpCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
-                        prior_score=IsotropicGauss(dim=d).score, target_score=target.score,
-                        **clips)
-    elif form == "lerp_target":  # solver=bridge: conf/sde/bm.yaml
-        sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
+    # the path's SDE (conf/sde/*.yaml: vp_10, the Bridge's bm, PIS's scaled
+    # BM, the ScoreCtrl's default; DDS's exponential integrator takes none)
+    # and prior
+    sdes = {"vp": lambda: VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0),
+            "bm": lambda: ScaledBM(diff_coeff=1.0, terminal_t=1.0),
+            "bm_pis": lambda: ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0)}
+    sde_name = spec.get("sde", {"lerp_target": "bm", "score": "bm_pis"}.get(form, "vp"))
+    sde = None if form == "exp" else sdes[sde_name]()
+    delta = sde_name == "bm_pis"
+    if prior is None:
+        prior = Delta(dim=d) if delta else IsotropicGauss(dim=d)
+    prior = prior.to(device)
+    if form in ("lerp", "lerp_prior"):
+        cls = LerpCtrl if form == "lerp" else LerpPriorCtrl
+        ctrl = cls(base_model=base, score_model=score_net(1.0), sde=sde, prior_score=prior.score,
+                   target_score=target.score, **clips)
+    elif form == "lerp_target":  # solver=bridge
         ctrl = LerpTargetCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
                               target_score=target.score, **clips)
     elif form in ("clipped", "potential"):  # conf/model/{clipped,potential}.yaml
-        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
         cls = ClippedCtrl if form == "clipped" else PotentialCtrl
         ctrl = cls(base_model=base, clip_model=10.0, sde=sde)
-    elif form == "cancel_drift":  # dds_euler + conf/model/langevin_init.yaml on vp_10
-        sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0, terminal_t=1.0)
+    elif form == "cancel_drift":  # dds_euler + conf/model/langevin_init.yaml
         ctrl = CancelDriftCtrl(base_model=base, score_model=score_net(1.0), sde=sde,
                                target_score=target.score, langevin_init=True, **clips)
     else:
-        if form == "score":  # PIS: the scaled BM of conf/sde/bm_pis.yaml
-            sde = ScaledBM(diff_coeff=0.4472135954999579, terminal_t=5.0)
         ctrl = ScoreCtrl(base_model=base, score_model=score_net(0.01),
                          target_score=target.score, **clips)
     rng = np.random.default_rng(seed)
@@ -824,7 +910,7 @@ def seeded_instance(device, label, seed, dim=None, batch=None):
         ts = torch.linspace(0.0, sde.terminal_t, STEPS + 1, device=device)
     T = ts.shape[0] - 1
     batch = batch or spec.get("batch", BATCH)
-    x0 = f(rng.standard_normal((batch, d)) * (0.0 if form == "score" else 1.0))
+    x0 = f(rng.standard_normal((batch, d)) * (0.0 if delta else 1.0))
     noise = f(rng.standard_normal((T, batch, d)))
     if form == "exp":
         run = lambda x, t, n: ro.fused_rollout_exp(ctrl, x, t, n, DDS_ALPHA, DDS_SIGMA, clips)
@@ -1107,6 +1193,37 @@ def phase_kernels(device, report):
                 fail(f"{label}: equal rows do not give the one-output instance's bits ({body})")
         report[label]["equal_rows_bits"] = True
 
+    # the lerp forms' Gauss prior, its loc and variance read per coordinate:
+    # an IsotropicGauss's from its host floats, a diagonal Gauss's (PIS's
+    # Delta) from its tensors. The same prior given either way must give the
+    # same bits, and a Gauss of unequal coordinates must agree with the
+    # plain twin
+    from sde_sampler_torch.distr.gauss import Gauss, IsotropicGauss
+
+    for label in ("rollout.lerp.gmm", "rollout.lerp_prior.none"):
+        k = report[label]
+        outs = []
+        for prior in (IsotropicGauss(dim=2, loc=0.5, scale=1.5), Gauss(dim=2, loc=0.5, scale=1.5)):
+            run, _, _, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 70, prior=prior)
+            outs.append(run(x0i, tsi, noisei))
+        k["iso_vs_gauss_prior_bits"] = all(torch.equal(a, b) for a, b in zip(*outs))
+        print(f"kernel {label}: an IsotropicGauss prior vs an equal diagonal Gauss: the same "
+              f"bits: {k['iso_vs_gauss_prior_bits']}", flush=True)
+        if not k["iso_vs_gauss_prior_bits"]:
+            fail(f"{label}: an IsotropicGauss prior and an equal Gauss give different bits")
+        # (in the fast body a thread's coordinate keeps its prior in
+        # registers, in the generic body a block's prior sits in shared
+        # memory)
+        unequal = Gauss(dim=2, loc=[0.5, -1.0], scale=[1.0, 2.0])
+        run, plain, prepare, x0i, tsi, noisei, _ = seeded_instance(device, label, SEED + 71,
+                                                                   prior=unequal)
+        for body in ("fast", "generic"):
+            check_rollout(f"{label}, a Gauss prior of unequal coordinates, {body} body",
+                          lambda x, t, n: ro._launch(prepare(x, t, n), body), plain, x0i, tsi,
+                          noisei, "gauss_prior", report)
+            k[f"gauss_prior_{body}_max_abs_err"] = report.pop("gauss_prior")["max_abs_err"]
+            k["max_abs_err"] = max(k["max_abs_err"], k[f"gauss_prior_{body}_max_abs_err"])
+
     for name in ("softmin", "transport", *WIDE_SINKHORN):
         report[name] = {"max_abs_err": 0.0}
     # the paths' evaluation widths at their 10k evaluation: gmm (2), mw (5),
@@ -1288,7 +1405,8 @@ def drive_path(path: str, train_steps: int, eval_batch: int, report):
                  f"for {train_steps} optimizer steps, expected {train_steps} and 0")
     elif scan_calls:
         fail(f"{path}: phase 1 took the scan route {scan_calls} times, expected 0")
-    if not spec.get("langevin") and not spec.get("scan") and spec["solver"] == "dis":
+    if not spec.get("langevin") and not spec.get("scan") and (spec["solver"] == "dis"
+                                                               or spec.get("once")):
         # kernel 1 once per optimizer step, or, for a given score, once per
         # EM step of it (the evaluation's rollout is the plain loop)
         key = spec.get("per_step") or spec["kernels"][0]
@@ -2111,7 +2229,17 @@ def phase_timing(solvers, device, report, instances=None):
                        ("img_dis", "img_step", "Image DIS"),
                        ("gmm_dis_densenet", "gmm_densenet_step", "GMM DIS DenseNet"),
                        ("mw_50d_dis_densenet", "mw50_densenet_step", "mw_50d DIS DenseNet"),
-                       ("funnel_dds_densenet", "dds_densenet_step", "DDS DenseNet"))
+                       ("funnel_dds_densenet", "dds_densenet_step", "DDS DenseNet"),
+                       # the solver x model compositions, beside GMM DIS's step
+                       ("gmm_dis_lerp_prior", "lerp_prior_step", "GMM DIS lerp_prior"),
+                       ("gmm_dis_lerp_prior_dim", "lerp_prior_dim_step", "GMM DIS lerp_prior (d)"),
+                       ("gmm_dis_lerp_prior_densenet", "lerp_prior_densenet_step",
+                        "GMM DIS lerp_prior DenseNet"),
+                       ("gmm_pis_lerp", "pis_lerp_step", "GMM PIS lerp"),
+                       ("gmm_dis_score", "dis_score_step", "GMM DIS score"),
+                       ("gmm_bridge_lerp_dim", "bridge_lerp_dim_step", "GMM Bridge lerp_dim"),
+                       ("gmm_dis_langevin_init_dim", "langevin_init_dim_step",
+                        "GMM DIS langevin_init (d)"))
         for path, key, label in plain_steps:
             if path in solvers:
                 solver = solvers[path]

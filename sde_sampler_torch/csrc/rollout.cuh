@@ -15,6 +15,10 @@
 //   kernel 1 only; no prior):
 //     u = clip(FourierMLP(s, x), clip_model) * ctrl_scale[k]
 //         + diff[k] * sscore[k] * clip(w[k] * target score, clip_score)
+//   lerp_prior (LerpPriorCtrl, model=lerp_prior; kernel 1 only; no target,
+//   w[k] = 1 - t / T and the hard constraint's factor 2 t / T):
+//     u = clip(FourierMLP(s, x), clip_model) * ctrl_scale[k]
+//         + diff[k] * sscore[k] * clip(w[k] * prior score, clip_score)
 //   score (ScoreCtrl, PIS / EulerDDS / DDS):
 //     u = clip(FourierMLP(s, x), clip_model) + sscore[k] * clip(target score,
 //                                                              clip_score)
@@ -39,8 +43,10 @@
 // where, for the exponential integrator, beta_k = clip(alpha sqrt(dt), 0, 1),
 // a = sqrt(1 - beta^2), b2s2 = beta^2 sigma^2, sb = sigma beta and eps is a
 // standard normal; a step with dt = 0 has a = 1, b2s2 = sb = 0 and passes
-// the state through. The IsotropicGauss prior score (loc - x) / scale^2 and
-// the target scores are inline device functions:
+// the state through. The Gauss prior's score (loc - x) / scale^2 (an
+// IsotropicGauss or a diagonal Gauss such as PIS's Delta, its loc and
+// variance per coordinate, staged in shared memory) and the target scores
+// are inline device functions:
 //
 //   funnel: (-x0 / var - (d - 1) / 2 + sum_{j>0} x_j^2 e^-x0 / 2, -x_j e^-x0),
 //     from the row reductions x0 and sum_{j>0} x_j^2;
@@ -97,9 +103,9 @@
 // ClippedCtrl; clip(score_net(s), clip_model) alone for cancel_drift).
 // A score net with one output per coordinate (model=lerp_dim, score_dim:
 // TimeEmbed with dim_out = d) makes sscore a row of d per step: its
-// instances (kPerCoord, the lerp and score forms of kernel 1 and kernel 2)
-// read a table of kTab + d columns a step, sscore[j] in column kTab + j
-// (column 4 unused), and multiply coordinate j's score term by it; every
+// instances (kPerCoord, every form with a score net, of kernel 1 and
+// kernel 2) read a table of kTab + d columns a step, sscore[j] in column
+// kTab + j (column 4 unused), and multiply coordinate j's score term by it; every
 // other instance reads column 4 of a kTab-wide table, with the same code
 // as before. A row of equal sscores gives the one-output instance's bits.
 // xs[k] receives the state before step k (xs[0] = x0) and x_T the state
@@ -166,9 +172,11 @@
 // This header holds the bodies and their launch code. Each control form's
 // instances (every target and d) compile in a source of their own
 // (rollout_lerp.cu, rollout_lerp_target.cu, rollout_score.cu,
-// rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu, and the
-// per-coordinate sscore's rollout_lerp_dim.cu, rollout_score_dim.cu,
-// rollout_exp_dim.cu; the
+// rollout_clipped.cu, rollout_cancel_drift.cu, rollout_exp.cu,
+// rollout_lerp_prior.cu, and the per-coordinate sscore's
+// rollout_lerp_dim.cu, rollout_score_dim.cu, rollout_exp_dim.cu,
+// rollout_lerp_target_dim.cu, rollout_cancel_drift_dim.cu; the lerp_prior
+// form's, of one target, also hold its per-coordinate instances; the
 // potential form's bodies, which run the net's backward pass too, live in
 // rollout_potential.cu over this header's copies, tiles and plan),
 // so that the build runs one nvcc per form side by side; rollout.cu holds
@@ -213,6 +221,7 @@ constexpr int kClippedEm = 3;  // kernel 1, ClippedCtrl (no score)
 constexpr int kLerpTargetEm = 4;  // kernel 1, LerpTargetCtrl (Bridge)
 constexpr int kPotentialEm = 5;   // kernel 1, PotentialCtrl (SubtrajBridge)
 constexpr int kCancelDriftEm = 6;  // kernel 1, CancelDriftCtrl (langevin_init)
+constexpr int kLerpPriorEm = 7;    // kernel 1, LerpPriorCtrl (model=lerp_prior)
 
 // Target whose score an instance inlines.
 constexpr int kFunnel = 0;
@@ -231,11 +240,13 @@ constexpr int kGiven = 7;     // any target: its score of this step, given as a 
 // other targets); n_tab the floats of the target's table that the bodies
 // stage in shared memory: the mixture's K (2 D + 1), the rings' radii,
 // else 0 (the image's energy table, tab_h rows of tab_w pixels, is read
-// from device memory).
+// from device memory). prior_loc and prior_var: the lerp forms' prior, its
+// D locs and variances in device memory (null in the other forms).
 struct Consts {
-  float clip_model, clip_score, prior_loc, prior_var;
+  float clip_model, clip_score;
   float t0, t1, t2, t3;
   int K, n_tab, tab_w, tab_h;
+  const float *prior_loc, *prior_var;
 };
 
 // Floats per row of the row reductions in shared memory: the mixture's K
@@ -416,17 +427,63 @@ __device__ __forceinline__ float step_sscore(const float* st, int j) {
   }
 }
 
+// Whether a form reads the Gauss prior (Consts.prior_loc, prior_var).
+template <int kForm>
+constexpr bool kReadsPrior = kForm == kLerpEm || kForm == kLerpPriorEm;
+
+// The Gauss prior's (loc, variance) at coordinate j: from the pairs that a
+// body staged in shared memory once a launch (stage_prior), or ({0, 1},
+// unread) in the forms without a prior. The bodies read a pair at every
+// update: the fast body ran 2-3% slower at d = 2 with its pair held in
+// registers across the steps, or read at an offset computed at run time
+// (PERF.md §6).
+template <int kForm>
+__device__ __forceinline__ float2 prior_at(const float2* pairs, int j) {
+  if constexpr (kReadsPrior<kForm>)
+    return pairs[j];
+  else
+    return make_float2(0.0f, 1.0f);
+}
+
+// The same from the prior's two arrays in device memory (the wide body's
+// one-step launches).
+template <int kForm>
+__device__ __forceinline__ float2 prior_at(const Consts& cs, int j) {
+  if constexpr (kReadsPrior<kForm>)
+    return make_float2(cs.prior_loc[j], cs.prior_var[j]);
+  else
+    return make_float2(0.0f, 1.0f);
+}
+
+// Stage the prior's D (loc, variance) pairs in shared memory, before a
+// barrier.
+template <int kForm>
+__device__ __forceinline__ void stage_prior(float2* pairs, const Consts& cs, int D) {
+  if constexpr (kReadsPrior<kForm>) {
+    for (int j = threadIdx.x; j < D; j += blockDim.x)
+      pairs[j] = make_float2(cs.prior_loc[j], cs.prior_var[j]);
+  }
+}
+
+// The Gauss prior's score at state x from its loc and variance p.
+__device__ __forceinline__ float prior_score(float x, float2 p) { return (p.x - x) / p.y; }
+
 // One coordinate's update from its net output `net`, its target score
-// `target`, the step's scalars `st` and its sscore.
+// `target`, the step's scalars `st`, its sscore and its prior's loc and
+// variance p (prior_at).
 template <int kForm>
 __device__ __forceinline__ float step_update(float x, float net, float target,
                                              const float* st, float sscore, float db,
-                                             const Consts& cs) {
+                                             const Consts& cs, float2 p) {
   const float drift = st[0], diff = st[1], dt = st[2], w = st[3];
   const float cscale = st[5];
   if constexpr (kForm == kLerpEm) {
-    const float prior = (cs.prior_loc - x) / cs.prior_var;
+    const float prior = prior_score(x, p);
     const float lerp = clip(prior + (target - prior) * w, cs.clip_score);
+    const float u = clip(net, cs.clip_model) * cscale + diff * (sscore * lerp);
+    return x + (drift * x + diff * u) * dt + diff * db;
+  } else if constexpr (kForm == kLerpPriorEm) {  // w = 1 - t / T
+    const float lerp = clip(w * prior_score(x, p), cs.clip_score);
     const float u = clip(net, cs.clip_model) * cscale + diff * (sscore * lerp);
     return x + (drift * x + diff * u) * dt + diff * db;
   } else if constexpr (kForm == kLerpTargetEm) {
@@ -707,15 +764,17 @@ __device__ __forceinline__ float* hidden_layers_reg(float* in, float* out,
 // buffers, the state tile (row stride D, as row_phase reads it, and a copy
 // of row stride pad4(D) for the input layer's float4 reads where D % 4 !=
 // 0), the noise of two steps, a given score's tile, the row reductions and
-// the target's table. `total` is the size in floats, -1 for shapes past
-// any block.
+// the target's table, and the lerp forms' prior (`prior`: D (loc,
+// variance) pairs). `total` is the size in floats, -1 for shapes past any
+// block.
 struct GenericLayout {
-  int win, whid, bhid, wout, bout, a, b, xa, x, db, sc, row, gmm;
+  int win, whid, bhid, wout, bout, a, b, xa, x, db, sc, row, gmm, prior;
   long long total;
 };
 
 __host__ __device__ inline GenericLayout generic_layout(int D, int C, int H, int R, int RS,
-                                                        int n_tab, bool given, bool reg) {
+                                                        int n_tab, bool given, bool reg,
+                                                        bool prior) {
   GenericLayout l{};
   if ((long long)D * C > (1 << 24) || (long long)H * C * C > (1 << 24) || D > (1 << 20)) {
     l.total = -1;
@@ -737,6 +796,7 @@ __host__ __device__ inline GenericLayout generic_layout(int D, int C, int H, int
   l.sc = o, o += given ? pad4(RP * D) : 0;
   l.row = o, o += pad4(RP * RS);
   l.gmm = o, o += pad4(n_tab);
+  l.prior = o, o += prior ? 2 * DP : 0;  // o stays a multiple of 4: pairs aligned
   l.total = o;
   return l;
 }
@@ -764,7 +824,8 @@ __global__ void __launch_bounds__(kReg ? kRegThreads : kTileThreads) rollout_gen
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int RS = row_floats(kTarget, cs.K, D);
-  const GenericLayout L = generic_layout(D, C, H, R, RS, cs.n_tab, kTarget == kGiven, kReg);
+  const GenericLayout L =
+      generic_layout(D, C, H, R, RS, cs.n_tab, kTarget == kGiven, kReg, kReadsPrior<kForm>);
   const int RP = kReg ? kRegRows : pad4(R), CP = pad4(C), DP = pad4(D);
   float* s_win = sm + L.win;    // (D, CP) input_embed weight, (in, out)
   float* s_whid = sm + L.whid;  // (H, C, CP)
@@ -779,6 +840,7 @@ __global__ void __launch_bounds__(kReg ? kRegThreads : kTileThreads) rollout_gen
   float* s_sc = sm + L.sc;      // (RP, D) a given score
   float* s_row = sm + L.row;    // (RP, RS) the target's row reductions
   float* s_gmm = sm + L.gmm;    // (n_tab) the target's table
+  float2* s_prior = reinterpret_cast<float2*>(sm + L.prior);  // (D) the prior's pairs
   const int db_floats = pad4(RP * D);
 
   const int tid = threadIdx.x;
@@ -802,6 +864,7 @@ __global__ void __launch_bounds__(kReg ? kRegThreads : kTileThreads) rollout_gen
   copy_async(s_bout, b_out, D);
   if constexpr (kTarget != kImg && kTarget != kGiven) copy_async(s_gmm, gmm, cs.n_tab);
   if constexpr (kTarget == kGiven) copy_async(s_sc, gmm + tile_off, nx);
+  stage_prior<kForm>(s_prior, cs, D);
   copy_async(s_x, x0 + tile_off, nx);
   copy_async(s_db, dbs + tile_off, nx);
   for (int i = nx + tid; i < RP * D; i += NT) s_x[i] = 0.0f;  // rows past B
@@ -879,7 +942,8 @@ __global__ void __launch_bounds__(kReg ? kRegThreads : kTileThreads) rollout_gen
           const float target =
               target_score<kTarget>(s_x[i], o, D, rows + r * row_stride, table, cs);
           const float x = step_update<kForm>(s_x[i], acc[rr][cc], target, st,
-                                             step_sscore<kPerCoord>(st, o), db_k[i], cs);
+                                             step_sscore<kPerCoord>(st, o), db_k[i], cs,
+                                             prior_at<kForm>(s_prior, o));
           s_x[i] = x;
           s_xa[r * DP + o] = x;
         }
@@ -1085,9 +1149,10 @@ __global__ void __launch_bounds__(kTileThreads) rollout_wide_kernel(
           // the given score of this coordinate (target_score<kGiven> reads row[j])
           const float target =
               target_score<kGiven>(xv[rr][cc], 0, D, &sv[rr][cc], nullptr, cs);
+          const int j = min(o0 + q0 + cc, D - 1);
           x1[cc] = step_update<kForm>(xv[rr][cc], out[rr][cc], target, tab,
-                                      step_sscore<kPerCoord>(tab, min(o0 + q0 + cc, D - 1)),
-                                      dv[rr][cc], cs);
+                                      step_sscore<kPerCoord>(tab, j), dv[rr][cc], cs,
+                                      prior_at<kForm>(cs, j));
         }
         const size_t i = tile_off + (size_t)r * D + o0 + q0;
         if (vec) {
@@ -1283,16 +1348,16 @@ static_assert(sizeof(DenseLayer) % 16 == 0, "the layer table keeps the layout's 
 // state tile and
 // its rows' net outputs (RP, D), two steps' rows of the t table (stride tp)
 // and of the noise (stride dp), the row reductions, the target's table, the
-// layer table and the ring of kDenseStages stages of S x dense_ring_cols
-// floats (S > 0). `total` is the size in floats, -1 for shapes past any
-// block.
+// lerp forms' prior (`prior`: D (loc, variance) pairs), the layer table and the ring of kDenseStages stages of S x
+// dense_ring_cols floats (S > 0). `total` is the size in floats, -1 for
+// shapes past any block.
 struct DenseLayout {
-  int w, h, x, out, t, db, row, gmm, lay, ring, stage, ldh, tp, dp;
+  int w, h, x, out, t, db, row, gmm, prior, lay, ring, stage, ldh, tp, dp;
   long long total;
 };
 
 __host__ __device__ inline DenseLayout dense_layout(int D, const DenseDims& n, int R, int RS,
-                                                    int n_tab, int S) {
+                                                    int n_tab, int S, bool prior) {
   DenseLayout l{};
   const long long packed = dense_offset(n, D, n.H + 1);
   const long long width = dense_in(n, D, n.H);
@@ -1315,6 +1380,7 @@ __host__ __device__ inline DenseLayout dense_layout(int D, const DenseDims& n, i
   l.db = (int)o, o += 2LL * l.dp;
   l.row = (int)o, o += pad4(RP * RS);
   l.gmm = (int)o, o += pad4(n_tab);
+  l.prior = (int)o, o += prior ? 2 * pad4(D) : 0;
   l.lay = (int)o, o += (long long)(kDenseMaxLayers + 1) * kDenseLayerFloats;
   l.stage = S > 0 ? S * dense_ring_cols(n, D, RP) : 0;
   l.ring = (int)o, o += (long long)kDenseStages * l.stage;
@@ -1577,7 +1643,7 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int RS = row_floats(kTarget, cs.K, D);
-  const DenseLayout L = dense_layout(D, net, R, RS, cs.n_tab, S);
+  const DenseLayout L = dense_layout(D, net, R, RS, cs.n_tab, S, kReadsPrior<kForm>);
   const int RP = pad4(R), LDH = L.ldh, H = net.H;
   float* s_w = sm + L.w;        // the weights (resident)
   float* s_h = sm + L.h;        // (RP, LDH) the activations of the block's rows
@@ -1587,6 +1653,7 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
   float* s_db = sm + L.db;      // 2 x (RP, D) the noise of two steps
   float* s_row = sm + L.row;    // (RP, RS) the target's row reductions
   float* s_gmm = sm + L.gmm;    // (n_tab) the target's table
+  float2* s_prior = reinterpret_cast<float2*>(sm + L.prior);  // (D) the prior's pairs
   float* s_ring = sm + L.ring;  // kDenseStages slices (streamed)
   DenseLayer* s_lay = reinterpret_cast<DenseLayer*>(sm + L.lay);  // the layers' figures
   const int tw = dense_in(net, D, H);  // the t table's columns: the widths, then D
@@ -1634,6 +1701,7 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
     }
   }
   if constexpr (kTarget != kImg && kTarget != kGiven) copy_async(s_gmm, gmm, cs.n_tab);
+  stage_prior<kForm>(s_prior, cs, D);
   copy_async(s_x, x0 + tile_off, nx);
   prefetch(0);
   cp_async_commit();
@@ -1704,7 +1772,8 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
       else
         target = target_score<kTarget>(x, o, D, s_row + r * RS, table, cs);
       const float xn = step_update<kForm>(x, s_out[i], target, st, step_sscore<kPerCoord>(st, o),
-                                          db_k[i], cs);
+                                          db_k[i], cs,
+                                          prior_at<kForm>(s_prior, o));
       s_x[i] = xn;
       dst[i] = xn;
       if (k + 1 < T) s_h[r * LDH + o] = xn;
@@ -1720,11 +1789,18 @@ __global__ void __launch_bounds__(kDenseThreads, 1) rollout_dense_kernel(
 // ---------------------------------------------------------------- fast
 
 // Floats of shared memory the fast body needs at a given D and T, with RS
-// floats of row reductions a row, a target table of n_tab floats and TS
-// columns of the per-step table.
-__host__ __device__ constexpr size_t fast_smem_floats(int D, int T, int RS, int n_tab, int TS) {
-  return (size_t)T * kFastC + (size_t)T * TS + 2 * kFastRows * kActStride + D +
-         3 * (size_t)kFastRows * D + (size_t)kFastRows * RS + (size_t)n_tab;
+// floats of row reductions a row, a target table of n_tab floats, TS
+// columns of the per-step table and, with `prior`, the prior's D (loc,
+// variance) pairs first (fast_prior_floats).
+__host__ __device__ constexpr int fast_prior_floats(int D, bool prior) {
+  return prior ? pad4(2 * D) : 0;
+}
+
+__host__ __device__ constexpr size_t fast_smem_floats(int D, int T, int RS, int n_tab, int TS,
+                                                      bool prior) {
+  return fast_prior_floats(D, prior) + (size_t)T * kFastC + (size_t)T * TS +
+         2 * kFastRows * kActStride + D + 3 * (size_t)kFastRows * D + (size_t)kFastRows * RS +
+         (size_t)n_tab;
 }
 
 template <int kForm, int kTarget, int D, bool kPerCoord>
@@ -1741,8 +1817,11 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   constexpr int TS = tab_cols<kPerCoord>(D);
   const int RS = row_floats(kTarget, cs.K, D);
   extern __shared__ float4 sm4[];
-  // float4-read arrays first, each at a multiple of 4 floats
-  float* s_temb = reinterpret_cast<float*>(sm4);  // (T, C)
+  // the prior's pairs at offset 0 (see prior_at), then float4-read arrays,
+  // each at a multiple of 4 floats
+  float2* s_prior = reinterpret_cast<float2*>(sm4);  // (D) the prior's pairs
+  float* s_temb =                                    // (T, C)
+      reinterpret_cast<float*>(sm4) + fast_prior_floats(D, kReadsPrior<kForm>);
   float* s_a = s_temb + (size_t)T * C;            // (R, AS) activations, ping
   float* s_b = s_a + R * AS;                      // (R, AS) activations, pong
   float* s_tab = s_b + R * AS;                    // (T, TS)
@@ -1783,6 +1862,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
   copy_in(s_tab, tab, T * TS);
   copy_in(s_bout, b_out, D);
   copy_in(s_gmm, gmm, cs.n_tab);
+  stage_prior<kForm>(s_prior, cs, D);
   for (int i = tid; i < R * D; i += NT) {
     s_x[i] = i < nx ? x0[tile_off + i] : 0.0f;
     if (i >= nx) s_db[i] = s_db[R * D + i] = 0.0f;  // rows past B
@@ -1878,7 +1958,7 @@ __global__ void __launch_bounds__(kFastThreads, 2) rollout_fast_kernel(
             target_score<kTarget>(s_x[i], o_col, D, s_row + o_row * RS, table, cs);
         const float* st = s_tab + k * TS;
         s_x[i] = step_update<kForm>(s_x[i], o, target, st, step_sscore<kPerCoord>(st, o_col),
-                                    s_db[(k & 1) * R * D + i], cs);
+                                    s_db[(k & 1) * R * D + i], cs, prior_at<kForm>(s_prior, o_col));
       }
     }
     __syncthreads();
@@ -1936,7 +2016,8 @@ inline bool reg_path(const Args& a) { return a.C == kFastC && a.H == kFastH; }
 // (-1 past any block).
 inline long long generic_smem(const Args& a, int R) {
   const GenericLayout l = generic_layout(a.D, a.C, a.H, R, row_floats(a.target, a.cs.K, a.D),
-                                         a.cs.n_tab, a.target == kGiven, reg_path(a));
+                                         a.cs.n_tab, a.target == kGiven, reg_path(a),
+                                         a.cs.prior_loc != nullptr);
   return l.total < 0 ? -1 : (long long)sizeof(float) * l.total;
 }
 
@@ -2044,7 +2125,7 @@ template <int kForm, int kTarget, int D, bool kPerCoord>
 cudaError_t launch_fast(const Args& a) {
   const size_t smem =  // fast_fits
       sizeof(float) * fast_smem_floats(D, a.T, row_floats(kTarget, a.cs.K, D), a.cs.n_tab,
-                                       tab_cols<kPerCoord>(D));
+                                       tab_cols<kPerCoord>(D), a.cs.prior_loc != nullptr);
   const int blocks = (a.B + kFastRows - 1) / kFastRows;
   if (a.plan != nullptr) *a.plan = Plan{kFastRows, blocks, (int)smem, 0};
   if (a.dry) return cudaSuccess;
@@ -2100,7 +2181,7 @@ cudaError_t launch_wide(const Args& a) {
 // S rows (0: resident), -1 past any block.
 inline long long dense_smem(const Args& a, int R, int S) {
   const DenseLayout l = dense_layout(a.D, a.dense, R, row_floats(a.target, a.cs.K, a.D),
-                                     a.cs.n_tab, S);
+                                     a.cs.n_tab, S, a.cs.prior_loc != nullptr);
   return l.total < 0 ? -1 : (long long)sizeof(float) * l.total;
 }
 
@@ -2153,7 +2234,8 @@ int launch_dense(const Args& a, int body, int* used) {
 inline bool fast_fits(const Args& a) {
   return a.C == kFastC && a.H == kFastH && a.D >= 1 && a.D <= 16 && a.target != kGiven &&
          sizeof(float) * fast_smem_floats(a.D, a.T, row_floats(a.target, a.cs.K, a.D),
-                                          a.cs.n_tab, a.per_coord ? kTab + a.D : kTab) <=
+                                          a.cs.n_tab, a.per_coord ? kTab + a.D : kTab,
+                                          a.cs.prior_loc != nullptr) <=
              kMaxSmem;
 }
 
@@ -2258,6 +2340,10 @@ int launch_score_dim(const Args& a, int body, int* used);
 int launch_clipped(const Args& a, int body, int* used);
 int launch_potential(const Args& a, int body, int* used);
 int launch_cancel_drift(const Args& a, int body, int* used);
+int launch_lerp_target_dim(const Args& a, int body, int* used);
+int launch_cancel_drift_dim(const Args& a, int body, int* used);
+int launch_lerp_prior(const Args& a, int body, int* used);
+int launch_lerp_prior_dim(const Args& a, int body, int* used);
 int launch_exp(const Args& a, int body, int* used);
 int launch_exp_dim(const Args& a, int body, int* used);
 

@@ -338,14 +338,26 @@ class BaseOCLoss:
         return None, None
 
     # -- phase 1 ----------------------------------------------------------------
-    def _phase1(self, ts, x, noise, explore, update="em", sde=None):
+    # phase 1's update: "em" integrates the loss's SDE (kernel 1), as the
+    # scan route's step and the JAX package's kernel step do, whatever the
+    # control; "exp" the exponential integrator (kernel 2), which takes no SDE
+    update = "em"
+
+    def phase1_route(self, on_card: bool = False) -> tuple[str, str | None]:
+        """The route of phase 1 for the bound control (`ops/rollout.py::
+        phase1_route`); raises where no route runs it."""
+        from sde_sampler_torch.ops import rollout
+
+        sde = self.sde if self.update == "em" else None
+        return rollout.phase1_route(self.ctrl_module, sde, self.update, self.sim_backend,
+                                    self.explores, on_card=on_card)
+
+    def _phase1(self, ts, x, noise, explore):
         """Value-only rollout recording every pre-step state: (xs, x_T),
         through the route that `phase1_route` picks (logged once per loss)."""
         from sde_sampler_torch.ops import rollout
 
-        route, reason = rollout.phase1_route(
-            self.ctrl_module, sde, update, self.sim_backend, self.explores,
-            on_card=x.device.type == "cuda")
+        route, reason = self.phase1_route(on_card=x.device.type == "cuda")
         if (route, reason) not in self._routes_logged:
             self._routes_logged.add((route, reason))
             logging.info("Phase 1 of %s takes the %s route%s.", type(self).__name__,
@@ -354,8 +366,10 @@ class BaseOCLoss:
             return self._kernel_rollout(ts, x, noise)
         return rollout.scan_rollout(self._scan_step(ts, noise, explore), x, ts, noise)
 
-    def _kernel_rollout(self, ts, x, noise):
-        raise NotImplementedError
+    def _kernel_rollout(self, ts, x, dbs):
+        from sde_sampler_torch.ops.rollout import fused_rollout
+
+        return fused_rollout(self.ctrl_module, x, ts, dbs, self.ctrl_clips, sde=self.sde)
 
     def _scan_step(self, ts, dbs, explore):
         """The scan route's EM step k: x + (f(s, x) + σ(s)·u)·dt + σ(s)·db_k
@@ -578,11 +592,6 @@ class TimeReversalLoss(BaseOCLoss):
         xs = torch.stack(traj) if return_traj else None
         return RolloutResult(x, rnd + ito, rnd, xs)
 
-    def _kernel_rollout(self, ts, x, dbs):
-        from sde_sampler_torch.ops.rollout import fused_rollout
-
-        return fused_rollout(self.ctrl_module, x, ts, dbs, self.ctrl_clips)
-
     def _two_phase_loss(
         self, ts, x, terminal_unnorm_log_prob, initial_log_prob,
         dbs=None, generator=None, probes=None, explore=None,
@@ -728,16 +737,6 @@ class ReferenceSDELoss(BaseOCLoss):
         xs = torch.stack(traj) if return_traj else None
         return RolloutResult(x, rnd + ito, rnd, xs)
 
-    def _phase1(self, ts, x, dbs, explore):
-        return super()._phase1(ts, x, dbs, explore, sde=self.sde)
-
-    def _kernel_rollout(self, ts, x, dbs):
-        from sde_sampler_torch.ops.rollout import fused_rollout
-
-        return fused_rollout(
-            self.ctrl_module, x, ts, dbs, self.ctrl_clips, sde=self.sde
-        )
-
     def _two_phase_loss(
         self, ts, x, terminal_unnorm_log_prob, reference_log_prob,
         dbs=None, generator=None, explore=None,
@@ -820,6 +819,8 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
     are those of ReferenceSDELoss.
     """
 
+    update = "exp"
+
     def __init__(self, *args, alpha: float, sigma: float, **kwargs):
         super().__init__(*args, **kwargs)
         self.alpha = float(alpha)
@@ -873,9 +874,6 @@ class ExponentialIntegratorSDELoss(BaseOCLoss):
         rnd = rnd + reference_log_prob(x) - terminal_unnorm_log_prob(x)
         xs = torch.stack(traj) if return_traj else None
         return RolloutResult(x, rnd + ito, rnd, xs)
-
-    def _phase1(self, ts, x, noise, explore):
-        return super()._phase1(ts, x, noise, explore, update="exp")
 
     def _kernel_rollout(self, ts, x, noise):
         from sde_sampler_torch.ops.rollout import fused_rollout_exp

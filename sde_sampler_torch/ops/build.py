@@ -60,11 +60,14 @@ LAUNCHES: dict[str, int] = {
 _SCORED = ("funnel", "gmm", "wells", "rings", "rosenbrock", "img", "given")
 ROLLOUT_INSTANCES = {
     "rollout": {"lerp": _SCORED, "score": _SCORED, "clipped": ("none",),
-                "lerp_target": _SCORED, "potential": ("none",), "cancel_drift": _SCORED},
+                "lerp_target": _SCORED, "potential": ("none",), "cancel_drift": _SCORED,
+                "lerp_prior": ("none",)},
     "rollout_exp": {"score": _SCORED},
 }
-# the forms whose instances take a per-coordinate score net
-SCORE_DIM_INSTANCES = {"rollout": ("lerp", "score"), "rollout_exp": ("score",)}
+# the forms whose instances take a per-coordinate score net: every form
+# with a score net
+SCORE_DIM_INSTANCES = {"rollout": ("lerp", "score", "lerp_target", "cancel_drift", "lerp_prior"),
+                       "rollout_exp": ("score",)}
 # the forms without a DenseNet body
 NO_DENSE_FORMS = ("potential",)
 FORM_LAUNCHES: dict[str, int] = {
@@ -134,12 +137,12 @@ class RolloutLaunch(ctypes.Structure):
     `csrc/rollout.cu`: the tensors' pointers, the stream, the shapes and
     the table's width and height, the sscore columns; the update (0: kernel
     1, 1: kernel 2), form, target, body asked for, rows a block asked for (0:
-    the plan's), `dry` (plan only); the clips, prior and four target
+    the plan's), `dry` (plan only); the clips and four target
     scalars; out: the body used and the plan (rows a block, blocks, shared
     memory bytes, the wide or streamed body's slice); then the base net (0:
     a FourierMLP, 1: a DenseNet, whose t table goes as `temb`, its packed
-    weights as `w_in` and its hidden layers as H) and a DenseNet's
-    widths."""
+    weights as `w_in` and its hidden layers as H), a DenseNet's widths,
+    and the lerp forms' prior: its locs and variances, d each."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
@@ -148,11 +151,11 @@ class RolloutLaunch(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "B", "D", "C", "H", "T", "K", "tab_w", "tab_h", "score_cols",
             "update", "form", "target", "body", "rows", "dry")]
-        + [(name, ctypes.c_float) for name in (
-            "clip_model", "clip_score", "prior_loc", "prior_var", "t0", "t1", "t2", "t3")]
+        + [(name, ctypes.c_float) for name in ("clip_model", "clip_score", "t0", "t1", "t2", "t3")]
         + [(name, ctypes.c_int) for name in (
             "used", "plan_rows", "plan_blocks", "plan_smem", "plan_slice", "net")]
         + [("widths", ctypes.c_int * DENSE_MAX_LAYERS)]
+        + [("prior_loc", ctypes.c_void_p), ("prior_var", ctypes.c_void_p)]
     )
 
 

@@ -14,14 +14,20 @@ The JAX kernel traces any step function; CUDA cannot, so these are
 specialised to control forms over a GELU `FourierMLP` or, in every form but
 the potential one, a ReLU `DenseNet` (`conf/model/base/densenet.yaml`; at
 most DENSE_MAX_LAYERS hidden layers of at most DENSE_MAX_WIDTH), with an
-optional `TimeEmbed` score net, of one output, or in the lerp and score
-forms of d outputs (`model=lerp_dim`, `score_dim`: a per-coordinate scale
-of the score term, a (T, d) table; `SCORE_DIM_FORMS`):
+optional `TimeEmbed` score net, of one output or of d outputs
+(`model=lerp_dim`, `score_dim`: a per-coordinate scale of the score term,
+a (T, d) table), to the control forms:
 
-- "lerp", a `LerpCtrl` with an `IsotropicGauss` prior (DIS), kernel 1 only;
+- "lerp", a `LerpCtrl` with a Gauss prior (DIS: an `IsotropicGauss`; PIS:
+  the `Delta`; any diagonal `Gauss`), its loc and variance passed per
+  coordinate (`prior_terms`), kernel 1 only;
 - "lerp_target", a `LerpTargetCtrl` (the generative control of
   `solver=bridge`), u = clip(net)·c + σ·sscore·clip(w·target score) with
   no prior term, kernel 1 only;
+- "lerp_prior", a `LerpPriorCtrl` (`model=lerp_prior`),
+  u = clip(net)·c + σ·sscore·clip(w·prior score) with w = 1 − t/T and no
+  target (its hard constraint's factor 2t/T), over the lerp form's priors,
+  kernel 1 only;
 - "score", a `ScoreCtrl` (PIS and EulerDDS on kernel 1, DDS on kernel 2);
 - "clipped", a `ClippedCtrl`, u = clip(net, clip_model) with no score
   (`solver=dis_no_score`, `pis_no_score`), kernel 1 only;
@@ -35,12 +41,14 @@ of the score term, a (T, d) table; `SCORE_DIM_FORMS`):
   package's order: the drift is subtracted inside u and added back by the
   EM update; kernel 1 only, on the control's own SDE;
 
-and, for the forms with a score, to the targets whose score the kernel
-evaluates inline (`TARGET_CODES`): "funnel" (`Funnel`), "gmm" (`GMM`, and
-`Gauss` and `IsotropicGauss` as one-component mixtures), "wells"
+and, for the forms with a target score, to the targets whose score the
+kernel evaluates inline (`TARGET_CODES`): "funnel" (`Funnel`), "gmm" (`GMM`,
+and `Gauss` and `IsotropicGauss` as one-component mixtures), "wells"
 (`DoubleWell`, `MultiWell`), "rings" (`Rings`, d = 2), "rosenbrock"
-(`Rosenbrock`) and "img" (`Img`, d = 2). A ClippedCtrl and a PotentialCtrl
-have no target ("none"). Each target has a float32 table, built on the
+(`Rosenbrock`) and "img" (`Img`, d = 2). A ClippedCtrl, a PotentialCtrl and
+a LerpPriorCtrl have no target ("none"). A base net of one output outside
+the potential form is broadcast over the coordinates, as the JAX package's
+control broadcasts it. Each target has a float32 table, built on the
 tensors' device per call: the mixture's loc (K, d), 1/scale² (K, d) and
 log w_k − Σ_j log scale_kj (K), the rings' radii, or the image's energy
 table (its width and height by value); and up to four scalars passed by
@@ -105,6 +113,7 @@ import torch.nn.functional as F
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
 from sde_sampler_torch.distr.base import Distribution
+from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.gauss import GMM, Gauss, IsotropicGauss
 from sde_sampler_torch.distr.img import Img, img_score
 from sde_sampler_torch.distr.rings import Rings, rings_score
@@ -115,6 +124,7 @@ from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
     LerpCtrl,
+    LerpPriorCtrl,
     LerpTargetCtrl,
     PotentialCtrl,
     ScoreCtrl,
@@ -124,16 +134,19 @@ from sde_sampler_torch.ops import build
 
 # kernel 1's control forms (kernel 2 has only the ScoreCtrl one)
 FORM_CODES = {"lerp": 0, "score": 1, "clipped": 3, "lerp_target": 4, "potential": 5,
-              "cancel_drift": 6}
+              "cancel_drift": 6, "lerp_prior": 7}
 FORMS = {LerpCtrl: "lerp", ScoreCtrl: "score", ClippedCtrl: "clipped",
          LerpTargetCtrl: "lerp_target", PotentialCtrl: "potential",
-         CancelDriftCtrl: "cancel_drift"}
+         CancelDriftCtrl: "cancel_drift", LerpPriorCtrl: "lerp_prior"}
 # the forms without a score, whose control is the net alone
 NET_FORMS = ("clipped", "potential")
+# the forms that read no target score
+NO_TARGET_FORMS = (*NET_FORMS, "lerp_prior")
 # the forms that interpolate a score along t / T and roll out their own SDE
-LERP_FORMS = ("lerp", "lerp_target")
-# the forms whose kernels take a score net of d outputs
-SCORE_DIM_FORMS = ("lerp", "score")
+LERP_FORMS = ("lerp", "lerp_target", "lerp_prior")
+# the forms with a prior score, and the priors whose score the kernel inlines
+PRIOR_FORMS = ("lerp", "lerp_prior")
+PRIORS = (IsotropicGauss, Gauss, Delta)
 # the targets whose score the kernels inline; "given" takes any other score
 TARGET_CODES = {"funnel": 0, "gmm": 1, "wells": 2, "none": 3, "rings": 4, "rosenbrock": 5,
                 "img": 6, "given": 7}
@@ -209,7 +222,8 @@ def kernel_instance(ctrl, sde=None, update: str = "em"):
     if form is None:
         return NoInstance("control", (
             "the rollout kernels need a LerpCtrl, a ScoreCtrl or a ClippedCtrl, a "
-            f"LerpTargetCtrl, a PotentialCtrl or a CancelDriftCtrl, got {type(ctrl).__name__}"))
+            "LerpTargetCtrl, a PotentialCtrl, a CancelDriftCtrl or a LerpPriorCtrl, got "
+            f"{type(ctrl).__name__}"))
     if form != "score" and update != "em":
         return NoInstance("update", "the exponential integrator needs a ScoreCtrl")
     base = ctrl.base_model
@@ -220,12 +234,8 @@ def kernel_instance(ctrl, sde=None, update: str = "em"):
             return NoInstance("score_net", (
                 "the rollout kernels need a TimeEmbed score net with one output or one "
                 "per coordinate"))
-        if score_model.dim_out > 1 and form not in SCORE_DIM_FORMS:
-            return NoInstance("score_net", (
-                f"the rollout kernels take a score net of d outputs in the {SCORE_DIM_FORMS} "
-                f"forms only, not in the {form} form"))
     kind, target = "none", None
-    if form not in NET_FORMS:
+    if form not in NO_TARGET_FORMS:
         target = _owner(ctrl.target_score, TARGETS)
         if target is not None:
             kind = TARGETS[type(target)]
@@ -238,10 +248,11 @@ def kernel_instance(ctrl, sde=None, update: str = "em"):
         if sde is not None and sde is not ctrl.sde:
             return NoInstance("sde", f"a {type(ctrl).__name__} rolls out its own SDE")
         sde = ctrl.sde
-    if form == "lerp":
-        prior = _owner(ctrl.prior_score, (IsotropicGauss,))
+    if form in PRIOR_FORMS:
+        prior = _owner(ctrl.prior_score, PRIORS)
         if prior is None:
-            return NoInstance("prior", "the rollout kernel needs an IsotropicGauss prior")
+            return NoInstance("prior", "the rollout kernel needs a Gauss prior (an "
+                              "IsotropicGauss, a diagonal Gauss or a Delta)")
     elif form in NET_FORMS and sde is None:
         sde = ctrl.sde
     if update == "em" and (not isinstance(sde, OU) or type(sde).drift is not OU.drift):
@@ -338,7 +349,8 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
     coefficient, diffusion, dt, lerp weight, scale_score * clip(score net)
     (0 for a ClippedCtrl and a PotentialCtrl) and the hard-constraint factor
     of the net output;
-    the lerp weight is t / T for the lerp forms and 0 for the others. A
+    the lerp weight is t / T for the lerp and lerp_target forms, 1 − t / T
+    for the lerp_prior form and 0 for the others. A
     CancelDriftCtrl takes the score's scale (σ(s)²/2 under langevin_init,
     else scale_score) in the lerp weight's column and clip(score net) alone
     in the next.
@@ -380,7 +392,9 @@ def step_tables(ctrl, sde, ts: torch.Tensor, clips=None, exp=None):
         columns = [*exp_coeffs(ts, *exp), torch.zeros_like(s), sscore, ones]
     else:
         diff = sde.diff_coeff_t(s) * ones
-        if form in LERP_FORMS:
+        if form == "lerp_prior":
+            w = 1.0 - s / sde.terminal_t
+        elif form in LERP_FORMS:
             w = s / sde.terminal_t
         elif form == "cancel_drift":
             w = diff**2 / 2 if ctrl.langevin_init else ctrl.scale_score * ones
@@ -508,15 +522,30 @@ def _dense_weights(base: DenseNet):
     return [packed, empty, empty, empty, empty]
 
 
-def _consts(ctrl, prior: IsotropicGauss | None, clips):
+def prior_terms(prior: Gauss | None, device):
+    """A Gauss prior's loc and variance per coordinate, as its score reads
+    them: two (d,) float32 tensors on `device` (an IsotropicGauss's filled
+    with its host floats loc0 and scale0², a diagonal Gauss's, a Delta's
+    among them, its loc and scale²); (None, None) without a prior."""
+    if prior is None:
+        return None, None
+    if isinstance(prior, IsotropicGauss):
+        return tuple(torch.full((prior.dim,), v, dtype=torch.float32, device=device)
+                     for v in (prior.loc0, prior.scale0**2))
+    loc, scale = (t[0].to(device=device, dtype=torch.float32) for t in (prior.loc, prior.scale))
+    return loc.contiguous(), (scale**2).contiguous()
+
+
+def _consts(ctrl, prior: Gauss | None, clips, device):
     inf = math.inf
     clip_model = _pick(clips, "clip_model", ctrl.clip_model)
     clip_score = _pick(clips, "clip_score", getattr(ctrl, "clip_score", None))
+    prior_loc, prior_var = prior_terms(prior, device)
     return dict(
         clip_model=inf if clip_model is None else float(clip_model),
         clip_score=inf if clip_score is None else float(clip_score),
-        prior_loc=0.0 if prior is None else prior.loc0,
-        prior_var=1.0 if prior is None else prior.scale0**2,
+        prior_loc=prior_loc,
+        prior_var=prior_var,
     )
 
 
@@ -629,6 +658,9 @@ def _plain_loop(x0, dbs, tab, temb, weights, target_tab, form, update, *, kind,
             out = h @ w_out + b_out
         if form == "clipped":
             u = _clip(out, clip_model)
+        elif form == "lerp_prior":  # w = 1 - t / T
+            lerp = _clip(w * ((prior_loc - x) / prior_var), clip_score)
+            u = _clip(out, clip_model) * cscale + diff * (sscore * lerp)
         else:
             target = _target_score(kind, x, target_tab, scalars, dims, score_fn)
             if form == "lerp":
@@ -678,12 +710,20 @@ def _prepare(ctrl, x0, ts, dbs, clips, sde=None, exp=None):
     base = ctrl.base_model
     net = net_kind(base)
     weights = _dense_weights(base) if net == "dense" else _weights(base)
+    if net == "fourier" and form != "potential" and weights[3].shape[1] == 1 and d > 1:
+        # a net of one output: its column broadcast over the coordinates
+        weights[3] = weights[3].expand(-1, d).contiguous()
+        weights[4] = weights[4].expand(d).contiguous()
     target_tab, scalars, dims = target_table(kind, target, x0.device)
     tensors = [x0, dbs, tab, temb, *weights, target_tab]
-    if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors):
+    consts = _consts(ctrl, prior, clips, x0.device)
+    priors = [t for t in (consts["prior_loc"], consts["prior_var"]) if t is not None]
+    if any(t.dtype != torch.float32 or t.device != x0.device for t in tensors + priors):
         raise TypeError("rollout inputs must be float32 on one device")
+    if any(t.shape != (d,) for t in priors):
+        raise ValueError(f"the prior has dimension {priors[0].numel()}, the state {d}")
     score_fn = ctrl.target_score if kind == "given" else None
-    consts = dict(_consts(ctrl, prior, clips), kind=kind, scalars=scalars, dims=dims,
+    consts = dict(consts, kind=kind, scalars=scalars, dims=dims,
                   score_fn=score_fn, net=net,
                   widths=dense_widths(base) if net == "dense" else ())
     return tensors, consts, form, update
@@ -735,6 +775,7 @@ def _launch_args(prepared, body: str, rows: int) -> build.RolloutLaunch:
     widths = c["widths"]
     # a FourierMLP's channels and hidden layers; a DenseNet's hidden layers
     C, H = (temb.shape[1], w_hid.shape[0]) if c["net"] == "fourier" else (0, len(widths))
+    prior = [None if t is None else t.data_ptr() for t in (c["prior_loc"], c["prior_var"])]
     return build.RolloutLaunch(
         *(t.data_ptr() for t in tensors), 0, 0,
         torch.cuda.current_stream(x0.device).cuda_stream,
@@ -742,9 +783,10 @@ def _launch_args(prepared, body: str, rows: int) -> build.RolloutLaunch:
         # the columns of sscore a step: one, or d after the six scalars
         tab.shape[1] - 6 if tab.shape[1] > 6 else 1,
         int(update == "exp"), FORM_CODES[form], TARGET_CODES[c["kind"]], BODY_CODES[body], rows, 0,
-        c["clip_model"], c["clip_score"], c["prior_loc"], c["prior_var"], *c["scalars"],
+        c["clip_model"], c["clip_score"], *c["scalars"],
         net=NET_CODES[c["net"]],
         widths=(ctypes.c_int * DENSE_MAX_LAYERS)(*widths),
+        prior_loc=prior[0], prior_var=prior[1],
     )
 
 
@@ -820,8 +862,9 @@ def fused_rollout(ctrl, x0, ts, dbs, clips=None, sde=None):
 
     A LerpCtrl integrates its own SDE and reads its prior and target from
     its bound score methods, a LerpTargetCtrl and a CancelDriftCtrl
-    likewise without a prior; a ClippedCtrl or a PotentialCtrl integrates
-    `sde`, by default its own; a ScoreCtrl needs the `sde`. A CUDA tensor
+    likewise without a prior, a LerpPriorCtrl without a target; a
+    ClippedCtrl or a PotentialCtrl integrates `sde`, by default its own; a
+    ScoreCtrl needs the `sde` (the loss's). A CUDA tensor
     launches kernel 1 (once a step for a given score), a CPU tensor runs
     the plain twin.
     """

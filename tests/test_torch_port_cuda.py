@@ -18,7 +18,10 @@ Tolerances (float32 on the card, sums in another order):
   the wide body; the PotentialCtrl's generic body the same (its register
   path at d = 2, 50 and 530, at ragged batches and rows asked for; the
   tiled body of 32- and 48-wide nets), and with a clip below every |net|
-  1e-6 of the bare SDE's update in both bodies;
+  1e-6 of the bare SDE's update in both bodies; the LerpPriorCtrl's
+  instances, and the lerp forms over a diagonal Gauss prior (PIS's Delta,
+  a Gauss of unequal coordinates) the same, where an IsotropicGauss and an
+  equal Gauss give the same bits;
 - the DenseNet body (a ReLU DenseNet, densenet.yaml's [200, 200]): each
   instance of the FourierMLP's targets, resident and streamed, which give
   the same bits, and the given score at d = 196: 1e-5 absolute and
@@ -41,9 +44,10 @@ import pytest
 import torch
 
 from sde_sampler_torch.distr.cox import Cox
+from sde_sampler_torch.distr.delta import Delta
 from sde_sampler_torch.distr.double_well import DoubleWell, MultiWell
 from sde_sampler_torch.distr.funnel import Funnel
-from sde_sampler_torch.distr.gauss import GMM, IsotropicGauss
+from sde_sampler_torch.distr.gauss import GMM, Gauss, IsotropicGauss
 from sde_sampler_torch.distr.img import Img
 from sde_sampler_torch.distr.rings import Rings
 from sde_sampler_torch.distr.rosenbrock import Rosenbrock
@@ -53,6 +57,7 @@ from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
     LerpCtrl,
+    LerpPriorCtrl,
     LerpTargetCtrl,
     PotentialCtrl,
     ScoreCtrl,
@@ -607,7 +612,8 @@ def test_wide_plan_fills_the_card(cuda, n, m):
 # pass in every step) at the mixture's d = 2 and at d = 16, the widest the
 # fast body holds. The rings (d = 2 only) and the Rosenbrock (conf's d = 15,
 # and d = 5 under kernel 2); the CancelDriftCtrl of model=langevin_init on
-# the grid mixture and the rings.
+# the grid mixture and the rings; the LerpPriorCtrl of model=lerp_prior (no
+# target: the target given is not read) at d = 2 and 16.
 TARGET_INSTANCES = {
     "lerp.gmm": ("lerp", lambda: GMM(name="grid"), 2),
     "lerp.gmm.multi": ("lerp", lambda: GMM(name="multi", domain_tol=None), 2),
@@ -632,11 +638,13 @@ TARGET_INSTANCES = {
     "cancel_drift.rings": ("cancel_drift", lambda: Rings(), 2),
     "lerp.img": ("lerp", lambda: Img(n_reference_samples=None), 2),
     "exp.img": ("exp", lambda: Img(n_reference_samples=None), 2),
+    "lerp_prior.none": ("lerp_prior", lambda: GMM(name="grid"), 2),
+    "lerp_prior.none.d16": ("lerp_prior", lambda: IsotropicGauss(dim=16), 16),
 }
 
 
 def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=False, net=None,
-                   dense=None):
+                   dense=None, prior=None):
     """The control of an instance with seeded weights, and its inputs: the
     last T steps of a 200-step grid for the EM forms (VP for the LerpCtrl,
     ClippedCtrl and CancelDriftCtrl, the PIS scaled BM for the ScoreCtrl, the Bridge's
@@ -644,7 +652,8 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=Fals
     with dt = 0 steps for kernel 2. `score_dim`: a score net of d outputs,
     each its own; `net`: the base net's width and depth, if not the
     configs'; `dense`: a ReLU DenseNet of these widths in place of the
-    FourierMLP. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
+    FourierMLP; `prior`: the lerp forms' prior, if not a standard
+    IsotropicGauss. Returns (prepare(x0, ts, noise), x0, ts, noise)."""
     from sde_sampler_torch.ops import rollout as ro
 
     form, make_target, d = spec or TARGET_INSTANCES[name]
@@ -654,7 +663,7 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=Fals
         sde = ScaledBM(diff_coeff=1.0, terminal_t=1.0)
     else:
         sde = VP(diff_coeff_sq_min=0.1, diff_coeff_sq_max=10.0)
-    base = FourierMLP(dim=d, dim_out=1 if form == "potential" else None, **(net or {}))
+    base = FourierMLP(dim=d, **{"dim_out": 1 if form == "potential" else None, **(net or {})})
     if dense is not None:
         base = DenseNet(dim=d, arch=dense)
     if form == "clipped":
@@ -665,13 +674,16 @@ def instance_setup(cuda, name, batch=29, T=12, seed=6, spec=None, score_dim=Fals
         target = make_target().to(cuda)
         # the score nets' last bias of conf/model/lerp.yaml and
         # langevin_init.yaml (1) and score.yaml (0.01)
-        bias = 1.0 if form in ("lerp", "lerp_target", "cancel_drift") else 0.01
+        bias = 1.0 if form in ("lerp", "lerp_target", "cancel_drift", "lerp_prior") else 0.01
         common = dict(base_model=base, target_score=target.score, clip_model=10.0,
                       clip_score=10.0,
                       score_model=TimeEmbed(dim_out=d if score_dim else 1, num_layers=4,
                                             last_bias_init={"constant": bias}))
+        prior_score = (prior or IsotropicGauss(dim=d)).to(cuda).score
         if form == "lerp":
-            ctrl = LerpCtrl(sde=sde, prior_score=IsotropicGauss(dim=d).score, **common)
+            ctrl = LerpCtrl(sde=sde, prior_score=prior_score, **common)
+        elif form == "lerp_prior":
+            ctrl = LerpPriorCtrl(sde=sde, prior_score=prior_score, **common)
         elif form == "lerp_target":
             ctrl = LerpTargetCtrl(sde=sde, **common)
         elif form == "cancel_drift":
@@ -1281,6 +1293,16 @@ SCORE_DIM = {
     "exp.funnel.generic": (("exp", lambda: Funnel(dim=10, n_reference_samples=100), 10),
                            "generic"),
     "lerp.given.d196": (("lerp", lambda: Cox(dim=196, use_whitened=True), 196), "shape"),
+    "lerp_target.gmm.fast": (("lerp_target", lambda: GMM(name="grid"), 2), "fast"),
+    "lerp_target.funnel.generic": (("lerp_target", lambda: Funnel(dim=10,
+                                                                   n_reference_samples=100),
+                                    10), "generic"),
+    "cancel_drift.gmm.fast": (("cancel_drift", lambda: GMM(name="grid"), 2), "fast"),
+    "cancel_drift.funnel.generic": (("cancel_drift", lambda: Funnel(dim=10,
+                                                                     n_reference_samples=100),
+                                     10), "generic"),
+    "lerp_prior.none.fast": (("lerp_prior", lambda: GMM(name="grid"), 2), "fast"),
+    "lerp_prior.none.generic": (("lerp_prior", lambda: IsotropicGauss(dim=10), 10), "generic"),
 }
 
 
@@ -1320,6 +1342,70 @@ def test_score_dim_instances_match_plain_twin(cuda, name):
     got = ro._launch(([*tensors[:2], equal, *tensors[3:]], consts, form_, update), body)
     want = ro._launch(([*tensors[:2], one, *tensors[3:]], consts, form_, update), body)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("body", ["fast", "generic"])
+def test_one_output_net_is_broadcast_on_the_card(cuda, body):
+    """A base net of one output outside the potential form (solver=bridge
+    model=potential: a LerpTargetCtrl over it) is broadcast over the
+    coordinates, as on the CPU: one step from the plain twin's states,
+    then the whole rollout."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    prepare, x0, ts, noise = instance_setup(cuda, "lerp_target.gmm", net={"dim_out": 1})
+    prepared = prepare(x0, ts, noise)
+    assert prepared[0][7].shape == (64, 2)  # the out layer's column, twice
+    xs, x_T = ro._launch(prepared, body)
+    xs_p, xT_p = ro._run_plain(prepared)
+    T = noise.shape[0]
+    for k in (0, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
+        torch.testing.assert_close(x1, xT_p if k == T - 1 else xs_p[k + 1], atol=1e-5,
+                                   rtol=1e-5)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+
+
+# The lerp forms' priors: PIS's Delta and a Gauss of unequal coordinates
+# (their locs and variances read per coordinate), in the LerpCtrl's and the
+# LerpPriorCtrl's form, on the mixture
+GAUSS_PRIORS = {
+    "delta": lambda: Delta(dim=2),
+    "unequal": lambda: Gauss(dim=2, loc=[0.5, -1.0], scale=[1.0, 2.0]),
+}
+
+
+@pytest.mark.parametrize("body", ["fast", "generic", "dense"])
+@pytest.mark.parametrize("prior", list(GAUSS_PRIORS))
+@pytest.mark.parametrize("form", ["lerp", "lerp_prior"])
+def test_gauss_prior_instances_match_plain_twin(cuda, form, prior, body):
+    """One step from the plain twin's own states, then the whole rollout,
+    in the body asked for (the DenseNet body's too); an IsotropicGauss prior
+    and an equal Gauss give the same bits."""
+    from sde_sampler_torch.ops import rollout as ro
+
+    spec = (form, lambda: GMM(name="grid"), 2)
+    dense = DENSE_ARCH if body == "dense" else None
+    prepare, x0, ts, noise = instance_setup(cuda, f"{form}.gmm", spec=spec, dense=dense,
+                                            prior=GAUSS_PRIORS[prior]())
+    prepared = prepare(x0, ts, noise)
+    assert ro.rollout_plan(prepared, body).body == body
+    xs, x_T = ro._launch(prepared, body)
+    xs_p, xT_p = ro._run_plain(prepared)
+    assert bool(torch.isfinite(xs_p).all())
+    T = noise.shape[0]
+    for k in (0, T // 2, T - 1):
+        _, x1 = ro._launch(prepare(xs_p[k].contiguous(), ts[k : k + 2], noise[k : k + 1]), body)
+        torch.testing.assert_close(x1, xT_p if k == T - 1 else xs_p[k + 1], atol=1e-5,
+                                   rtol=1e-5)
+    torch.testing.assert_close(xs, xs_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x_T, xT_p, atol=1e-5, rtol=1e-5)
+    outs = []
+    for same in (IsotropicGauss(dim=2, loc=0.5, scale=1.5), Gauss(dim=2, loc=0.5, scale=1.5)):
+        prepare, x0, ts, noise = instance_setup(cuda, f"{form}.gmm", spec=spec, dense=dense,
+                                                prior=same)
+        outs.append(ro._launch(prepare(x0, ts, noise), body))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def _lerp_on(device, base=None):

@@ -50,6 +50,7 @@ from sde_sampler_torch.models.reparam import (
     CancelDriftCtrl,
     ClippedCtrl,
     LerpCtrl,
+    LerpPriorCtrl,
     LerpTargetCtrl,
     PotentialCtrl,
     ScoreCtrl,
@@ -312,6 +313,8 @@ def _controls():
                       None),
         "cancel_drift": (lambda base: CancelDriftCtrl(base_model=base, sde=sde, **score),
                          net(), None),
+        "lerp_prior": (lambda base: LerpPriorCtrl(base_model=base, sde=sde,
+                                                  prior_score=prior.score, **score), net(), None),
     }
 
 

@@ -21,9 +21,9 @@ card) and their plain twins multiply coordinate j's score term by column j.
   one-output net with that output: the per-coordinate path runs the
   one-output arithmetic (the card holds the kernels to the same in
   chip_smoke.py).
-- Score nets of another width, and d outputs in the forms whose kernels
-  have no per-coordinate instance (lerp_target, cancel_drift), raise on
-  both devices.
+- Score nets of another width raise on both devices; d outputs in the
+  lerp_target and cancel_drift forms give their one-output bits too (their
+  parity with the JAX package in tests/test_torch_port_forms.py).
 - Three DIS optimizer steps with `model@generative_ctrl=lerp_dim` against
   the JAX train step, at tests/test_torch_port_targets.py's tolerances.
 """
@@ -207,12 +207,20 @@ def test_other_score_net_widths_and_forms_raise():
     ctrl.score_model = TimeEmbed(dim_out=3)
     with pytest.raises(NotImplementedError, match="one output or one per coordinate"):
         ro.fused_rollout(ctrl, x0, ts, dbs)
+    # the lerp_target and cancel_drift forms take d outputs too: equal
+    # outputs give the one-output bits
     sde, target = VP(**VP_KW), Funnel(dim=D, n_reference_samples=100)
+    one = TimeEmbed(dim_out=1, num_layers=4, channels=64, last_bias_init={"constant": 0.5})
+    one.reset_parameters(torch.Generator().manual_seed(7))
+    x0, dbs = torch.randn(B, D) * 0.5, torch.randn(T, B, D) * 0.05
     for cls, kw in ((LerpTargetCtrl, {}), (CancelDriftCtrl, {"langevin_init": True})):
-        other = cls(base_model=FourierMLP(dim=D), score_model=TimeEmbed(dim_out=D), sde=sde,
-                    target_score=target.score, **kw)
-        with pytest.raises(NotImplementedError, match="d outputs in the"):
-            ro.fused_rollout(other, x0, ts, dbs)
+        other = cls(base_model=FourierMLP(dim=D), score_model=one, sde=sde,
+                    target_score=target.score, clip_model=10.0, clip_score=10.0, **kw)
+        want = ro.fused_rollout(other, x0, ts, dbs)
+        other.score_model = EqualOutputs(one, D)
+        assert ro.per_coord(other)
+        got = ro.fused_rollout(other, x0, ts, dbs)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     # a d-output net at d = 1 is the one-output net
     one_d = ScoreCtrl(base_model=FourierMLP(dim=1), score_model=TimeEmbed(dim_out=1),
                       target_score=lambda x: -x)
